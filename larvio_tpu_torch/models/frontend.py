@@ -1,0 +1,213 @@
+"""IMU-aided feature-tracking front-end (port of
+``larvio_tpu/models/frontend.py``): pyramid, gyro-predicted pyramidal LK
+(kernel K1 on the card), two-point RANSAC, Shi-Tomasi grid replenishment,
+the ORB descriptor gate (kernel K2 on the card), then ``FrameFeatures``.
+
+The feature table is fixed-slot: a track keeps its slot for life, slots
+free on death and refill from per-cell detection candidates the same frame.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import torch
+
+from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.core.camera import project, undistort_normalize
+from larvio_tpu_torch.core.so3 import so3_exp
+from larvio_tpu_torch.core.tree import Struct
+from larvio_tpu_torch.models.msckf import FrameFeatures
+from larvio_tpu_torch.models.propagation import ImuBatch
+from larvio_tpu_torch.models.state import extrinsic_rotation
+from larvio_tpu_torch.ops import prng
+from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
+from larvio_tpu_torch.ops.image import build_pyramid, in_bounds
+from larvio_tpu_torch.ops.lk import make_grad_pyramid
+from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
+from larvio_tpu_torch.ops.orb import N_WORDS, describe, hamming
+from larvio_tpu_torch.ops.ransac import two_point_ransac
+
+
+@dataclass
+class TrackerState(Struct):
+    """Persistent front-end state (the previous frame's table and pyramid)."""
+
+    pos: torch.Tensor  # (F, 2) px positions in the previous frame
+    ids: torch.Tensor  # (F,) int32, -1 = free slot
+    age: torch.Tensor  # (F,) int32 frames tracked
+    desc: torch.Tensor  # (F, 8) int32 bit patterns of the birth descriptor
+    uv_norm: torch.Tensor  # (F, 2) undistorted normalized coords (prev frame)
+    valid: torch.Tensor  # (F,) bool
+    next_id: torch.Tensor  # () int32
+    prev_pyr: tuple  # pyramid of the previous frame
+    prev_time: torch.Tensor  # ()
+    has_prev: torch.Tensor  # () bool
+
+
+def init_tracker_state(cfg: VioConfig, device, dtype=torch.float32) -> TrackerState:
+    F = cfg.frontend.max_features
+    H, W = cfg.camera.height, cfg.camera.width
+    pyr = tuple(
+        torch.zeros((-(-H // (2**lvl)), -(-W // (2**lvl))), dtype=dtype, device=device)
+        for lvl in range(cfg.frontend.pyramid_levels + 1)
+    )
+    i32 = dict(dtype=torch.int32, device=device)
+    return TrackerState(
+        pos=torch.zeros((F, 2), dtype=dtype, device=device),
+        ids=torch.full((F,), -1, **i32),
+        age=torch.zeros(F, **i32),
+        desc=torch.zeros((F, N_WORDS), **i32),
+        uv_norm=torch.zeros((F, 2), dtype=dtype, device=device),
+        valid=torch.zeros(F, dtype=torch.bool, device=device),
+        next_id=torch.tensor(0, **i32),
+        prev_pyr=pyr,
+        prev_time=torch.tensor(0.0, dtype=dtype, device=device),
+        has_prev=torch.tensor(False, device=device),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _R_ci(cfg: VioConfig, device, dtype) -> torch.Tensor:
+    """Extrinsic rotation on the device, computed once per config (host SVD)."""
+    return torch.as_tensor(extrinsic_rotation(cfg), dtype=dtype, device=device)
+
+
+def _gyro_cam_rotation(imu: ImuBatch, t0, t1, bg):
+    """IMU-frame rotation prev->curr from the mean gyro over (t0, t1]."""
+    in_win = imu.valid & (imu.t > t0) & (imu.t <= t1)
+    cnt = torch.clamp(torch.sum(in_win), min=1)
+    w_mean = torch.sum(torch.where(in_win[:, None], imu.w, 0.0), dim=0) / cnt - bg
+    return so3_exp(-w_mean * (t1 - t0))
+
+
+def _predict_positions(cfg: VioConfig, pos_px, valid, R_cc):
+    """Rotate previous feature rays by the gyro rotation, reproject to px."""
+    uvn = undistort_normalize(pos_px, cfg.camera)
+    rays = torch.cat([uvn, torch.ones_like(uvn[..., :1])], dim=-1)
+    rot = rays @ R_cc.T
+    uvn_pred = rot[..., :2] / torch.clamp(rot[..., 2:3], min=1e-6)
+    return torch.where(valid[:, None], project(uvn_pred, cfg.camera), pos_px)
+
+
+def track_frame(cfg: VioConfig, ts: TrackerState, image: torch.Tensor, imu: ImuBatch,
+                t_img: torch.Tensor, bg: torch.Tensor):
+    """One frame of tracking. image: (H, W) float32 in [0, 255].
+    Returns (TrackerState, FrameFeatures)."""
+    fcfg = cfg.frontend
+    F = fcfg.max_features
+    dtype, dev = image.dtype, image.device
+    H, W = image.shape
+
+    pyr = tuple(build_pyramid(image, fcfg.pyramid_levels))
+    grad_pyr = make_grad_pyramid(list(ts.prev_pyr))
+
+    # ---- gyro-predicted LK tracking (kernel K1 on CUDA tensors) -------------
+    R_ii = _gyro_cam_rotation(imu, ts.prev_time, t_img, bg)
+    R_ci = _R_ci(cfg, dev, dtype)
+    R_cc = R_ci @ R_ii @ R_ci.T  # prev cam -> curr cam
+    can_track = ts.valid & ts.has_prev
+    guess = _predict_positions(cfg, ts.pos, can_track, R_cc)
+    lk = lk_track_cuda(
+        ts.prev_pyr, pyr,
+        tuple(g[0] for g in grad_pyr), tuple(g[1] for g in grad_pyr),
+        ts.pos, guess, can_track,
+        patch=fcfg.patch_size, iters=fcfg.max_iteration, precision=fcfg.track_precision,
+    )
+
+    # ---- two-point RANSAC (bit-exact JAX PRNG) -------------------------------
+    tracked = lk.valid
+    uvn_curr = undistort_normalize(lk.pos, cfg.camera)
+    key = prng.fold_in(prng.prng_key(0, dev), (t_img * 1e4).to(torch.int32))
+    rr = two_point_ransac(
+        ts.uv_norm, uvn_curr, R_cc, tracked, key,
+        threshold=fcfg.ransac_threshold / cfg.camera.intrinsics[0],
+        n_hyp=fcfg.ransac_hypotheses,
+    )
+    tracked = tracked & rr.inliers
+
+    # ---- grid replenishment ---------------------------------------------------
+    resp = nms(shi_tomasi_response(image), radius=fcfg.min_distance // 2)
+    scores, cand_xy = grid_topk(
+        resp, fcfg.grid_rows, fcfg.grid_cols, fcfg.grid_max_feature_num,
+        border=max(fcfg.patch_size, 18),  # ORB needs a 17px margin
+    )
+    n_cells = fcfg.grid_rows * fcfg.grid_cols
+    ch = -(-H // fcfg.grid_rows)
+    cw = -(-W // fcfg.grid_cols)
+    # .to(int32) truncates toward zero and // floors, as in the JAX package
+    cell_of = (
+        torch.clamp(lk.pos[:, 1].to(torch.int32) // ch, 0, fcfg.grid_rows - 1) * fcfg.grid_cols
+        + torch.clamp(lk.pos[:, 0].to(torch.int32) // cw, 0, fcfg.grid_cols - 1)
+    )
+    occupancy = torch.zeros(n_cells, dtype=torch.int32, device=dev).index_add_(
+        0, cell_of.long(), tracked.to(torch.int32)
+    )
+    d2 = torch.sum((cand_xy.reshape(-1, 1, 2) - lk.pos[None, :, :]) ** 2, dim=-1)  # (cells*k, F)
+    near_track = torch.any((d2 < float(fcfg.min_distance) ** 2) & tracked[None, :], dim=1).reshape(n_cells, -1)
+
+    cand_ok = (scores > fcfg.fast_threshold) & ~near_track
+    rank_in_cell = torch.cumsum(cand_ok.to(torch.int32), dim=1) - 1
+    need = occupancy < fcfg.grid_min_feature_num
+    quota = torch.where(need, torch.clamp(fcfg.grid_max_feature_num - occupancy, min=0), 0)
+    cand_ok = cand_ok & (rank_in_cell < quota[:, None])
+
+    cand_xy_flat = cand_xy.reshape(-1, 2)
+    cand_ok_flat = cand_ok.reshape(-1)
+    cand_score_flat = torch.where(cand_ok_flat, scores.reshape(-1), -1.0)
+    n_cand = cand_xy_flat.shape[0]
+    if n_cand < F:  # pad the pool so slot assignment is shape-safe
+        cand_xy_flat = torch.cat([cand_xy_flat, torch.zeros((F - n_cand, 2), dtype=dtype, device=dev)])
+        cand_ok_flat = torch.cat([cand_ok_flat, torch.zeros(F - n_cand, dtype=torch.bool, device=dev)])
+        cand_score_flat = torch.cat([cand_score_flat, torch.full((F - n_cand,), -1.0, dtype=dtype, device=dev)])
+
+    # k-th free slot takes the k-th best candidate (stable orders, as jnp.argsort)
+    free = ~tracked
+    order_slots = torch.argsort(tracked.to(torch.int32), stable=True)  # free slots first
+    order_cands = torch.argsort(-cand_score_flat, stable=True)
+    take = torch.arange(F, device=dev) < torch.minimum(torch.sum(free), torch.sum(cand_ok_flat))
+    slot_idx = order_slots[:F]
+    cand_idx = order_cands[:F]
+    new_pos = torch.zeros((F, 2), dtype=dtype, device=dev)
+    new_pos[slot_idx] = torch.where(take[:, None], cand_xy_flat[cand_idx], 0.0)
+    is_new = torch.zeros(F, dtype=torch.bool, device=dev)
+    is_new[slot_idx] = take
+
+    pos = torch.where(is_new[:, None], new_pos, lk.pos)
+    new_ids = ts.next_id + torch.cumsum(is_new.to(torch.int32), dim=0) - 1
+    ids = torch.where(is_new, new_ids, torch.where(tracked, ts.ids, -1)).to(torch.int32)
+    next_id = (ts.next_id + torch.sum(is_new)).to(torch.int32)
+    age = torch.where(is_new, 0, torch.where(tracked, ts.age + 1, 0)).to(torch.int32)
+    valid = tracked | is_new
+
+    # one descriptor pass over the final table (kernel K2 on CUDA tensors):
+    # ORB gate for survivors, birth descriptors for the newly detected
+    desc_now = describe(image, pos, valid)
+    margin_ok = in_bounds(pos, (H, W), margin=17.0)
+    dist = hamming(desc_now, ts.desc)
+    desc_ok = (dist <= fcfg.orb_distance_threshold) & margin_ok
+    tracked = tracked & (desc_ok | is_new)
+    valid = tracked | is_new
+    ids = torch.where(valid, ids, -1)
+    desc = torch.where(is_new[:, None], desc_now, ts.desc)
+
+    # ---- measurement assembly ---------------------------------------------------
+    uvn = undistort_normalize(pos, cfg.camera)
+    dt = torch.clamp(t_img - ts.prev_time, min=1e-6)
+    moved = tracked & ~is_new
+    vel = torch.where(moved[:, None], (uvn - ts.uv_norm) / dt, 0.0)
+    motion = torch.linalg.norm(uvn - ts.uv_norm, dim=-1)
+    n_moved = torch.sum(moved)
+    mean_motion = torch.where(
+        n_moved > 0,
+        torch.sum(torch.where(moved, motion, 0.0)) / torch.clamp(n_moved, min=1),
+        1.0,
+    ).to(dtype)
+
+    feats = FrameFeatures(ids=ids, uv=uvn, vel=vel, valid=valid, mean_motion=mean_motion, t=t_img)
+    ts_new = TrackerState(
+        pos=pos, ids=ids, age=age, desc=desc, uv_norm=uvn, valid=valid, next_id=next_id,
+        prev_pyr=pyr, prev_time=t_img, has_prev=torch.ones_like(ts.has_prev),
+    )
+    return ts_new, feats

@@ -1,0 +1,316 @@
+"""The per-frame filter step, pure-MSCKF configuration (port of
+``larvio_tpu/models/msckf.py``).
+
+Stage order as in the JAX package: static-init accumulation, IMU
+propagation, the vision-time gate, ZUPT detection, one dead-track + prune
+marginalization update, clone removal, augmentation + observation insertion,
+ZUPT update, online reset. Every data-dependent choice is a device-side
+select (``tree_where`` / ``torch.where``); only configuration branches are
+Python. The hybrid SLAM update (``max_slam_features > 0``) is not ported
+yet: ``filter_step`` raises for it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.core.device import const
+from larvio_tpu_torch.core.tree import Struct, tree_where
+from larvio_tpu_torch.models import prune as prune_mod
+from larvio_tpu_torch.models.augmentation import add_observations, augment_state
+from larvio_tpu_torch.models.initializer import (
+    InitAccumulator,
+    accumulate,
+    gravity_aligned_quat,
+    try_static_init,
+)
+from larvio_tpu_torch.models.propagation import ImuBatch, propagate
+from larvio_tpu_torch.models.state import (
+    IDX_TD,
+    IMU_DIM,
+    FilterState,
+    cov_diag,
+    init_filter_state,
+    initial_covariance_diag,
+    state_dim,
+)
+from larvio_tpu_torch.models.triangulation import camera_window, triangulate_batch
+from larvio_tpu_torch.models.update import apply_update, feature_block, prune_feature_block
+from larvio_tpu_torch.models.zupt import detect_stationary, zupt_update
+
+
+@dataclass
+class FrameFeatures(Struct):
+    """Front-end -> back-end contract, slot-aligned with the feature table."""
+
+    ids: torch.Tensor  # (F,) int32 track ids, -1 invalid
+    uv: torch.Tensor  # (F, 2) undistorted normalized coords
+    vel: torch.Tensor  # (F, 2) image-plane velocity
+    valid: torch.Tensor  # (F,) bool
+    mean_motion: torch.Tensor  # () mean normalized-plane track displacement
+    t: torch.Tensor  # () image timestamp
+
+
+@dataclass
+class VioState(Struct):
+    filter: FilterState
+    init_acc: InitAccumulator
+
+
+@dataclass
+class StepOutput(Struct):
+    q: torch.Tensor  # (4,) world->IMU quaternion
+    p: torch.Tensor  # (3,)
+    v: torch.Tensor  # (3,)
+    t: torch.Tensor  # ()
+    td: torch.Tensor  # ()
+    bg: torch.Tensor  # (3,)
+    ba: torch.Tensor  # (3,)
+    initialized: torch.Tensor
+    stationary: torch.Tensor
+    n_clones: torch.Tensor
+    n_tracks: torch.Tensor
+    n_updated: torch.Tensor
+    n_slam: torch.Tensor
+    p_std: torch.Tensor  # (3,)
+    v_std: torch.Tensor  # (3,)
+    q_std: torch.Tensor  # (3,)
+    did_reset: torch.Tensor
+
+
+def init_vio_state(cfg: VioConfig, device, dtype=torch.float32) -> VioState:
+    return VioState(filter=init_filter_state(cfg, device, dtype),
+                    init_acc=InitAccumulator.zero(device, dtype))
+
+
+def _all_finite(x: torch.Tensor) -> torch.Tensor:
+    return torch.all(torch.isfinite(x))
+
+
+def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest scores, ties lower-index first (jax.lax.top_k)."""
+    return torch.sort(score, descending=True, stable=True).indices[:k]
+
+
+def _high_vel_unc(cfg: VioConfig, fs: FilterState) -> torch.Tensor:
+    return torch.amax(cov_diag(cfg, fs.P)[6:9]) > cfg.filter.bootstrap_vel_var
+
+
+def _bootstrap_mode(cfg: VioConfig, fs: FilterState) -> torch.Tensor:
+    """Clone window still rebuilding AND high velocity uncertainty."""
+    window_building = torch.sum(fs.clones.valid) < cfg.filter.max_clones - 2
+    return window_building & _high_vel_unc(cfg, fs)
+
+
+def _tri_err_bound(cfg: VioConfig, fs: FilterState) -> torch.Tensor:
+    return torch.where(
+        _bootstrap_mode(cfg, fs), cfg.filter.bootstrap_tri_err_bound, cfg.filter.tri_max_reproj_err
+    )
+
+
+def _trim_rows(cfg: VioConfig, tri, mask):
+    """Drop observations whose raw reprojection residual exceeds tri_trim_k x
+    the window's own robust scale."""
+    k = cfg.filter.tri_trim_k
+    if k <= 0:
+        return mask
+    rn = torch.where(mask, tri.resid, 0.0)
+    n = torch.clamp(torch.sum(mask, dim=1), min=1).to(rn.dtype)
+    scale = torch.clamp(torch.sum(rn, dim=1) / n, min=cfg.filter.tri_trim_floor)
+    return mask & (tri.resid <= k * scale[:, None])
+
+
+def _marginalization_blocks(cfg: VioConfig, fs: FilterState, feats: FrameFeatures, slot_a, slot_b, do_prune):
+    """Dead-track + prune-observation blocks from ONE triangulation batch.
+    Returns (H_stack, r_stack, n_accepted, dead_rows)."""
+    C = cfg.filter.max_clones
+    F = fs.obs.track_id.shape[0]
+    # the JAX package's top_k would reject k > F; clamping keeps small tables legal
+    K = min(cfg.filter.max_update_features, F)
+    K2 = min(cfg.filter.max_prune_features, F)
+    D = state_dim(cfg)
+    obs = fs.obs
+    dev = fs.P.device
+
+    still_tracked = feats.valid & (feats.ids == obs.track_id)
+    has_row = obs.track_id >= 0
+    n_obs = torch.sum(obs.valid, dim=1)
+    dead = has_row & ~still_tracked
+    idx_d = top_k_indices(torch.where(dead, n_obs, -1), K)
+    sel_d = dead[idx_d]
+
+    ar_c = torch.arange(C, device=dev)
+    pruned_cols = (ar_c == slot_a) | (ar_c == slot_b)
+    row_mask_all = obs.valid & pruned_cols[None, :]
+    involved = torch.sum(row_mask_all, dim=1)
+    use_p = has_row & ~dead & do_prune & (involved >= 2) & (n_obs >= 2)
+    idx_p = top_k_indices(torch.where(use_p, n_obs, -1), K2)
+    sel_p = use_p[idx_p]
+
+    idx = torch.cat([idx_d, idx_p])
+    sel = torch.cat([sel_d, sel_p])
+    uv_b = obs.uv[idx]
+    tri_mask = obs.valid[idx] & sel[:, None]
+    tri = triangulate_batch(cfg, camera_window(fs), fs.clones.frame, uv_b, tri_mask)
+    tri_ok = tri.valid & (tri.mean_err < _tri_err_bound(cfg, fs))
+    trim = _trim_rows(cfg, tri, tri_mask)
+
+    row_d = trim[:K] & sel_d[:, None]
+    blocks = feature_block(cfg, fs, tri.p_w[:K], uv_b[:K], row_d, tri_ok[:K] & sel_d)
+
+    slots = torch.stack([slot_a, slot_b])
+    uv_p = obs.uv[idx_p][:, slots]  # (K2, 2, 2)
+    ok_p = row_mask_all[idx_p][:, slots] & sel_p[:, None] & trim[K:][:, slots]
+    H_p, r_p, acc_p = prune_feature_block(cfg, fs, tri.p_w[K:], uv_p, slots, ok_p, tri_ok[K:] & sel_p)
+
+    H_stack = torch.cat([blocks.H.reshape(K * 2 * C, D), H_p], dim=0)
+    r_stack = torch.cat([blocks.r.reshape(K * 2 * C), r_p])
+    n_accepted = torch.sum(blocks.accept) + torch.sum(acc_p)
+    return H_stack, r_stack, n_accepted, dead
+
+
+def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatch):
+    """One frame. Returns (VioState, StepOutput)."""
+    if cfg.filter.max_slam_features > 0:
+        raise NotImplementedError(
+            "larvio_tpu_torch ports the pure-MSCKF configuration (max_slam_features=0); "
+            "the hybrid SLAM update is not ported yet"
+        )
+    fs0 = vs.filter
+    dtype, dev = fs0.P.dtype, fs0.P.device
+    C = cfg.filter.max_clones
+    fcfg = cfg.filter
+
+    # ---- 1. initialization path (masked) ------------------------------------
+    acc = accumulate(vs.init_acc, imu, feats.mean_motion)
+    fs_init, acc, _ = try_static_init(cfg, fs0, acc)
+    inited = fs_init.initialized
+
+    # ---- 2. propagation (returns the WIDE factor; pad the other branch) -----
+    fs_prop = propagate(cfg, fs_init, imu, feats.t)
+    pad = fs_prop.P.shape[1] - fs_init.P.shape[1]
+    fs_init_m = fs_init.replace(P=torch.cat(
+        [fs_init.P, torch.zeros((fs_init.P.shape[0], pad), dtype=dtype, device=dev)], dim=1))
+    fs = tree_where(inited, fs_prop, fs_init_m)
+
+    # ---- 2b. vision-time gate -----------------------------------------------
+    t_reached = fs.time >= feats.t + fs.td - fcfg.vision_time_tol
+    feats = feats.replace(valid=feats.valid & (t_reached | ~inited))
+
+    # ---- 3. ZUPT detection --------------------------------------------------
+    n_tracked = torch.sum(feats.valid).to(torch.int32)
+    stationary = detect_stationary(cfg, feats.mean_motion, n_tracked, fs, imu) & inited
+
+    # ---- 4. dead-track + prune blocks -> one update, THEN remove clones -----
+    n_clones = torch.sum(fs.clones.valid)
+    do_prune = (n_clones >= C) & inited
+    slot_a, slot_b = prune_mod.select_redundant(cfg, fs)
+    H_stack, r_stack, n_accepted, dead_rows = _marginalization_blocks(
+        cfg, fs, feats, slot_a, slot_b, do_prune
+    )
+    do_update = inited & (n_accepted > 0)
+    infl = cfg.noise.observation_noise**2 * fcfg.bootstrap_noise_inflation
+    obs_var = torch.where(
+        _high_vel_unc(cfg, fs),
+        max(infl, fcfg.bootstrap_noise_floor**2),
+        cfg.noise.observation_noise**2,
+    ).to(dtype)
+    # refactor=True: with S == 0 nothing later this frame re-squares the factor
+    fs, _, _ = apply_update(cfg, fs, H_stack, r_stack, obs_var, enable=do_update, refactor=True)
+
+    fs = fs.replace(obs=fs.obs.replace(
+        valid=fs.obs.valid & ~dead_rows[:, None],
+        track_id=torch.where(dead_rows, -1, fs.obs.track_id),
+    ))
+    fs = prune_mod.remove_clones(cfg, fs, slot_a, slot_b, do_prune)
+
+    # ---- 5. augmentation + observation insertion ----------------------------
+    do_augment = inited & t_reached & (torch.sum(fs.clones.valid) < C)
+    last = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf))
+    fs, slot = augment_state(cfg, fs, do_augment, imu.w[last] - fs.bg)
+    fs = add_observations(cfg, fs, slot, feats.ids, feats.uv, feats.valid)
+
+    # ---- 8. ZUPT update -----------------------------------------------------
+    fs = zupt_update(cfg, fs, stationary)
+
+    # ---- 10. online reset ---------------------------------------------------
+    diagP = cov_diag(cfg, fs.P)
+    blown = (
+        (torch.amax(diagP[12:15]) > fcfg.position_std_threshold**2)
+        | ~_all_finite(diagP)
+        | ~(_all_finite(fs.q) & _all_finite(fs.p) & _all_finite(fs.v))
+        | (inited & (torch.amin(diagP[:IMU_DIM]) <= 0.0))
+    )
+    do_reset = blown & inited
+    # dynamic-mode prior; calibration states that survived finite keep tight priors
+    d_reset = const(initial_covariance_diag(cfg, mode="dynamic").tolist(), dtype, dev)
+    ar = torch.arange(d_reset.shape[0], device=dev)
+
+    def _cal_var(d, i0, n, var_keep, survived):
+        return torch.where((ar >= i0) & (ar < i0 + n) & survived, var_keep, d)
+
+    q_ok = _all_finite(fs.q)
+    d_reset = _cal_var(d_reset, 0, 2, fcfg.reset_rp_std**2, q_ok)
+    d_reset = _cal_var(d_reset, 2, 1, fcfg.reset_yaw_std**2, q_ok)
+    d_reset = _cal_var(d_reset, 0, 2, fcfg.reset_accel_seed_rp_std**2, ~q_ok)
+    d_reset = _cal_var(d_reset, 3, 3, fcfg.reset_bg_std**2, _all_finite(fs.bg))
+    d_reset = _cal_var(d_reset, 9, 3, fcfg.reset_ba_std**2, _all_finite(fs.ba))
+    if fcfg.estimate_td:
+        d_reset = _cal_var(d_reset, IDX_TD, 1, fcfg.reset_td_std**2, torch.isfinite(fs.td))
+
+    def _san(x, fallback):
+        bad = do_reset & ~_all_finite(x)
+        return torch.where(bad, fallback, x)
+
+    last_v = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf))
+    a_seed = imu.a[last_v]
+    a_fin = torch.where(torch.isfinite(a_seed), a_seed, 0.0)
+    a_ok = _all_finite(a_seed) & (torch.linalg.norm(a_fin) > 1.0)
+    q_fallback = torch.where(a_ok, gravity_aligned_quat(a_fin), const((0.0, 0.0, 0.0, 1.0), dtype, dev))
+    q_s = _san(fs.q, q_fallback)
+    v_s = _san(fs.v, 0.0)
+    p_s = _san(fs.p, 0.0)
+    fs = fs.replace(
+        P=torch.where(do_reset, torch.diag(torch.sqrt(d_reset)), fs.P),
+        q=q_s, v=v_s, p=p_s,
+        bg=_san(fs.bg, 0.0),
+        ba=_san(fs.ba, 0.0),
+        time=_san(fs.time, feats.t),
+        td=_san(fs.td, fcfg.td_initial),
+        q_null=torch.where(do_reset, q_s, fs.q_null),
+        v_null=torch.where(do_reset, v_s, fs.v_null),
+        p_null=torch.where(do_reset, p_s, fs.p_null),
+        clones=fs.clones.replace(valid=fs.clones.valid & ~do_reset),
+        slam=fs.slam.replace(
+            valid=fs.slam.valid & ~do_reset,
+            track_id=torch.where(do_reset, -1, fs.slam.track_id),
+            track_slot=torch.where(do_reset, -1, fs.slam.track_slot),
+            anchor_slot=torch.where(do_reset, -1, fs.slam.anchor_slot),
+        ),
+        obs=fs.obs.replace(
+            valid=fs.obs.valid & ~do_reset,
+            track_id=torch.where(do_reset, -1, fs.obs.track_id),
+        ),
+        reset_count=fs.reset_count + do_reset.to(torch.int32),
+        frame=fs.frame + 1,
+        stationary=stationary,
+    )
+
+    diag_out = cov_diag(cfg, fs.P)
+    out = StepOutput(
+        q=fs.q, p=fs.p, v=fs.v, t=fs.time, td=fs.td, bg=fs.bg, ba=fs.ba,
+        initialized=inited,
+        stationary=stationary,
+        n_clones=torch.sum(fs.clones.valid).to(torch.int32),
+        n_tracks=n_tracked,
+        n_updated=torch.where(do_update, n_accepted, 0).to(torch.int32),
+        n_slam=torch.sum(fs.slam.valid).to(torch.int32),
+        p_std=torch.sqrt(torch.clamp(diag_out[12:15], min=0.0)),
+        v_std=torch.sqrt(torch.clamp(diag_out[6:9], min=0.0)),
+        q_std=torch.sqrt(torch.clamp(diag_out[0:3], min=0.0)),
+        did_reset=do_reset,
+    )
+    return VioState(filter=fs, init_acc=acc), out

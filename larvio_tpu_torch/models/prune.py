@@ -1,0 +1,59 @@
+"""Clone-window pruning: redundancy selection + covariance row removal (port
+of ``larvio_tpu/models/prune.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.core.quaternion import quat_inverse, quat_multiply, quat_to_rotation
+from larvio_tpu_torch.core.so3 import so3_log
+from larvio_tpu_torch.models.state import CLONE_BASE, CLONE_DIM, FilterState, state_dim
+
+
+def select_redundant(cfg: VioConfig, fs: FilterState):
+    """Pick 2 clone slots to remove (window full). Returns (slot_a, slot_b).
+
+    Key clone = fourth newest; if the third / second newest are close to it
+    they go, otherwise the oldest. Ties in the frame order keep the lower
+    slot first (stable sort, as ``jnp.argsort``).
+    """
+    fcfg = cfg.filter
+    frame = torch.where(fs.clones.valid, fs.clones.frame, torch.iinfo(torch.int32).max)
+    order = torch.argsort(frame, stable=True)  # oldest first; invalid slots last
+    n = torch.sum(fs.clones.valid)
+    key = order[torch.clamp(n - 4, min=0)]
+    cand1 = order[torch.clamp(n - 3, min=0)]
+    cand2 = order[torch.clamp(n - 2, min=0)]
+    q_key, p_key = fs.clones.q[key], fs.clones.p[key]
+
+    def is_close(slot):
+        dq = quat_multiply(fs.clones.q[slot], quat_inverse(q_key))
+        ang = torch.linalg.norm(so3_log(quat_to_rotation(dq)))
+        dist = torch.linalg.norm(fs.clones.p[slot] - p_key)
+        return (ang < fcfg.redundancy_angle_threshold) & (dist < fcfg.redundancy_distance_threshold)
+
+    oldest1, oldest2 = order[0], order[1]
+    close1 = is_close(cand1)
+    slot_a = torch.where(close1, cand1, oldest1)
+    close2 = is_close(cand2)
+    next_oldest = torch.where(close1, oldest1, oldest2)
+    slot_b = torch.where(close2, cand2, next_oldest)
+    return slot_a, slot_b
+
+
+def remove_clones(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune) -> FilterState:
+    """Clear 2 clone slots: mask bits, observation columns, factor rows (the
+    factor's COLUMNS are shared basis directions and stay)."""
+    C = cfg.filter.max_clones
+    D = state_dim(cfg)
+    dev = fs.P.device
+    ar_c = torch.arange(C, device=dev)
+    sel = ((ar_c == slot_a) | (ar_c == slot_b)) & do_prune
+    clones = fs.clones.replace(valid=fs.clones.valid & ~sel)
+    obs = fs.obs.replace(valid=fs.obs.valid & ~sel[None, :])
+    ar = torch.arange(D, device=dev)
+    in_clones = (ar >= CLONE_BASE) & (ar < CLONE_BASE + C * CLONE_DIM)
+    row_cleared = in_clones & sel[torch.clamp((ar - CLONE_BASE) // CLONE_DIM, 0, C - 1)]
+    P = torch.where(row_cleared[:, None], 0.0, fs.P)
+    return fs.replace(clones=clones, obs=obs, P=P)

@@ -1,0 +1,296 @@
+"""MSCKF measurement model: Jacobians, nullspace projection, gating, update
+(port of ``larvio_tpu/models/update.py``), batched over the feature batch
+where the JAX package vmaps.
+
+FEJ: Jacobians at the clones' first-estimate poses, residuals at the current
+estimates. Square-root covariance only (``fs.P`` holds S with P = S S^T);
+the Joseph path is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.core.chi2 import chi2_inv
+from larvio_tpu_torch.core.linalg import householder_eliminate, inv_quadform, mm, psd_factor, symmetrize
+from larvio_tpu_torch.core.quaternion import quat_multiply, quat_to_rotation, small_angle_quat
+from larvio_tpu_torch.core.so3 import skew
+from larvio_tpu_torch.models.state import (
+    CLONE_BASE,
+    CLONE_DIM,
+    IDX_EXT_P,
+    IDX_EXT_THETA,
+    IDX_TD,
+    FilterState,
+    state_dim,
+)
+
+
+class FeatureBlock(NamedTuple):
+    """Nullspace-projected measurement blocks of a feature batch."""
+
+    H: torch.Tensor  # (K, 2C, D) projected Jacobian (rows 0..2 zeroed)
+    r: torch.Tensor  # (K, 2C) projected residual
+    accept: torch.Tensor  # (K,) triangulation + gating verdict
+    Rf: torch.Tensor  # (K, 3, 3) feature-column factor of the eliminated rows
+    H3: torch.Tensor  # (K, 3, D)
+    r3: torch.Tensor  # (K, 3)
+
+
+def _pinhole_jac(p_c: torch.Tensor) -> torch.Tensor:
+    """d(x/z, y/z)/d(x, y, z) at p_c (..., 3) -> (..., 2, 3), |z| floored at 1e-6."""
+    z3 = torch.where(torch.abs(p_c[..., 2]) < 1e-6, 1e-6, p_c[..., 2])
+    zero = torch.zeros_like(z3)
+    return torch.stack(
+        [
+            torch.stack([1.0 / z3, zero, -p_c[..., 0] / z3**2], dim=-1),
+            torch.stack([zero, 1.0 / z3, -p_c[..., 1] / z3**2], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _predict(p_c: torch.Tensor) -> torch.Tensor:
+    z3 = torch.where(torch.abs(p_c[..., 2]) < 1e-6, 1e-6, p_c[..., 2])
+    return p_c[..., :2] / z3[..., None]
+
+
+def _pose_jacobians(cfg: VioConfig, fs: FilterState, p_w, q_lin, p_lin, q_cur, p_cur):
+    """Per-(feature, clone) Jacobian pieces. p_w (K, 3); poses (N, .) shared.
+
+    Returns H_theta, H_p, H_f (K, N, 2, 3), ext_cols (K, N, 2, 6), pred (K, N, 2).
+    """
+    R_ci = quat_to_rotation(fs.q_ci)
+    R_wi_lin = quat_to_rotation(q_lin)  # (N, 3, 3)
+    R_wi_cur = quat_to_rotation(q_cur)
+
+    def to_cam(R_wi, p_i):
+        p_ij = (R_wi[None] @ (p_w[:, None, :] - p_i[None])[..., None])[..., 0]  # (K, N, 3)
+        return p_ij, p_ij @ R_ci.T + fs.t_ci
+
+    p_ij, p_cj = to_cam(R_wi_lin, p_lin)
+    _, p_cj_cur = to_cam(R_wi_cur, p_cur)
+    Jpi = _pinhole_jac(p_cj)  # (K, N, 2, 3)
+    JR = Jpi @ R_ci
+    H_theta = JR @ skew(p_ij)
+    H_p = -(JR @ R_wi_lin[None])
+    H_f = -H_p
+    if cfg.filter.estimate_extrinsic:
+        ext_cols = torch.cat([Jpi @ skew(p_cj - fs.t_ci), Jpi], dim=-1)
+    else:
+        ext_cols = torch.zeros((*Jpi.shape[:-1], 6), dtype=Jpi.dtype, device=Jpi.device)
+    return H_theta, H_p, H_f, ext_cols, _predict(p_cj_cur)
+
+
+def _dense_rows(cfg: VioConfig, ext_cols, clone_cols) -> torch.Tensor:
+    """[0 | ext(6) | 0 (td) | clone blocks (6C) | 0 (slam)] along the last axis."""
+    D = state_dim(cfg)
+    C = cfg.filter.max_clones
+    lead = ext_cols.shape[:-1]
+    kw = dict(dtype=ext_cols.dtype, device=ext_cols.device)
+    return torch.cat(
+        [
+            torch.zeros((*lead, IDX_EXT_THETA), **kw),
+            ext_cols,
+            torch.zeros((*lead, CLONE_BASE - IDX_TD), **kw),
+            clone_cols,
+            torch.zeros((*lead, D - CLONE_BASE - C * CLONE_DIM), **kw),
+        ],
+        dim=-1,
+    )
+
+
+def _project_jacobian(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask):
+    """Dense Jacobians over all clone slots for a feature batch.
+
+    p_w (K, 3), uv (K, C, 2), row_mask (K, C). Returns H_x (K, 2C, D),
+    H_f (K, 2C, 3), r (K, 2C).
+    """
+    C = cfg.filter.max_clones
+    D = state_dim(cfg)
+    K = p_w.shape[0]
+    fej = cfg.filter.use_fej
+    cl = fs.clones
+    H_theta, H_p, H_f, ext_cols, pred = _pose_jacobians(
+        cfg, fs, p_w, cl.q_null if fej else cl.q, cl.p_null if fej else cl.p, cl.q, cl.p
+    )
+    r = torch.where(row_mask[..., None], uv - pred, 0.0)  # (K, C, 2)
+    blocks = torch.cat([H_theta, H_p], dim=-1)  # (K, C, 2, 6)
+    eyeC = torch.eye(C, dtype=blocks.dtype, device=blocks.device)
+    clone_cols = (blocks[:, :, :, None, :] * eyeC[None, :, None, :, None]).reshape(K, C, 2, C * CLONE_DIM)
+    Hrows = torch.where(row_mask[..., None, None], _dense_rows(cfg, ext_cols, clone_cols), 0.0)
+    H_f = torch.where(row_mask[..., None, None], H_f, 0.0)
+    return Hrows.reshape(K, 2 * C, D), H_f.reshape(K, 2 * C, 3), r.reshape(K, 2 * C)
+
+
+def feature_block(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask, tri_valid) -> FeatureBlock:
+    """Projected, Huber-weighted, chi2-gated measurement blocks of a feature
+    batch. p_w (K, 3), uv (K, C, 2), row_mask (K, C), tri_valid (K,)."""
+    C = cfg.filter.max_clones
+    K = p_w.shape[0]
+    dev = p_w.device
+    sigma2 = cfg.noise.observation_noise**2
+
+    # valid clone observations first (Householder pivot rows must be valid)
+    order = torch.argsort((~row_mask).to(torch.int32), dim=1, stable=True)
+    mask_s = torch.gather(row_mask, 1, order)
+    H_x, H_f, r = _project_jacobian(cfg, fs, p_w, uv, row_mask)
+    row_perm = (2 * order[:, :, None] + torch.arange(2, device=dev)).reshape(K, 2 * C)
+    H_x = torch.gather(H_x, 1, row_perm[:, :, None].expand(-1, -1, H_x.shape[-1]))
+    H_f = torch.gather(H_f, 1, row_perm[:, :, None].expand(-1, -1, 3))
+    r = torch.gather(r, 1, row_perm)
+
+    H_o, r_o, _, (Rf, H3, r3) = householder_eliminate(H_f, H_x, r, 3)
+
+    if cfg.filter.huber_k > 0:
+        n_inf = torch.clamp(torch.sum(torch.abs(r_o) > 0, dim=1), min=1)
+        scale = torch.clamp(torch.sum(torch.abs(r_o), dim=1) / n_inf, min=cfg.noise.observation_noise)
+        w = torch.clamp(
+            cfg.filter.huber_k * scale[:, None] / torch.clamp(torch.abs(r_o), min=1e-12), max=1.0
+        )
+        sw = torch.sqrt(w)
+        H_o = H_o * sw[..., None]
+        r_o = r_o * sw
+
+    T = mm(H_o, fs.P)  # H in the factor basis
+    S = mm(T, T.transpose(-1, -2)) + sigma2 * torch.eye(2 * C, dtype=T.dtype, device=dev)
+    gamma = inv_quadform(S, r_o)
+    n_obs = torch.sum(mask_s, dim=1)
+    dof = torch.clamp(2 * n_obs - 3, min=1)
+    gate_ok = gamma < chi2_inv(dof, cfg.filter.chi2_confidence)
+
+    accept = tri_valid & gate_ok & (n_obs >= 2)
+    H_o = torch.where(accept[:, None, None], H_o, 0.0)
+    r_o = torch.where(accept[:, None], r_o, 0.0)
+    return FeatureBlock(H=H_o, r=r_o, accept=accept, Rf=Rf[..., :3], H3=H3, r3=r3)
+
+
+def prune_feature_block(cfg: VioConfig, fs: FilterState, p_w, uv2, slots, row_ok, tri_valid):
+    """Fast path for prune-marginalization features: exactly the two removed
+    clones' 4 rows, 3 feature columns eliminated, one informative row left,
+    scalar chi2 gate. p_w (K2, 3), uv2 (K2, 2, 2), slots (2,) shared,
+    row_ok (K2, 2), tri_valid (K2,). Returns (H_row (K2, D), r_row (K2,), accept)."""
+    C = cfg.filter.max_clones
+    D = state_dim(cfg)
+    K2 = p_w.shape[0]
+    fej = cfg.filter.use_fej
+    sigma2 = cfg.noise.observation_noise**2
+    cl = fs.clones
+    q_lin = (cl.q_null if fej else cl.q)[slots]
+    p_lin = (cl.p_null if fej else cl.p)[slots]
+    H_theta, H_p, H_f, ext_cols, pred = _pose_jacobians(
+        cfg, fs, p_w, q_lin, p_lin, cl.q[slots], cl.p[slots]
+    )
+    r = torch.where(row_ok[..., None], uv2 - pred, 0.0).reshape(K2, 4)
+
+    block = torch.cat([H_theta, H_p], dim=-1)  # (K2, 2, 2, 6)
+    onehot = (torch.arange(C, device=p_w.device)[None, :] == slots[:, None]).to(block.dtype)  # (2, C)
+    clone_cols = (block[:, :, :, None, :] * onehot[None, :, None, :, None]).reshape(K2, 2, 2, C * CLONE_DIM)
+    rows = torch.where(row_ok[..., None, None], _dense_rows(cfg, ext_cols, clone_cols), 0.0).reshape(K2, 4, D)
+    H_f4 = torch.where(row_ok[..., None, None], H_f, 0.0).reshape(K2, 4, 3)
+
+    H_o, r_o, _, _ = householder_eliminate(H_f4, rows, r, 3)
+    H_row, r_row = H_o[:, 3], r_o[:, 3]
+
+    Sh = mm(H_row, fs.P)  # (K2, W) in the factor basis
+    s = torch.sum(Sh * Sh, dim=-1) + sigma2
+    gamma = r_row * r_row / s
+    gate_ok = gamma < chi2_inv(torch.ones_like(r_row, dtype=torch.int32), cfg.filter.chi2_confidence)
+    accept = tri_valid & gate_ok & row_ok.all(dim=-1)
+    H_row = torch.where(accept[:, None], H_row, 0.0)
+    r_row = torch.where(accept, r_row, 0.0)
+    return H_row, r_row, accept
+
+
+def _chol_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN where the factorization failed (JAX
+    semantics: the update's finite-guard then rejects it)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info != 0)[..., None, None], torch.nan, L)
+
+
+def sqrt_update(S, H, r):
+    """EKF update on the factor (P = S S^T), whitened rows (R = I), stacked
+    Joseph form M = [S - K (H S), K] re-compressed by psd_factor."""
+    T = mm(H, S)
+    n = H.shape[0]
+    Sy = mm(T, T.T) + torch.eye(n, dtype=S.dtype, device=S.device)
+    chol = _chol_nan(symmetrize(Sy))
+    PHt = mm(S, T.T)  # (D, n)
+    K = torch.cholesky_solve(PHt.T, chol).T  # (D, n)
+    dx = mm(K, r[:, None])[:, 0]
+    M = torch.cat([S - mm(K, T), K], dim=1)
+    return dx, psd_factor(M)
+
+
+def sqrt_update_gram(S, Hw, rw, refactor: bool):
+    """Woodbury/information-form factor update for tall whitened stacks
+    (n > D): A = I + T^T T = L L^T, S' = S L^{-T}, dx = S' L^{-1} T^T rw."""
+    D, W = S.shape
+    T = mm(Hw, S)
+    A = symmetrize(mm(T.T, T)) + torch.eye(W, dtype=S.dtype, device=S.device)
+    L = _chol_nan(A)
+    g = mm(T.T, rw[:, None])  # (W, 1)
+    Y = torch.linalg.solve_triangular(L, torch.cat([S.T, g], dim=1), upper=False)
+    Sn = Y[:, :D].T
+    dx = mm(Sn, Y[:, D:])[:, 0]
+    if refactor:
+        Sn = psd_factor(Sn)
+    return dx, Sn
+
+
+def apply_update(cfg: VioConfig, fs: FilterState, H, r, noise_var, enable=None, refactor: bool = True):
+    """Compressed EKF update + error injection. H (N, D), r (N,); ``enable``
+    (bool tensor) turns the update into a no-op. Returns (state, dx, finite)."""
+    if not cfg.filter.sqrt_form:
+        raise NotImplementedError("the port supports the square-root covariance form only")
+    D = state_dim(cfg)
+    n = H.shape[0]
+    nv = torch.as_tensor(noise_var, dtype=fs.P.dtype, device=fs.P.device)
+    sig = torch.sqrt(torch.broadcast_to(nv, (n,)))
+    Hw = H / sig[:, None]
+    rw = r / sig
+    if n > D:
+        dx, P_new = sqrt_update_gram(fs.P, Hw, rw, refactor=False)
+    else:
+        dx, P_new = sqrt_update(fs.P, Hw, rw)
+        if fs.P.shape[1] > D:
+            P_new = torch.cat(
+                [P_new, torch.zeros((D, fs.P.shape[1] - D), dtype=P_new.dtype, device=P_new.device)], dim=1
+            )
+    finite = torch.all(torch.isfinite(dx)) & torch.all(torch.isfinite(P_new))
+    dx = torch.where(finite, dx, 0.0)
+    P_new = torch.where(finite, P_new, fs.P)
+    if enable is not None:
+        dx = torch.where(enable, dx, 0.0)
+        P_new = torch.where(enable, P_new, fs.P)
+    if refactor and (n > D or P_new.shape[1] > D):
+        P_new = psd_factor(P_new)
+    return inject_error(cfg, fs, dx).replace(P=P_new), dx, finite
+
+
+def inject_error(cfg: VioConfig, fs: FilterState, dx: torch.Tensor) -> FilterState:
+    """Apply an error-state correction to the nominal state (masked slots)."""
+    C = cfg.filter.max_clones
+    dclone = dx[CLONE_BASE:CLONE_BASE + C * CLONE_DIM].reshape(C, CLONE_DIM)
+    valid = fs.clones.valid[:, None]
+    dtheta_c = torch.where(valid, dclone[:, 0:3], 0.0)
+    dp_c = torch.where(valid, dclone[:, 3:6], 0.0)
+    clones = fs.clones.replace(
+        q=quat_multiply(small_angle_quat(dtheta_c), fs.clones.q),
+        p=fs.clones.p + dp_c,
+    )
+    return fs.replace(
+        q=quat_multiply(small_angle_quat(dx[0:3]), fs.q),
+        bg=fs.bg + dx[3:6],
+        v=fs.v + dx[6:9],
+        ba=fs.ba + dx[9:12],
+        p=fs.p + dx[12:15],
+        q_ci=quat_multiply(small_angle_quat(dx[IDX_EXT_THETA:IDX_EXT_THETA + 3]), fs.q_ci),
+        t_ci=fs.t_ci + dx[IDX_EXT_P:IDX_EXT_P + 3],
+        td=fs.td + dx[IDX_TD],
+        clones=clones,
+    )

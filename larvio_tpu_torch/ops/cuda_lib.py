@@ -1,0 +1,106 @@
+"""Build and bind the hand-written CUDA kernels (``larvio_tpu_torch/csrc``).
+
+The kernels are compiled at first use with ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
+plain C interface, under ``larvio_tpu_torch/_build/`` (git-ignored), and
+loaded with ``ctypes``. The library name carries a hash of the sources and
+flags, so an edited kernel rebuilds and an unchanged one is reused. Nothing
+here runs at import time: this module imports on hosts without ``nvcc``.
+A build failure raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib = None
+build_info: dict = {}  # {"path", "seconds", "log", "reused"} of the last build
+
+
+def _nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library (or reuse an up-to-date one)."""
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"liblarvio_kernels_{h.hexdigest()[:16]}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # concurrent processes build once
+        if out.exists():
+            build_info.update(path=str(out), seconds=time.perf_counter() - t0, log="", reused=True)
+            return out
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    build_info.update(
+        path=str(out), seconds=time.perf_counter() - t0,
+        log=(proc.stdout + proc.stderr).strip(), reused=False,
+    )
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.larvio_lk_track.argtypes = [
+            vp, vp, vp, vp, vp, vp, i32,  # image pointer arrays, heights, widths, levels
+            vp, vp, vp, i32,  # pos, guess, valid, n_feat
+            i32, i32, f32, f32, f32,  # patch, iters, precision^2, max_err, min_eig
+            vp, vp, vp, vp,  # out_pos, out_valid, out_err, stream
+        ]
+        lib.larvio_lk_track.restype = i32
+        lib.larvio_orb_slabs.argtypes = [vp, i32, i32, vp, i32, vp, vp]
+        lib.larvio_orb_slabs.restype = i32
+        _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def ptr_array(tensors):
+    """Host array of device pointers (ctypes passes it as a void*)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def int_array(values):
+    return (ctypes.c_int * len(values))(*[int(v) for v in values])

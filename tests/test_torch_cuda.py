@@ -1,0 +1,131 @@
+"""Kernels and main path of the PyTorch port on an NVIDIA GPU.
+
+These tests need the card and skip without it. They import no JAX (the
+machine with the card has none), so they run there without the suite's
+conftest, which imports JAX:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+K1 is held to the JAX package's LK kernel gate against its plain version
+(>= 95% valid agreement, >= 95% of both-valid points within 0.1 px); K2
+must match its plain version exactly on finite positions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from larvio_tpu.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
+from larvio_tpu.data.sim import SimConfig, Simulator
+from larvio_tpu_torch.data.render import render_sequence
+from larvio_tpu_torch.models.propagation import ImuBatch
+from larvio_tpu_torch.ops import orb
+from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
+from larvio_tpu_torch.ops.image import build_pyramid
+from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
+from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
+from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
+
+pytestmark = pytest.mark.cuda
+
+_S = 320 / 752
+CFG = VioConfig(
+    camera=CameraConfig(width=320, height=240,
+                        intrinsics=tuple(v * _S for v in (458.654, 457.296, 367.215, 248.375))),
+    frontend=FrontendConfig(max_features=48),
+    filter=FilterConfig(max_slam_features=0, max_clones=6, imu_slots_per_frame=14,
+                        static_init_samples=60),
+)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("requires an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def seq(dev):
+    sim = Simulator(SimConfig(duration=3.0, static_lead_in=1.0), CFG)
+    data = sim.generate()
+    return data, render_sequence(CFG, sim, data["t_img"], device=dev)
+
+
+def test_lk_kernel_matches_plain(dev, seq):
+    _, imgs = seq
+    img0, img1 = imgs[40], imgs[41]
+    scores, xy = grid_topk(nms(shi_tomasi_response(img0), 7), 4, 5, 4, border=20)
+    order = torch.argsort(-scores.reshape(-1), stable=True)
+    keep = order[scores.reshape(-1)[order] > 15.0][:40]
+    n = keep.shape[0]
+    assert n >= 30
+    pos = torch.zeros((48, 2), device=dev)
+    pos[:n] = xy.reshape(-1, 2)[keep]
+    valid = torch.arange(48, device=dev) < n
+    p0, p1 = build_pyramid(img0, 3), build_pyramid(img1, 3)
+    g = make_grad_pyramid(p0)
+    launches = lk_track_cuda.launches
+    got = lk_track_cuda(p0, p1, tuple(x[0] for x in g), tuple(x[1] for x in g), pos, pos, valid)
+    ref = lk_track(p0, p1, g, pos, pos, valid)
+    torch.cuda.synchronize()
+    assert lk_track_cuda.launches == launches + 1
+    ok_g, ok_r = got.valid.cpu().numpy(), ref.valid.cpu().numpy()
+    assert not ok_g[n:].any()
+    assert (ok_g[:n] == ok_r[:n]).mean() >= 0.95
+    both = ok_g & ok_r
+    assert both.sum() >= 0.7 * n
+    d = np.linalg.norm(got.pos.cpu().numpy()[both] - ref.pos.cpu().numpy()[both], axis=1)
+    assert (d < 0.1).mean() >= 0.95
+    none = lk_track_cuda(p0, p1, tuple(x[0] for x in g), tuple(x[1] for x in g), pos, pos,
+                         torch.zeros_like(valid))
+    assert not none.valid.any().item() and torch.isfinite(none.pos).all().item()
+
+
+@pytest.mark.parametrize("size", [(480, 752, 200), (50, 120, 16)])
+def test_orb_slab_kernel_matches_plain(dev, size):
+    H, W, F = size
+    rng = np.random.default_rng(0)
+    img = torch.as_tensor(rng.uniform(0, 255, (H, W)).astype(np.float32), device=dev)
+    p = rng.uniform([0, 0], [W - 1, H - 1], (F, 2)).astype(np.float32)
+    r = orb._r
+    p[:11] = [[0, 0], [W - 1, H - 1], [W - 1, 0], [0, H - 1], [W - r - 1.4, H / 2],
+              [W / 2, H - r - 1.4], [r + 0.49, r + 0.51], [W - 20.5, H - 20.5],
+              [np.nan, np.nan], [1e9, -1e9], [np.inf, -np.inf]]
+    pos = torch.as_tensor(p, device=dev)
+    got = orb.extract_slabs(img, pos)
+    torch.cuda.synchronize()
+    finite = np.isfinite(p).all(axis=1)
+    np.testing.assert_array_equal(got.cpu().numpy()[finite], orb._slabs_plain(img, pos).cpu().numpy()[finite])
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    img = torch.zeros((64, 64), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        orb.extract_slabs(img, torch.zeros((4, 2), device=dev))
+    p = [torch.zeros((64, 64), device=dev)]
+    with pytest.raises(ValueError):
+        lk_track_cuda(p, p, p, p, torch.zeros((4, 2), device=dev), torch.zeros((4, 2), device=dev),
+                      torch.ones(4, device=dev))  # valid must be bool
+
+
+def test_main_path_on_card_launches_both_kernels(dev, seq):
+    data, imgs = seq
+    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
+    ps = init_pipeline_state(CFG, dev)
+    lk0, orb0 = lk_track_cuda.launches, orb.extract_slabs.launches
+    outs = []
+    for k in range(imgs.shape[0]):
+        fr = FrameInput(image=imgs[k], t=g["t_img"][k],
+                        imu=ImuBatch(t=g["imu_t"][k], w=g["imu_w"][k], a=g["imu_a"][k], valid=g["imu_valid"][k]))
+        ps, out = pipeline_step(CFG, ps, fr)
+        outs.append(out)
+    torch.cuda.synchronize()
+    T = imgs.shape[0]
+    assert lk_track_cuda.launches - lk0 == T and orb.extract_slabs.launches - orb0 == T
+    p = torch.stack([o.p for o in outs]).cpu().numpy()
+    inited = torch.stack([o.initialized for o in outs]).cpu().numpy()
+    assert np.isfinite(p).all() and inited.sum() >= 40
+    assert int(torch.stack([o.did_reset for o in outs]).sum()) == 0

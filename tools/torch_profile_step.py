@@ -1,0 +1,133 @@
+"""Where a frame's time goes in the PyTorch port on one NVIDIA GPU.
+
+    python3 tools/torch_profile_step.py [--frames 160] [--out profile_step.txt]
+
+Runs the slice's main path (pure-MSCKF ``VioConfig``, 752x480, the clean
+8 s simulator workload rendered on the card) and reports, after a warm-up run:
+
+* end-to-end ms/frame (host clock around work that ends in a synchronize);
+* the two halves, ``track_frame`` and ``filter_step``, each timed with a
+  synchronize on both sides (so their sum exceeds the pipelined frame time);
+* a ``torch.profiler`` window over 20 steady frames: device busy time per
+  frame, the device's idle share, kernel launches per frame, and the top
+  kernels by device time (the full table goes to ``--out``).
+
+Needs a CUDA GPU; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=160)
+    ap.add_argument("--out", default="profile_step.txt")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+
+    from larvio_tpu.config import FilterConfig, VioConfig
+    from larvio_tpu.data.sim import SimConfig, Simulator
+    from larvio_tpu_torch.data.render import render_sequence
+    from larvio_tpu_torch.models.frontend import track_frame
+    from larvio_tpu_torch.models.msckf import filter_step
+    from larvio_tpu_torch.models.propagation import ImuBatch
+    from larvio_tpu_torch.pipeline import FrameInput, PipelineState, init_pipeline_state, pipeline_step
+
+    dev = torch.device("cuda:0")
+    cfg = VioConfig(filter=FilterConfig(max_slam_features=0))
+    sim = Simulator(SimConfig(duration=8.0), cfg)
+    data = sim.generate()
+    imgs = render_sequence(cfg, sim, data["t_img"], device=dev)
+    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
+    T = min(args.frames, imgs.shape[0])
+    frames = [FrameInput(image=imgs[k], t=g["t_img"][k],
+                         imu=ImuBatch(t=g["imu_t"][k], w=g["imu_w"][k], a=g["imu_a"][k], valid=g["imu_valid"][k]))
+              for k in range(T)]
+
+    def run(split: bool, prof=None, window=()):
+        ps = init_pipeline_state(cfg, dev)
+        fe_s = fi_s = 0.0
+        for k, fr in enumerate(frames):
+            if prof is not None and k == window[0]:
+                torch.cuda.synchronize()
+                prof.start()
+            if split:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tracker, feats = track_frame(cfg, ps.tracker, fr.image, fr.imu, fr.t, ps.vio.filter.bg)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                vio, _ = filter_step(cfg, ps.vio, feats, fr.imu)
+                torch.cuda.synchronize()
+                fe_s += t1 - t0
+                fi_s += time.perf_counter() - t1
+                ps = PipelineState(tracker=tracker, vio=vio)
+            else:
+                ps, _ = pipeline_step(cfg, ps, fr)
+            if prof is not None and k == window[1] - 1:
+                torch.cuda.synchronize()
+                prof.stop()
+        torch.cuda.synchronize()
+        return fe_s, fi_s
+
+    run(False)  # warm-up
+    t0 = time.perf_counter()
+    run(False)
+    wall = time.perf_counter() - t0
+    fe_s, fi_s = run(True)
+    print(f"end to end: {1e3 * wall / T:.3f} ms/frame ({T / wall:.3f} fps) over {T} frames", flush=True)
+    print(f"split (synchronized): track_frame {1e3 * fe_s / T:.3f} ms/frame, "
+          f"filter_step {1e3 * fi_s / T:.3f} ms/frame", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    window = (100, 120) if T >= 120 else (T // 2, T // 2 + min(20, T // 2))
+    n_win = window[1] - window[0]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run(False, prof, window)
+    ka = prof.key_averages()
+    dev_attr = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = float(np.sum([e.time_range.elapsed_us() for e in kernels])) if kernels else 0.0
+    if kernels:
+        span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+        print(f"profiler window {n_win} frames: device busy {busy_us / 1e3 / n_win:.3f} ms/frame, "
+              f"device span {span_us / 1e3 / n_win:.3f} ms/frame, idle share "
+              f"{1 - busy_us / max(span_us, 1e-9):.4f}, {len(kernels) / n_win:.1f} kernel launches/frame",
+              flush=True)
+    else:
+        print("profiler recorded no device events; use the CUDA-event timings above", flush=True)
+    table = ka.table(sort_by=dev_attr, row_limit=60)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(f"{card}\n{table}\n")
+    by_name: dict = {}
+    for e in kernels:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {tot / 1e3 / n_win:9.4f} ms/frame  {cnt / n_win:7.1f} launches/frame  {name[:100]}")
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
