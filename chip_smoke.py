@@ -11,11 +11,23 @@ Phases, each raising on failure (the script then exits non-zero):
 2. kernels: K1 (pyramidal LK) and K2 (ORB slabs) against their plain PyTorch
    versions on the card at main-path shapes (480x752 frames, 200 feature
    slots), with timings from CUDA events;
+2b. batched kernels: K3 (LK over 8 lanes, each lane its own frame pair)
+   against the batched plain version and against K1 per lane, and the
+   batched slab kernel against the plain version per lane;
 3. main path: 160 rendered frames of the clean 8 s simulator workload through
    ``pipeline_step`` at full EuRoC width in the pure-MSCKF configuration;
    checks initialization, resets, finiteness, track counts, ATE and that
-   every frame launched both kernels.
+   every frame launched K1 and K2;
+4. fleet path: the same 160 frames for 8 instances at once (lanes 1-7 with
+   their own image noise, lane 7 with 1 s of NaN accelerometer samples)
+   through ``run_fleet_image_sequence``; checks every lane's health, lane
+   isolation, the fleet metrics and that every frame launched K3 and the
+   batched slab kernel once for all lanes.
 
+Each kernel's line carries its card time, its plain version's time, its
+bound (the larger of the bytes it must move over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, counted from this run's inputs) and, for the
+slab kernels, the time of one PyTorch gather on precomputed indices.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -30,22 +42,102 @@ import time
 import numpy as np
 import torch
 
-from larvio_tpu.config import FilterConfig, VioConfig
-from larvio_tpu.data.evaluate import ate_rmse
-from larvio_tpu.data.sim import SimConfig, Simulator
+from larvio_tpu_torch.config import FilterConfig, VioConfig
+from larvio_tpu_torch.data.evaluate import ate_rmse
 from larvio_tpu_torch.data.render import Renderer
+from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.ops import cuda_lib
 from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
 from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
-from larvio_tpu_torch.ops.orb import _r, _slabs_plain, extract_slabs
+from larvio_tpu_torch.ops.orb import PATCH as ORB_PATCH
+from larvio_tpu_torch.ops.orb import _r, _slabs_plain, extract_slabs, slab_index
+from larvio_tpu_torch.parallel.fleet import fleet_metrics, init_fleet_pipeline_state, run_fleet_image_sequence
 from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
 
 PATCH, ITERS, PREC = 15, 12, 0.01
 F_MAIN = 200
+B_FLEET = 8
 ATE_GATE = 0.05  # m; see PERF.md for the reference figures behind it
+TRACKS_GATE = 80  # mean tracked features over initialized frames (of 200 slots)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time for the work on the card."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lk_origins(centres: np.ndarray, H: int, W: int):
+    """Top-left corners of the LK kernel's (patch+1)^2 slabs at ``centres``
+    (N, 2) on an (H, W) level: the centre clamped to [r, W-r-2], NaN to r."""
+    r = PATCH // 2
+    c = np.nan_to_num(centres, nan=r, posinf=1e9, neginf=-1e9)
+    x0 = np.floor(np.clip(c[:, 0], r, W - r - 2)).astype(np.int64) - r
+    y0 = np.floor(np.clip(c[:, 1], r, H - r - 2)).astype(np.int64) - r
+    return x0, y0
+
+
+def _slab_origins(pos: np.ndarray, H: int, W: int):
+    """Top-left corners of the slab kernel's 31x31 windows: half-to-even
+    rounding, NaN to 0, the centre clamped to [r, W-r-1]."""
+    p = np.rint(np.nan_to_num(pos, nan=0.0, posinf=1e9, neginf=-1e9))
+    return (np.clip(p[:, 0], _r, W - _r - 1).astype(np.int64) - _r,
+            np.clip(p[:, 1], _r, H - _r - 1).astype(np.int64) - _r)
+
+
+def _covered_px(x0: np.ndarray, y0: np.ndarray, size: int, H: int, W: int) -> int:
+    """Distinct pixels of an (H, W) image that the size x size windows with
+    top-left corners (x0, y0) cover."""
+    mask = np.zeros((H, W), dtype=bool)
+    for x, y in zip(x0, y0):
+        mask[y:y + size, x:x + size] = True
+    return int(mask.sum())
+
+
+def _lk_bound(shapes, pos, valid, out_pos, iters_run):
+    """LK bound from this run's inputs: pos, valid, out_pos (..., F, ...)
+    tables; iters_run the plain version's per-level iteration counts
+    (coarsest first, ``lk_track(iters_run=...)``). Bytes: at every level and
+    lane, the distinct pixels that the valid features' slabs cover, read once
+    from prev, gx and gy at the template centres and from curr at the
+    returned positions (4 B each), plus the tables in and out once.
+    Operations: ~11 flops per bilinear sample, 3 samples and the 3 Hessian
+    terms per template pixel, ~20 flops per pixel and Gauss-Newton
+    iteration, over the iterations the data needed."""
+    F = pos.shape[-2]
+    pos_l = pos.reshape(-1, F, 2).cpu().numpy().astype(np.float64)
+    out_l = out_pos.reshape(-1, F, 2).cpu().numpy().astype(np.float64)
+    ok_l = valid.reshape(-1, F).cpu().numpy()
+    n_px = 0
+    for lvl, (H, W) in enumerate(shapes):
+        scale = 2.0 ** -lvl
+        for b in range(pos_l.shape[0]):
+            m = ok_l[b]
+            n_px += 3 * _covered_px(*_lk_origins(pos_l[b][m] * scale, H, W), PATCH + 1, H, W)
+            n_px += _covered_px(*_lk_origins(out_l[b][m] * scale, H, W), PATCH + 1, H, W)
+    n_slots = pos_l.shape[0] * F
+    n_bytes = 4 * n_px + n_slots * (2 * 8 + 4) + n_slots * (8 + 4 + 4)
+    n_iters = sum(int(it.sum()) for it in iters_run)
+    n_templates = int(ok_l.sum()) * len(shapes)
+    n_ops = n_templates * PATCH * PATCH * (3 * 11 + 3 * 2) + n_iters * PATCH * PATCH * 20
+    return _bound(n_bytes, n_ops)
+
+
+def _slab_bound(img, pos):
+    """Slab bound from this run's inputs, img (..., H, W), pos (..., F, 2):
+    the distinct pixels the windows cover read once per lane, every slab
+    written once, the positions read once."""
+    H, W = img.shape[-2:]
+    F = pos.shape[-2]
+    pos_l = pos.reshape(-1, F, 2).cpu().numpy().astype(np.float64)
+    n_read = sum(_covered_px(*_slab_origins(p, H, W), ORB_PATCH, H, W) for p in pos_l)
+    return _bound(4 * n_read + pos_l.shape[0] * F * (ORB_PATCH * ORB_PATCH * 4 + 8), 0.0)
 
 
 def _card_line() -> str:
@@ -94,25 +186,44 @@ def _frame_pose(sim, t):
     return (R_ci @ R_wi).T, p_w + R_wi.T @ (-R_ci.T @ t_ci)
 
 
-def phase_kernels(dev, cfg, sim, rend):
-    def render(t):
-        R_wc_T, p_cam = _frame_pose(sim, t)
-        return rend(torch.as_tensor(R_wc_T, dtype=torch.float32, device=dev),
-                    torch.as_tensor(p_cam, dtype=torch.float32, device=dev))
+def _render(dev, sim, rend, t):
+    R_wc_T, p_cam = _frame_pose(sim, t)
+    return rend(torch.as_tensor(R_wc_T, dtype=torch.float32, device=dev),
+                torch.as_tensor(p_cam, dtype=torch.float32, device=dev))
 
-    img0, img1 = render(6.0), render(6.05)
-    H, W = img0.shape
-    # features from the port's own detector, padded with invalid slots to F=200
+
+def _lk_table(img0, dev):
+    """Up to F_MAIN - 16 corners of the port's own detector, padded with
+    invalid slots to F_MAIN. Returns (pos (F, 2), valid (F,), n)."""
     scores, xy = grid_topk(nms(shi_tomasi_response(img0), radius=7), 4, 5, 16, border=25)
     xy, scores = xy.reshape(-1, 2), scores.reshape(-1)
     order = torch.argsort(-scores, stable=True)
     pts = xy[order[scores[order] > 15.0][: F_MAIN - 16]]
     n = pts.shape[0]
-    assert n >= 100, f"detector found only {n} corners"
+    assert n >= F_MAIN // 2, f"detector found only {n} corners"
     pos = torch.zeros((F_MAIN, 2), dtype=torch.float32, device=dev)
     pos[:n] = pts
     valid = torch.zeros(F_MAIN, dtype=torch.bool, device=dev)
     valid[:n] = True
+    return pos, valid, n
+
+
+def _slab_positions(rng, H, W, F):
+    """Uniform positions with the JAX test's edge/clamp cases (NaN, +-inf,
+    huge) in the first 11 slots."""
+    p = rng.uniform([0, 0], [W - 1, H - 1], (F, 2)).astype(np.float32)
+    p[0:9] = [[0.0, 0.0], [W - 1.0, H - 1.0], [W - 1.0, 0.0], [0.0, H - 1.0],
+              [W - _r - 1.4, H / 2], [W / 2, H - _r - 1.4], [_r + 0.49, _r + 0.51],
+              [W - 20.5, H - 20.5], [np.nan, np.nan]]
+    p[9] = [1e9, -1e9]
+    p[10] = [np.inf, -np.inf]
+    return p
+
+
+def phase_kernels(dev, sim, rend):
+    img0, img1 = _render(dev, sim, rend, 6.0), _render(dev, sim, rend, 6.05)
+    H, W = img0.shape
+    pos, valid, n = _lk_table(img0, dev)
 
     pyr0 = tuple(build_pyramid(img0, 3))
     pyr1 = tuple(build_pyramid(img1, 3))
@@ -137,20 +248,19 @@ def phase_kernels(dev, cfg, sim, rend):
     assert not none.valid.any().item(), "all-invalid table came back with valid slots"
     assert torch.isfinite(none.pos).all().item(), "all-invalid table returned non-finite positions"
     lk_ms, lk_plain_ms = _time_ms(run_kernel, 50), _time_ms(run_plain, 10)
+    iters_run = []
+    lk_track(list(pyr0), list(pyr1), grads, pos, pos, valid, patch=PATCH, iters=ITERS,
+             precision=PREC, iters_run=iters_run)
+    lk_bound, lk_by = _lk_bound([p.shape for p in pyr0], pos, valid, got.pos, iters_run)
     print(f"K1 lk_track_cuda: {n} features / {F_MAIN} slots, valid agreement {agree:.4f}, "
           f"{frac:.4f} within 0.1 px, max |d| {lk_err:.4f} px (both valid); "
-          f"kernel {lk_ms:.4f} ms, plain {lk_plain_ms:.4f} ms", flush=True)
+          f"kernel {lk_ms:.4f} ms, plain {lk_plain_ms:.4f} ms, bound {lk_bound:.6f} ms ({lk_by})",
+          flush=True)
 
     # K2 at the JAX test's edge/clamp positions (NaN included), padded to F=200
     rng = np.random.default_rng(0)
     img = torch.as_tensor(rng.uniform(0.0, 255.0, (H, W)).astype(np.float32), device=dev)
-    p = rng.uniform([0, 0], [W - 1, H - 1], (F_MAIN, 2)).astype(np.float32)
-    p[0:9] = [[0.0, 0.0], [W - 1.0, H - 1.0], [W - 1.0, 0.0], [0.0, H - 1.0],
-              [W - _r - 1.4, H / 2], [W / 2, H - _r - 1.4], [_r + 0.49, _r + 0.51],
-              [W - 20.5, H - 20.5], [np.nan, np.nan]]
-    p[9] = [1e9, -1e9]
-    p[10] = [np.inf, -np.inf]
-    pos2 = torch.as_tensor(p, device=dev)
+    pos2 = torch.as_tensor(_slab_positions(rng, H, W, F_MAIN), device=dev)
     slabs = extract_slabs(img, pos2)
     torch.cuda.synchronize()
     plain = _slabs_plain(img, pos2)
@@ -159,31 +269,154 @@ def phase_kernels(dev, cfg, sim, rend):
     orb_err = float((slabs[finite] - plain[finite]).abs().max())
     assert orb_err == 0.0, f"ORB slabs differ from the plain version by {orb_err}"
     assert torch.isfinite(slabs).all().item()
-    orb_ms, orb_plain_ms = _time_ms(lambda: extract_slabs(img, pos2), 200), _time_ms(
-        lambda: _slabs_plain(img, pos2), 200)
+    flat, idx = img.reshape(-1), slab_index(img, pos2)  # library yardstick: one gather
+    orb_ms = _time_ms(lambda: extract_slabs(img, pos2), 200)
+    orb_plain_ms = _time_ms(lambda: _slabs_plain(img, pos2), 200)
+    orb_lib_ms = _time_ms(lambda: flat[idx], 200)
+    orb_bound, orb_by = _slab_bound(img, pos2)
     print(f"K2 extract_slabs: exact on {int(finite.sum())} finite positions of {F_MAIN}; "
-          f"kernel {orb_ms:.4f} ms, plain {orb_plain_ms:.4f} ms", flush=True)
+          f"kernel {orb_ms:.4f} ms, plain {orb_plain_ms:.4f} ms, gather {orb_lib_ms:.4f} ms, "
+          f"bound {orb_bound:.6f} ms ({orb_by})", flush=True)
     return [
         {"name": "lk_track", "route": "cuda", "source": "larvio_tpu_torch/csrc/lk.cu",
          "replaces": "larvio_tpu/ops/lk_pallas.py:507", "max_abs_err": lk_err,
-         "ms": lk_ms, "plain_ms": lk_plain_ms},
+         "ms": lk_ms, "plain_ms": lk_plain_ms, "bound_ms": lk_bound, "bound_by": lk_by,
+         "library_ms": None},
         {"name": "orb_slabs", "route": "cuda", "source": "larvio_tpu_torch/csrc/orb_slab.cu",
          "replaces": "larvio_tpu/ops/orb.py:111", "max_abs_err": orb_err,
-         "ms": orb_ms, "plain_ms": orb_plain_ms},
+         "ms": orb_ms, "plain_ms": orb_plain_ms, "bound_ms": orb_bound, "bound_by": orb_by,
+         "library_ms": orb_lib_ms},
     ]
 
 
-def phase_main_path(dev, cfg, sim, rend, card):
-    data = sim.generate()
-    T = len(data["t_img"])
-    t0 = time.perf_counter()
-    imgs = torch.stack([
-        rend(*(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in _frame_pose(sim, t)))
-        for t in data["t_img"]
-    ])
+def phase_kernels_batched(dev, sim, rend):
+    """K3 and the batched slab kernel on B_FLEET lanes, each with its own data."""
+    B = B_FLEET
+    pairs = [(_render(dev, sim, rend, 6.0 + 0.25 * b), _render(dev, sim, rend, 6.05 + 0.25 * b))
+             for b in range(B)]
+    tables = [_lk_table(p[0], dev) for p in pairs]
+    n_lane = [t[2] for t in tables]
+    pos = torch.stack([t[0] for t in tables])
+    valid = torch.stack([t[1] for t in tables])
+    pyr0 = tuple(build_pyramid(torch.stack([p[0] for p in pairs]), 3))
+    pyr1 = tuple(build_pyramid(torch.stack([p[1] for p in pairs]), 3))
+    grads = make_grad_pyramid(list(pyr0))
+    gx = tuple(g[0] for g in grads)
+    gy = tuple(g[1] for g in grads)
+    lane_pyr = [tuple(x[b].contiguous() for x in pyrs) for pyrs in (pyr0, pyr1, gx, gy)
+                for b in range(B)]
+
+    def lane(b):  # lane b's (prev, curr, gx, gy) pyramids as single-instance tensors
+        return [lane_pyr[k * B + b] for k in range(4)]
+
+    def run_k3(v=valid):
+        return lk_track_cuda(pyr0, pyr1, gx, gy, pos, pos, v, PATCH, ITERS, PREC)
+
+    def run_plain():
+        return lk_track(list(pyr0), list(pyr1), grads, pos, pos, valid,
+                        patch=PATCH, iters=ITERS, precision=PREC)
+
+    def run_k1(b):
+        p0, p1, x, y = lane(b)
+        return lk_track_cuda(p0, p1, x, y, pos[b], pos[b], valid[b], PATCH, ITERS, PREC)
+
+    got = run_k3()
     torch.cuda.synchronize()
-    print(f"rendered {T} frames {tuple(imgs.shape[1:])} on the card in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    ref = run_plain()
+    torch.cuda.synchronize()
+    k3_err = 0.0
+    for b in range(B):
+        one = lambda r: type(r)(pos=r.pos[b], valid=r.valid[b], err=r.err[b])  # noqa: E731
+        _, _, err_b = _check_parity(one(ref), one(got), valid[b], n_lane[b])
+        k3_err = max(k3_err, err_b)
+        single = run_k1(b)
+        torch.cuda.synchronize()
+        assert torch.equal(single.valid, got.valid[b]), f"lane {b}: K3 validity differs from K1"
+        d = (single.pos - got.pos[b]).abs()[single.valid].max().item() if single.valid.any() else 0.0
+        assert d < 1e-4, f"lane {b}: K3 differs from K1 by {d} px"
+    none = run_k3(torch.zeros_like(valid))
+    torch.cuda.synchronize()
+    assert not none.valid.any().item(), "K3: all-invalid tables came back with valid slots"
+    assert torch.isfinite(none.pos).all().item(), "K3: all-invalid tables returned non-finite positions"
+    k3_ms = _time_ms(run_k3, 20)
+    k3_plain_ms = _time_ms(run_plain, 5)
+    k1x8_ms = _time_ms(lambda: [run_k1(b) for b in range(B)], 20)
+    iters_run = []
+    lk_track(list(pyr0), list(pyr1), grads, pos, pos, valid, patch=PATCH, iters=ITERS,
+             precision=PREC, iters_run=iters_run)
+    k3_bound, k3_by = _lk_bound([p.shape[-2:] for p in pyr0], pos, valid, got.pos, iters_run)
+    print(f"K3 lk_track_cuda (batched): {B} lanes, {sum(n_lane)} features / {B * F_MAIN} slots; "
+          f"per lane within the K1 gate of the plain version (max |d| {k3_err:.4f} px) and equal "
+          f"to K1; kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, {B} sequential K1 "
+          f"{k1x8_ms:.4f} ms, bound {k3_bound:.6f} ms ({k3_by})", flush=True)
+
+    rng = np.random.default_rng(1)
+    H, W = pairs[0][0].shape
+    img = torch.as_tensor(rng.uniform(0.0, 255.0, (B, H, W)).astype(np.float32), device=dev)
+    pos2 = torch.as_tensor(np.stack([_slab_positions(rng, H, W, F_MAIN) for _ in range(B)]),
+                           device=dev)
+    slabs = extract_slabs(img, pos2)
+    torch.cuda.synchronize()
+    plain = _slabs_plain(img, pos2)
+    finite = torch.isfinite(pos2).all(dim=-1)
+    assert slabs.shape == (B, F_MAIN, 31, 31) and slabs.is_contiguous()
+    orb_err = float((slabs[finite] - plain[finite]).abs().max())
+    assert orb_err == 0.0, f"batched ORB slabs differ from the plain version by {orb_err}"
+    for b in range(B):
+        assert torch.equal(slabs[b][finite[b]], _slabs_plain(img[b], pos2[b])[finite[b]]), b
+    assert torch.isfinite(slabs).all().item()
+    flat = img.reshape(-1)
+    idx = slab_index(img, pos2) + (torch.arange(B, device=dev) * H * W)[:, None, None, None]
+    orb_ms = _time_ms(lambda: extract_slabs(img, pos2), 200)
+    orb_plain_ms = _time_ms(lambda: _slabs_plain(img, pos2), 200)
+    orb_lib_ms = _time_ms(lambda: flat[idx], 200)
+    orb_bound, orb_by = _slab_bound(img, pos2)
+    print(f"K2 extract_slabs (batched): {B} lanes, exact on {int(finite.sum())} finite positions "
+          f"of {B * F_MAIN}; kernel {orb_ms:.4f} ms, plain {orb_plain_ms:.4f} ms, gather "
+          f"{orb_lib_ms:.4f} ms, bound {orb_bound:.6f} ms ({orb_by})", flush=True)
+    return [
+        {"name": "lk_track_batched", "route": "cuda", "source": "larvio_tpu_torch/csrc/lk.cu",
+         "replaces": "larvio_tpu/ops/lk_pallas.py:411", "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None, "k1_sequential_ms": k1x8_ms},
+        {"name": "orb_slabs_batched", "route": "cuda", "source": "larvio_tpu_torch/csrc/orb_slab.cu",
+         "replaces": "larvio_tpu/ops/orb.py:111", "max_abs_err": orb_err,
+         "ms": orb_ms, "plain_ms": orb_plain_ms, "bound_ms": orb_bound, "bound_by": orb_by,
+         "library_ms": orb_lib_ms},
+    ]
+
+
+def _reset_counts():
+    lk_track_cuda.launches = lk_track_cuda.launches_batched = 0
+    extract_slabs.launches = extract_slabs.launches_batched = 0
+
+
+def _counts():
+    return {"lk_track": lk_track_cuda.launches, "lk_track_batched": lk_track_cuda.launches_batched,
+            "orb_slabs": extract_slabs.launches, "orb_slabs_batched": extract_slabs.launches_batched}
+
+
+def _health(o, gt_p, lane: str, resets_ok: bool = False):
+    """Health gates of one run (arrays over frames); returns (ATE, mean tracks, n_init)."""
+    m = o["initialized"].astype(bool)
+    for k in ("p", "q", "v", "p_std"):
+        assert np.isfinite(o[k]).all(), f"{lane}: non-finite {k}"
+    if resets_ok:
+        return None, None, int(m.sum())
+    assert m.sum() >= 100, f"{lane}: only {m.sum()} initialized frames"
+    assert int(o["did_reset"].sum()) == 0, f"{lane}: {int(o['did_reset'].sum())} online resets"
+    mean_tracks = float(o["n_tracks"][m].mean())
+    assert mean_tracks > TRACKS_GATE, f"{lane}: mean n_tracks {mean_tracks:.1f} <= {TRACKS_GATE}"
+    ate = ate_rmse(o["p"][m], gt_p[m])
+    assert ate < ATE_GATE, f"{lane}: ATE {ate:.4f} m >= {ATE_GATE}"
+    return ate, mean_tracks, int(m.sum())
+
+
+_OUT_KEYS = ("p", "q", "v", "initialized", "did_reset", "n_tracks", "p_std")
+
+
+def phase_main_path(dev, cfg, data, imgs, card):
+    T = imgs.shape[0]
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
     frames = [
         FrameInput(image=imgs[k], imu=ImuBatch(t=g["imu_t"][k], w=g["imu_w"][k], a=g["imu_a"][k],
@@ -203,29 +436,90 @@ def phase_main_path(dev, cfg, sim, rend, card):
     t0 = time.perf_counter()
     run()  # warm-up (allocator, cuBLAS/cuSOLVER handles, kernel library load)
     warm_s = time.perf_counter() - t0
-    lk_track_cuda.launches = 0
-    extract_slabs.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     outs = run()
     wall = time.perf_counter() - t0
-    launches = {"lk_track": lk_track_cuda.launches, "orb_slabs": extract_slabs.launches}
-    for name, cnt in launches.items():
-        assert cnt == T, f"{name}: {cnt} kernel launches in {T} frames"
+    launches = _counts()
+    for name in ("lk_track", "orb_slabs"):
+        assert launches[name] == T, f"{name}: {launches[name]} kernel launches in {T} frames"
+    for name in ("lk_track_batched", "orb_slabs_batched"):
+        assert launches[name] == 0, f"{name}: {launches[name]} launches on the single-instance path"
 
-    o = {k: torch.stack([getattr(x, k) for x in outs]).cpu().numpy()
-         for k in ("p", "q", "v", "initialized", "did_reset", "n_tracks", "p_std")}
-    m = o["initialized"].astype(bool)
-    for k in ("p", "q", "v", "p_std"):
-        assert np.isfinite(o[k]).all(), f"non-finite {k}"
-    assert m.sum() >= 100, f"only {m.sum()} initialized frames"
-    assert int(o["did_reset"].sum()) == 0, f"{int(o['did_reset'].sum())} online resets"
-    mean_tracks = float(o["n_tracks"][m].mean())
-    assert mean_tracks > 80, f"mean n_tracks {mean_tracks:.1f} <= 80"
-    ate = ate_rmse(o["p"][m], data["gt_p"][m])
-    assert ate < ATE_GATE, f"ATE {ate:.4f} m >= {ATE_GATE}"
-    print(f"main path: {T} frames, {int(m.sum())} initialized, 0 resets, mean n_tracks "
+    o = {k: torch.stack([getattr(x, k) for x in outs]).cpu().numpy() for k in _OUT_KEYS}
+    ate, mean_tracks, n_init = _health(o, data["gt_p"], "main path")
+    print(f"main path: {T} frames, {n_init} initialized, 0 resets, mean n_tracks "
           f"{mean_tracks:.2f}, ATE {ate:.5f} m (gate {ATE_GATE}); {T / wall:.3f} fps, "
           f"{1e3 * wall / T:.3f} ms/frame (warm-up run {warm_s:.3f} s) on {card}", flush=True)
+    return launches, ate
+
+
+def phase_fleet(dev, cfg, data, imgs, single_ate, card):
+    """B_FLEET instances through one batched image step per frame."""
+    B, T = B_FLEET, imgs.shape[0]
+    bimgs = torch.empty((T, B, *imgs.shape[1:]), dtype=torch.float32, device=dev)
+    bimgs[:, 0] = imgs  # lane 0: the main path's frames unchanged
+    for b in range(1, B):  # 2-gray-level sensor noise of each lane's own seed
+        gen = torch.Generator(device=dev).manual_seed(b)
+        bimgs[:, b] = imgs + 2.0 * torch.randn(imgs.shape, generator=gen, device=dev)
+    a = np.repeat(data["imu_a"][:, None], B, axis=1)
+    a[80:100, B - 1] = np.nan  # last lane: NaN accelerometer for 1 s mid-sequence
+
+    def lanes(x):
+        x = np.asarray(x)
+        return torch.as_tensor(np.ascontiguousarray(np.broadcast_to(x[:, None], (T, B, *x.shape[1:]))),
+                               device=dev)
+
+    frames = FrameInput(
+        image=bimgs,
+        imu=ImuBatch(t=lanes(data["imu_t"]), w=lanes(data["imu_w"]), a=torch.as_tensor(a, device=dev),
+                     valid=lanes(data["imu_valid"])),
+        t=lanes(data["t_img"]),
+    )
+
+    def run():
+        _, outs = run_fleet_image_sequence(cfg, init_fleet_pipeline_state(cfg, B, dev), frames)
+        torch.cuda.synchronize()
+        return outs
+
+    t0 = time.perf_counter()
+    run()  # warm-up
+    warm_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = run()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    for name in ("lk_track_batched", "orb_slabs_batched"):
+        assert launches[name] == T, f"{name}: {launches[name]} launches in {T} fleet frames"
+    for name in ("lk_track", "orb_slabs"):
+        assert launches[name] == 0, f"{name}: {launches[name]} single-instance launches in the fleet"
+
+    o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}  # (T, B, ...)
+    gt_p = data["gt_p"]
+    ates, tracks = [], []
+    for b in range(B - 1):
+        ate, mean_tracks, _ = _health({k: v[:, b] for k, v in o.items()}, gt_p, f"fleet lane {b}")
+        ates.append(ate)
+        tracks.append(mean_tracks)
+    assert abs(ates[0] - single_ate) < 0.002, \
+        f"fleet lane 0 ATE {ates[0]:.5f} m vs single-instance {single_ate:.5f} m"
+    bad = {k: v[:, B - 1] for k, v in o.items()}
+    _, _, n_init_bad = _health(bad, gt_p, f"fleet lane {B - 1}", resets_ok=True)
+    n_resets_bad = int(bad["did_reset"].sum())
+    assert n_resets_bad >= 1, f"fleet lane {B - 1}: the NaN accelerometer caused no reset"
+    fm = {k: v.cpu().numpy() for k, v in fleet_metrics(outs).items()}
+    assert np.array_equal(fm["n_initialized"], o["initialized"].astype(np.int64).sum(1))
+    assert np.array_equal(fm["n_resets"], o["did_reset"].astype(np.int64).sum(1))
+    assert np.array_equal(fm["mean_tracks"], o["n_tracks"].astype(np.int64).sum(1))
+    print(f"fleet path: {B} lanes x {T} frames; lanes 0-{B - 2}: 0 resets, ATE "
+          f"{', '.join(f'{x:.5f}' for x in ates)} m, mean n_tracks "
+          f"{', '.join(f'{x:.1f}' for x in tracks)}; lane 0 vs single-instance ATE "
+          f"{abs(ates[0] - single_ate):.6f} m; lane {B - 1} (NaN accel): {n_resets_bad} resets, "
+          f"{n_init_bad} initialized frames, finite; fleet metrics match", flush=True)
+    print(f"fleet throughput: {B * T / wall:.3f} instance-frames/s aggregate, "
+          f"{1e3 * wall / T:.3f} ms per batched frame (warm-up run {warm_s:.3f} s) on {card}",
+          flush=True)
     return launches
 
 
@@ -250,8 +544,17 @@ def main() -> int:
     cfg = VioConfig(filter=FilterConfig(max_slam_features=0))  # the pure-MSCKF slice
     sim = Simulator(SimConfig(duration=8.0), cfg)
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
-    kernels = phase_kernels(dev, cfg, sim, rend)
-    launches = phase_main_path(dev, cfg, sim, rend, card)
+    kernels = phase_kernels(dev, sim, rend) + phase_kernels_batched(dev, sim, rend)
+
+    data = sim.generate()
+    t0 = time.perf_counter()
+    imgs = torch.stack([_render(dev, sim, rend, t) for t in data["t_img"]])
+    torch.cuda.synchronize()
+    print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    launches, ate = phase_main_path(dev, cfg, data, imgs, card)
+    launches.update({k: v for k, v in phase_fleet(dev, cfg, data, imgs, ate, card).items()
+                     if k.endswith("_batched")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card, flush=True)

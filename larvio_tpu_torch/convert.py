@@ -6,7 +6,11 @@
 arrays keyed by the same field names, and builds the port's dataclass of the
 same field set. ``to_reference_numpy(state)`` goes back to nested dicts of
 numpy arrays for comparisons. uint32 leaves (the descriptor words) cross as
-a bit-exact int32 VIEW, never a cast. Nothing here imports JAX.
+a bit-exact int32 VIEW, never a cast. A fleet state (every leaf with a
+leading instance axis B) converts the same way, since its types are the same.
+``config_from_dict(d)`` rebuilds the port's ``VioConfig`` from the nested
+dict that ``dataclasses.asdict`` gives of the JAX package's ``VioConfig``.
+Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from larvio_tpu_torch.config import CameraConfig, FilterConfig, FrontendConfig, NoiseConfig, VioConfig
 from larvio_tpu_torch.models.frontend import TrackerState
 from larvio_tpu_torch.models.initializer import InitAccumulator
 from larvio_tpu_torch.models.msckf import FrameFeatures, StepOutput, VioState
@@ -29,6 +34,25 @@ _PORT_TYPES = (
 )
 _BY_FIELDS = {frozenset(f.name for f in dataclasses.fields(T)): T for T in _PORT_TYPES}
 _UINT32_FIELDS = frozenset({"desc"})  # int32 bit patterns in the port, uint32 in JAX
+
+
+_SECTIONS = {"camera": CameraConfig, "noise": NoiseConfig, "frontend": FrontendConfig,
+             "filter": FilterConfig}
+
+
+def _hashable(v):
+    return tuple(_hashable(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+def config_from_dict(d: dict) -> VioConfig:
+    """The port's ``VioConfig`` from ``dataclasses.asdict`` of a VioConfig
+    (lists, as from JSON, become tuples so the config stays hashable)."""
+    kw = {}
+    for name, value in d.items():
+        if name in _SECTIONS:
+            value = _SECTIONS[name](**{k: _hashable(v) for k, v in value.items()})
+        kw[name] = value
+    return VioConfig(**kw)
 
 
 def _fields_of(obj):

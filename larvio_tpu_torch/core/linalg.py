@@ -126,32 +126,34 @@ def inv_quadform(S: torch.Tensor, r: torch.Tensor, iters: int = 24) -> torch.Ten
 
 
 def psd_factor(M: torch.Tensor) -> torch.Tensor:
-    """Square factor S (D, D) with S S^T = M M^T, for a wide factor M (D, W).
+    """Square factor S (..., D, D) with S S^T = M M^T, for a wide factor M
+    (..., D, W), batched over leading axes.
 
     Jacobi-normalized CholeskyQR2 on M^T, exactly as the JAX version. B is
     kept MATERIALIZED: the Gram-domain shortcut squares the conditioning and
     measured noisy-20s ATE 0.043 -> 0.156 in the JAX package.
     """
-    D = M.shape[0]
-    G = symmetrize(mm(M, M.T))
-    d = torch.diagonal(G)
+    D = M.shape[-2]
+    G = symmetrize(mm(M, M.transpose(-1, -2)))
+    d = torch.diagonal(G, dim1=-2, dim2=-1)
     d = torch.where(torch.isfinite(d), d, 0.0)
     ds = torch.sqrt(torch.clamp(d, min=1e-20))
     eye = _eye_like(D, M)
-    N = G / (ds[:, None] * ds[None, :])
+    N = G / (ds[..., :, None] * ds[..., None, :])
     L1 = _chol_or_eye(symmetrize(N) + 3e-5 * eye)
-    B = torch.linalg.solve_triangular(L1, M / ds[:, None], upper=False)
-    G2 = symmetrize(mm(B, B.T))
+    B = torch.linalg.solve_triangular(L1, M / ds[..., :, None], upper=False)
+    G2 = symmetrize(mm(B, B.transpose(-1, -2)))
     L2 = _chol_or_eye(G2 + 1e-6 * eye)
-    S = ds[:, None] * mm(L1, L2)
-    return torch.where(torch.any(torch.isnan(S)), torch.diag(ds), S)
+    S = ds[..., :, None] * mm(L1, L2)
+    bad = torch.isnan(S).flatten(-2).any(dim=-1)[..., None, None]
+    return torch.where(bad, torch.diag_embed(ds), S)
 
 
 def psd_chol(Q: torch.Tensor, rel_jitter: float = 1e-6) -> torch.Tensor:
-    """Lower Cholesky factor of a small PSD matrix, Jacobi-normalized with
-    relative jitter (process-noise factors for the square-root path)."""
-    d = torch.diagonal(Q)
+    """Lower Cholesky factor of a small PSD matrix (..., n, n), Jacobi-normalized
+    with relative jitter (process-noise factors for the square-root path)."""
+    d = torch.diagonal(Q, dim1=-2, dim2=-1)
     ds = torch.sqrt(torch.clamp(d, min=1e-30))
-    N = Q / (ds[:, None] * ds[None, :])
-    L = _chol_or_eye(symmetrize(N) + rel_jitter * _eye_like(Q.shape[0], Q))
-    return ds[:, None] * L
+    N = Q / (ds[..., :, None] * ds[..., None, :])
+    L = _chol_or_eye(symmetrize(N) + rel_jitter * _eye_like(Q.shape[-1], Q))
+    return ds[..., :, None] * L

@@ -12,7 +12,7 @@ import torch
 from larvio_tpu_torch.core.so3 import skew
 
 
-def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+def quat_identity(dtype, device) -> torch.Tensor:
     return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
 
 

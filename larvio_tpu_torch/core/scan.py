@@ -10,7 +10,8 @@ inside each block, with the block totals scanned the same way recursively
 and added as a carry. Matching that order keeps float prefix sums (RANSAC's
 cumulative sampling probabilities, the velocity/position chains)
 bit-identical to the JAX package on the CPU. Both take few dependent steps
-on the card.
+on the card, and both scan along any axis (``dim``): the other axes, a
+fleet's instance axis among them, ride along.
 """
 
 from __future__ import annotations
@@ -27,9 +28,12 @@ def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def associative_scan(fn, elems: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan of ``fn`` over axis 0; ``fn(a, b)`` combines an earlier
-    prefix ``a`` with a later element ``b``."""
+def associative_scan(fn, elems: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Inclusive scan of ``fn`` over axis ``dim``; ``fn(a, b)`` combines an
+    earlier prefix ``a`` with a later element ``b`` (both with the scanned
+    axis moved to the front)."""
+    if dim != 0:
+        return associative_scan(fn, elems.movedim(dim, 0)).movedim(0, dim)
     n = elems.shape[0]
     if n < 2:
         return elems
@@ -54,8 +58,10 @@ def _sequential(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
-def cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over axis 0 in ``jnp.cumsum``'s CPU order."""
+def cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Inclusive prefix sum over axis ``dim`` in ``jnp.cumsum``'s CPU order."""
+    if dim != 0:
+        return cumsum(x.movedim(dim, 0)).movedim(0, dim)
     n = x.shape[0]
     if n <= _BLOCK:
         return _sequential(x[None])[0]

@@ -1,10 +1,19 @@
-"""State containers as plain dataclasses of tensors, and the two tree helpers
-the filter needs: ``tree_map`` and ``tree_where``.
+"""State containers as plain dataclasses of tensors, the tree helpers the
+filter needs (``tree_map``, ``tree_where``), and the batch-axis helpers that
+let one implementation serve one instance and a fleet.
 
 ``tree_where`` is the port of the JAX package's whole-state
 ``jax.tree.map(lambda a, b: jnp.where(c, a, b), ...)`` selects: it computes
 both branches and selects on the device, so the frame step never reads a
 tensor back to the host to branch on it.
+
+Batch convention: a fleet state has the same leaves as one instance with a
+leading instance axis B. A per-instance condition then has shape (B,) where
+a single instance's has shape (). ``where`` broadcasts such a condition over
+the TRAILING axes of its operands (numpy would align it with the last axis),
+so a select stays per lane and never mixes lanes. ``take`` gathers along one
+axis with per-lane indices, where the single-instance code indexed with
+``x[idx]``.
 """
 
 from __future__ import annotations
@@ -35,6 +44,60 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def scan(step, carry, xs):
+    """``jax.lax.scan`` as a Python loop: ``step(carry, x) -> (carry, out)``
+    over the leading (time) axis of every leaf of ``xs``; the outputs are
+    stacked on a new leading axis."""
+    n = next(iter(_leaves(xs))).shape[0]
+    outs = []
+    for k in range(n):
+        carry, out = step(carry, tree_map(lambda a: a[k], xs))
+        outs.append(out)
+    return carry, tree_map(lambda *o: torch.stack(o), *outs)
+
+
+def _leaves(tree):
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name))
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def where(cond: torch.Tensor, a, b) -> torch.Tensor:
+    """``torch.where`` with ``cond`` aligned to the LEADING axes of a and b:
+    cond (*lead,) selects whole trailing blocks of a, b (*lead, ...)."""
+    nd = max(x.dim() if isinstance(x, torch.Tensor) else 0 for x in (a, b))
+    return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.dim())), a, b)
+
+
 def tree_where(cond: torch.Tensor, a, b):
-    """Leafwise ``torch.where(cond, a, b)`` over two trees of equal structure."""
-    return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
+    """Leafwise ``where(cond, a, b)`` over two trees of equal structure; cond
+    is per instance ((), or (B,) for a fleet)."""
+    return tree_map(lambda x, y: where(cond, x, y), a, b)
+
+
+def take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x[..., idx, ...]`` along axis ``dim`` with per-lane indices.
+
+    x (*lead, N, *tail), idx (*lead, K) or (K,) -> (*lead, K, *tail); the
+    single-instance case (lead = ()) is ``x[idx]`` along that axis.
+    """
+    d = dim % x.dim()
+    tail = x.shape[d + 1:]
+    idx = idx.expand(*x.shape[:d], idx.shape[-1])
+    return torch.gather(x, d, idx.reshape(idx.shape + (1,) * len(tail)).expand(*idx.shape, *tail))
+
+
+def take1(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """``take`` of one index per row: x (*lead, N, *tail), idx (*lead,) ->
+    (*lead, *tail)."""
+    return take(x, idx[..., None], dim).squeeze(dim % x.dim())
+
+
+def all_finite(x: torch.Tensor, n_batch: int) -> torch.Tensor:
+    """Per-lane ``isfinite(x).all()`` over every axis after the first ``n_batch``."""
+    return torch.isfinite(x).reshape(*x.shape[:n_batch], -1).all(dim=-1)

@@ -1,9 +1,15 @@
-// Kernel K1: pyramidal inverse-compositional Lucas-Kanade tracking.
+// Kernels K1 and K3: pyramidal inverse-compositional Lucas-Kanade tracking,
+// one feature table (K1) or B independent tables (K3, a fleet of instances).
 //
-// Replaces the Pallas TPU kernel larvio_tpu/ops/lk_pallas.py:
+// K1 replaces the Pallas TPU kernel larvio_tpu/ops/lk_pallas.py:
 // _make_kernel_multi / _make_multi_feature_body (launched by
-// _lk_track_pallas_impl) and follows ITS semantics, which differ slightly
-// from the plain larvio_tpu/ops/lk.py::lk_track:
+// _lk_track_pallas_impl). K3 replaces _make_kernel_batched (launched by
+// _lk_track_pallas_batched_impl, grid (B, F), the custom_vmap rule that
+// jax.vmap of the pipeline step takes). Both are one __global__, K1 being its
+// launch with one lane, whose device body lk_track_feature plays the part of
+// the Pallas kernels' shared _make_multi_feature_body. They follow the
+// Pallas semantics, which differ slightly from the plain
+// larvio_tpu/ops/lk.py::lk_track:
 //   * the slab centre is clamped to [r, W-r-2] and the bilinear fraction is
 //     taken from the clamped centre;
 //   * the stopping iteration (|step| < precision, or the last of `iters`)
@@ -24,6 +30,12 @@
 // then adds the 8 warp partials in the same order, so all threads hold
 // bit-identical sums and the iteration loop is block-uniform: the early exit
 // costs no divergence. The pyramid is read straight from global memory.
+// K3 is the same kernel with grid (F, B): blockIdx.y picks the lane, whose
+// pyramid levels sit at b * H_l * W_l in contiguous (B, H_l, W_l) arrays and
+// whose table at b * F. What bounds it is again latency: at B = 8 it has 1,600 blocks, which
+// fill the 132 SMs better than K1's 200, but the 8 lanes' pyramids (~62 MB)
+// no longer fit the 50 MB L2 as one lane's 7.7 MB does, so a lane's samples
+// may come from device memory the first time they are touched.
 // Not yet done (later work): several features per block, shared-memory
 // pyramid tiles via TMA, and capturing the step in a CUDA graph.
 
@@ -94,13 +106,16 @@ __device__ __forceinline__ float bilinear(const float* img, int W, int x0, int y
          i11 * fx * fy;
 }
 
-__global__ void __launch_bounds__(LK_THREADS)
-lk_track_kernel(LkPyramid pyr, const float* __restrict__ pos, const float* __restrict__ guess,
-                const int* __restrict__ valid, int patch, int iters, float precision_sq,
-                float max_err, float min_eig, float* __restrict__ out_pos,
-                int* __restrict__ out_valid, float* __restrict__ out_err) {
-  __shared__ float sh[3 * LK_WARPS];
-  const int f = blockIdx.x;
+// One feature's whole pyramid track (the body of K1 and K3). `pyr` holds
+// lane 0's level pointers; lane b's level l starts b * H_l * W_l floats on
+// (the offset is taken per level, so the kernel keeps no per-lane copy of
+// the pointer table). `pos`, `guess`, `valid` and the outputs point at the
+// lane's table; f indexes it.
+__device__ __forceinline__ void lk_track_feature(
+    const LkPyramid& pyr, size_t b, int f, const float* __restrict__ pos,
+    const float* __restrict__ guess, const int* __restrict__ valid, int patch, int iters,
+    float precision_sq, float max_err, float min_eig, float* __restrict__ out_pos,
+    int* __restrict__ out_valid, float* __restrict__ out_err, float* sh) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const bool active = (tx < patch) && (ty < patch);
@@ -126,6 +141,11 @@ lk_track_kernel(LkPyramid pyr, const float* __restrict__ pos, const float* __res
 
   for (int lvl = pyr.levels - 1; lvl >= 0; --lvl) {
     const int H = pyr.H[lvl], W = pyr.W[lvl];
+    const size_t off = b * (size_t)H * (size_t)W;
+    const float* prev = pyr.prev[lvl] + off;
+    const float* curr = pyr.curr[lvl] + off;
+    const float* gxl = pyr.gx[lvl] + off;
+    const float* gyl = pyr.gy[lvl] + off;
     const float scale = ldexpf(1.f, -lvl);
     const float cx = px * scale, cy = py * scale;
 
@@ -134,9 +154,9 @@ lk_track_kernel(LkPyramid pyr, const float* __restrict__ pos, const float* __res
     slab_origin(cx, cy, H, W, r, &x0, &y0, &fx, &fy);
     float T = 0.f, Gx = 0.f, Gy = 0.f;
     if (active) {
-      T = bilinear(pyr.prev[lvl], W, x0, y0, tx, ty, fx, fy);
-      Gx = bilinear(pyr.gx[lvl], W, x0, y0, tx, ty, fx, fy);
-      Gy = bilinear(pyr.gy[lvl], W, x0, y0, tx, ty, fx, fy);
+      T = bilinear(prev, W, x0, y0, tx, ty, fx, fy);
+      Gx = bilinear(gxl, W, x0, y0, tx, ty, fx, fy);
+      Gy = bilinear(gyl, W, x0, y0, tx, ty, fx, fy);
     }
     const float3 g = block_sum3(Gx * Gx, Gx * Gy, Gy * Gy, sh);
     const float gxx = g.x, gxy = g.y, gyy = g.z;
@@ -155,7 +175,7 @@ lk_track_kernel(LkPyramid pyr, const float* __restrict__ pos, const float* __res
       float ifx, ify;
       slab_origin(cx + dx, cy + dy, H, W, r, &ix0, &iy0, &ifx, &ify);
       float e = 0.f;
-      if (active) e = bilinear(pyr.curr[lvl], W, ix0, iy0, tx, ty, ifx, ify) - T;
+      if (active) e = bilinear(curr, W, ix0, iy0, tx, ty, ifx, ify) - T;
       const float3 s = block_sum3(fabsf(e), Gx * e, Gy * e, sh);
       const float sx = (gyy * s.y - gxy * s.z) * inv_det;
       const float sy = (gxx * s.z - gxy * s.y) * inv_det;
@@ -188,32 +208,62 @@ lk_track_kernel(LkPyramid pyr, const float* __restrict__ pos, const float* __res
   }
 }
 
+// K1 and K3: one block per (feature, lane); blockIdx.y = lane b of B (K1 is
+// the launch with B = 1). Lane b's table starts b * n_feat slots on.
+__global__ void __launch_bounds__(LK_THREADS)
+lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
+                const float* __restrict__ guess, const int* __restrict__ valid, int patch,
+                int iters, float precision_sq, float max_err, float min_eig,
+                float* __restrict__ out_pos, int* __restrict__ out_valid,
+                float* __restrict__ out_err) {
+  __shared__ float sh[3 * LK_WARPS];
+  const size_t b = blockIdx.y;
+  const size_t t = b * (size_t)n_feat;
+  lk_track_feature(pyr, b, blockIdx.x, pos + 2 * t, guess + 2 * t, valid + t, patch, iters,
+                   precision_sq, max_err, min_eig, out_pos + 2 * t, out_valid + t, out_err + t,
+                   sh);
+}
+
+static int fill_pyramid(LkPyramid* pyr, const void* const* prev, const void* const* curr,
+                        const void* const* gx, const void* const* gy, const int* heights,
+                        const int* widths, int levels) {
+  if (levels < 1 || levels > LK_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < levels; ++l) {
+    pyr->prev[l] = (const float*)prev[l];
+    pyr->curr[l] = (const float*)curr[l];
+    pyr->gx[l] = (const float*)gx[l];
+    pyr->gy[l] = (const float*)gy[l];
+    pyr->H[l] = heights[l];
+    pyr->W[l] = widths[l];
+  }
+  pyr->levels = levels;
+  return 0;
+}
+
 // Plain C entry point (bound with ctypes). The image pointer arrays and the
 // level shapes are host arrays of `levels` entries; everything else lives on
-// the device. Launches on `stream`, does not synchronize, and returns
-// cudaGetLastError() of the launch (0 on success).
-extern "C" int larvio_lk_track(const void* const* prev, const void* const* curr,
-                               const void* const* gx, const void* const* gy,
-                               const int* heights, const int* widths, int levels,
-                               const void* pos, const void* guess, const void* valid,
-                               int n_feat, int patch, int iters, float precision_sq,
-                               float max_err, float min_eig, void* out_pos, void* out_valid,
-                               void* out_err, void* stream) {
-  if (levels < 1 || levels > LK_MAX_LEVELS || patch < 1 || patch > 15 || n_feat < 0)
+// the device. The level pointers are those of contiguous (B, H_l, W_l)
+// arrays and the tables (B, n_feat, 2) / (B, n_feat), with B = n_lanes: all
+// lanes in one launch (K3), or one table with n_lanes = 1 (K1). It launches
+// on `stream`, does not synchronize, and returns cudaGetLastError() of the
+// launch (0 on success).
+extern "C" int larvio_lk_track_batched(const void* const* prev, const void* const* curr,
+                                       const void* const* gx, const void* const* gy,
+                                       const int* heights, const int* widths, int levels,
+                                       int n_lanes, const void* pos, const void* guess,
+                                       const void* valid, int n_feat, int patch, int iters,
+                                       float precision_sq, float max_err, float min_eig,
+                                       void* out_pos, void* out_valid, void* out_err,
+                                       void* stream) {
+  if (patch < 1 || patch > 15 || n_feat < 0 || n_lanes < 0 || n_lanes > 65535)
     return (int)cudaErrorInvalidValue;
-  if (n_feat == 0) return 0;
   LkPyramid pyr;
-  for (int l = 0; l < levels; ++l) {
-    pyr.prev[l] = (const float*)prev[l];
-    pyr.curr[l] = (const float*)curr[l];
-    pyr.gx[l] = (const float*)gx[l];
-    pyr.gy[l] = (const float*)gy[l];
-    pyr.H[l] = heights[l];
-    pyr.W[l] = widths[l];
-  }
-  pyr.levels = levels;
-  lk_track_kernel<<<n_feat, LK_THREADS, 0, (cudaStream_t)stream>>>(
-      pyr, (const float*)pos, (const float*)guess, (const int*)valid, patch, iters,
+  const int bad = fill_pyramid(&pyr, prev, curr, gx, gy, heights, widths, levels);
+  if (bad) return bad;
+  if (n_feat == 0 || n_lanes == 0) return 0;
+  const dim3 grid(n_feat, n_lanes);
+  lk_track_kernel<<<grid, LK_THREADS, 0, (cudaStream_t)stream>>>(
+      pyr, n_feat, (const float*)pos, (const float*)guess, (const int*)valid, patch, iters,
       precision_sq, max_err, min_eig, (float*)out_pos, (int*)out_valid, (float*)out_err);
   return (int)cudaGetLastError();
 }

@@ -1,2 +1,2 @@
-"""Synthetic image rendering (the simulator and ATE evaluation are the JAX
-package's numpy-only ``larvio_tpu.data.sim`` / ``larvio_tpu.data.evaluate``)."""
+"""Synthetic data: the simulator (``sim``), the ATE evaluation (``evaluate``)
+and the image renderer (``render``)."""

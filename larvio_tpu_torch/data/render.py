@@ -1,7 +1,7 @@
 """Synthetic image renderer: textured ceiling plane + landmark blobs (port of
 ``larvio_tpu/data/render.py``) as an ``nn.Module`` whose buffers (texture,
-per-pixel camera rays, landmarks, blob amplitudes) live on any device, so a
-run on the card renders its frames there."""
+per-pixel camera rays, landmarks, blob amplitudes) live on the card unless
+the caller passes another device (the CPU tests pass ``"cpu"``)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.camera import project, undistort_normalize
 
 _TEX_N = 512
@@ -33,7 +33,7 @@ def _make_texture(seed: int = 7) -> np.ndarray:
 
 class Renderer(nn.Module):
     def __init__(self, cfg: VioConfig, landmarks: np.ndarray, plane_z: float = 12.0,
-                 tex_scale: float = 0.15, seed: int = 7, device=None):
+                 tex_scale: float = 0.15, seed: int = 7, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.plane_z = plane_z
@@ -104,7 +104,7 @@ class Renderer(nn.Module):
         return torch.clamp(img, 0.0, 255.0)
 
 
-def render_sequence(cfg: VioConfig, sim, t_img: np.ndarray, device=None) -> torch.Tensor:
+def render_sequence(cfg: VioConfig, sim, t_img: np.ndarray, device="cuda") -> torch.Tensor:
     """Render all frames of a simulator run on ``device``: (T, H, W) float32."""
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=device)
     R_ci = np.asarray(sim.R_ci)

@@ -5,6 +5,9 @@ the ORB descriptor gate (kernel K2 on the card), then ``FrameFeatures``.
 
 The feature table is fixed-slot: a track keeps its slot for life, slots
 free on death and refill from per-cell detection candidates the same frame.
+Every tensor may carry a leading instance axis (a fleet's lanes): image
+(B, H, W), tables (B, F, ...), per-frame scalars (B,). On the card a fleet
+launches K3 and the batched slab kernel once per frame for all lanes.
 """
 
 from __future__ import annotations
@@ -14,10 +17,10 @@ from dataclasses import dataclass
 
 import torch
 
-from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.camera import project, undistort_normalize
 from larvio_tpu_torch.core.so3 import so3_exp
-from larvio_tpu_torch.core.tree import Struct
+from larvio_tpu_torch.core.tree import Struct, take
 from larvio_tpu_torch.models.msckf import FrameFeatures
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.models.state import extrinsic_rotation
@@ -76,38 +79,38 @@ def _R_ci(cfg: VioConfig, device, dtype) -> torch.Tensor:
 
 def _gyro_cam_rotation(imu: ImuBatch, t0, t1, bg):
     """IMU-frame rotation prev->curr from the mean gyro over (t0, t1]."""
-    in_win = imu.valid & (imu.t > t0) & (imu.t <= t1)
-    cnt = torch.clamp(torch.sum(in_win), min=1)
-    w_mean = torch.sum(torch.where(in_win[:, None], imu.w, 0.0), dim=0) / cnt - bg
-    return so3_exp(-w_mean * (t1 - t0))
+    in_win = imu.valid & (imu.t > t0[..., None]) & (imu.t <= t1[..., None])
+    cnt = torch.clamp(torch.sum(in_win, dim=-1), min=1)[..., None]
+    w_mean = torch.sum(torch.where(in_win[..., None], imu.w, 0.0), dim=-2) / cnt - bg
+    return so3_exp(-w_mean * (t1 - t0)[..., None])
 
 
 def _predict_positions(cfg: VioConfig, pos_px, valid, R_cc):
     """Rotate previous feature rays by the gyro rotation, reproject to px."""
     uvn = undistort_normalize(pos_px, cfg.camera)
     rays = torch.cat([uvn, torch.ones_like(uvn[..., :1])], dim=-1)
-    rot = rays @ R_cc.T
+    rot = rays @ R_cc.transpose(-1, -2)
     uvn_pred = rot[..., :2] / torch.clamp(rot[..., 2:3], min=1e-6)
-    return torch.where(valid[:, None], project(uvn_pred, cfg.camera), pos_px)
+    return torch.where(valid[..., None], project(uvn_pred, cfg.camera), pos_px)
 
 
 def track_frame(cfg: VioConfig, ts: TrackerState, image: torch.Tensor, imu: ImuBatch,
                 t_img: torch.Tensor, bg: torch.Tensor):
-    """One frame of tracking. image: (H, W) float32 in [0, 255].
-    Returns (TrackerState, FrameFeatures)."""
+    """One frame of tracking. image: (..., H, W) float32 in [0, 255], with the
+    tracker state's leading axes. Returns (TrackerState, FrameFeatures)."""
     fcfg = cfg.frontend
     F = fcfg.max_features
     dtype, dev = image.dtype, image.device
-    H, W = image.shape
+    lead, (H, W) = image.shape[:-2], image.shape[-2:]
 
     pyr = tuple(build_pyramid(image, fcfg.pyramid_levels))
     grad_pyr = make_grad_pyramid(list(ts.prev_pyr))
 
-    # ---- gyro-predicted LK tracking (kernel K1 on CUDA tensors) -------------
+    # ---- gyro-predicted LK tracking (K1, or K3 for a fleet, on CUDA tensors) -
     R_ii = _gyro_cam_rotation(imu, ts.prev_time, t_img, bg)
     R_ci = _R_ci(cfg, dev, dtype)
-    R_cc = R_ci @ R_ii @ R_ci.T  # prev cam -> curr cam
-    can_track = ts.valid & ts.has_prev
+    R_cc = R_ci @ R_ii @ R_ci.T  # prev cam -> curr cam, (..., 3, 3)
+    can_track = ts.valid & ts.has_prev[..., None]
     guess = _predict_positions(cfg, ts.pos, can_track, R_cc)
     lk = lk_track_cuda(
         ts.prev_pyr, pyr,
@@ -138,51 +141,56 @@ def track_frame(cfg: VioConfig, ts: TrackerState, image: torch.Tensor, imu: ImuB
     cw = -(-W // fcfg.grid_cols)
     # .to(int32) truncates toward zero and // floors, as in the JAX package
     cell_of = (
-        torch.clamp(lk.pos[:, 1].to(torch.int32) // ch, 0, fcfg.grid_rows - 1) * fcfg.grid_cols
-        + torch.clamp(lk.pos[:, 0].to(torch.int32) // cw, 0, fcfg.grid_cols - 1)
+        torch.clamp(lk.pos[..., 1].to(torch.int32) // ch, 0, fcfg.grid_rows - 1) * fcfg.grid_cols
+        + torch.clamp(lk.pos[..., 0].to(torch.int32) // cw, 0, fcfg.grid_cols - 1)
     )
-    occupancy = torch.zeros(n_cells, dtype=torch.int32, device=dev).index_add_(
-        0, cell_of.long(), tracked.to(torch.int32)
+    occupancy = torch.zeros((*lead, n_cells), dtype=torch.int32, device=dev).scatter_add_(
+        -1, cell_of.long(), tracked.to(torch.int32)
     )
-    d2 = torch.sum((cand_xy.reshape(-1, 1, 2) - lk.pos[None, :, :]) ** 2, dim=-1)  # (cells*k, F)
-    near_track = torch.any((d2 < float(fcfg.min_distance) ** 2) & tracked[None, :], dim=1).reshape(n_cells, -1)
+    d2 = torch.sum((cand_xy.reshape(*lead, -1, 1, 2) - lk.pos[..., None, :, :]) ** 2, dim=-1)  # (..., cells*k, F)
+    near_track = torch.any((d2 < float(fcfg.min_distance) ** 2) & tracked[..., None, :], dim=-1)
+    near_track = near_track.reshape(*lead, n_cells, -1)
 
     cand_ok = (scores > fcfg.fast_threshold) & ~near_track
-    rank_in_cell = torch.cumsum(cand_ok.to(torch.int32), dim=1) - 1
+    rank_in_cell = torch.cumsum(cand_ok.to(torch.int32), dim=-1) - 1
     need = occupancy < fcfg.grid_min_feature_num
     quota = torch.where(need, torch.clamp(fcfg.grid_max_feature_num - occupancy, min=0), 0)
-    cand_ok = cand_ok & (rank_in_cell < quota[:, None])
+    cand_ok = cand_ok & (rank_in_cell < quota[..., None])
 
-    cand_xy_flat = cand_xy.reshape(-1, 2)
-    cand_ok_flat = cand_ok.reshape(-1)
-    cand_score_flat = torch.where(cand_ok_flat, scores.reshape(-1), -1.0)
-    n_cand = cand_xy_flat.shape[0]
+    cand_xy_flat = cand_xy.reshape(*lead, -1, 2)
+    cand_ok_flat = cand_ok.reshape(*lead, -1)
+    cand_score_flat = torch.where(cand_ok_flat, scores.reshape(*lead, -1), -1.0)
+    n_cand = cand_xy_flat.shape[-2]
     if n_cand < F:  # pad the pool so slot assignment is shape-safe
-        cand_xy_flat = torch.cat([cand_xy_flat, torch.zeros((F - n_cand, 2), dtype=dtype, device=dev)])
-        cand_ok_flat = torch.cat([cand_ok_flat, torch.zeros(F - n_cand, dtype=torch.bool, device=dev)])
-        cand_score_flat = torch.cat([cand_score_flat, torch.full((F - n_cand,), -1.0, dtype=dtype, device=dev)])
+        pad = F - n_cand
+        cand_xy_flat = torch.cat([cand_xy_flat, torch.zeros((*lead, pad, 2), dtype=dtype, device=dev)], dim=-2)
+        cand_ok_flat = torch.cat([cand_ok_flat, torch.zeros((*lead, pad), dtype=torch.bool, device=dev)], dim=-1)
+        cand_score_flat = torch.cat(
+            [cand_score_flat, torch.full((*lead, pad), -1.0, dtype=dtype, device=dev)], dim=-1)
 
     # k-th free slot takes the k-th best candidate (stable orders, as jnp.argsort)
     free = ~tracked
-    order_slots = torch.argsort(tracked.to(torch.int32), stable=True)  # free slots first
-    order_cands = torch.argsort(-cand_score_flat, stable=True)
-    take = torch.arange(F, device=dev) < torch.minimum(torch.sum(free), torch.sum(cand_ok_flat))
-    slot_idx = order_slots[:F]
-    cand_idx = order_cands[:F]
-    new_pos = torch.zeros((F, 2), dtype=dtype, device=dev)
-    new_pos[slot_idx] = torch.where(take[:, None], cand_xy_flat[cand_idx], 0.0)
-    is_new = torch.zeros(F, dtype=torch.bool, device=dev)
-    is_new[slot_idx] = take
+    order_slots = torch.argsort(tracked.to(torch.int32), dim=-1, stable=True)  # free slots first
+    order_cands = torch.argsort(-cand_score_flat, dim=-1, stable=True)
+    n_take = torch.minimum(torch.sum(free, dim=-1), torch.sum(cand_ok_flat, dim=-1))
+    take_k = torch.arange(F, device=dev) < n_take[..., None]
+    slot_idx = order_slots[..., :F]  # a permutation of the slots: the scatters below are 1:1
+    cand_idx = order_cands[..., :F]
+    placed = torch.where(take_k[..., None], take(cand_xy_flat, cand_idx, -2), 0.0)
+    new_pos = torch.zeros((*lead, F, 2), dtype=dtype, device=dev).scatter(
+        -2, slot_idx[..., None].expand(*lead, F, 2), placed)
+    is_new = torch.zeros((*lead, F), dtype=torch.bool, device=dev).scatter(-1, slot_idx, take_k)
 
-    pos = torch.where(is_new[:, None], new_pos, lk.pos)
-    new_ids = ts.next_id + torch.cumsum(is_new.to(torch.int32), dim=0) - 1
+    pos = torch.where(is_new[..., None], new_pos, lk.pos)
+    new_ids = ts.next_id[..., None] + torch.cumsum(is_new.to(torch.int32), dim=-1) - 1
     ids = torch.where(is_new, new_ids, torch.where(tracked, ts.ids, -1)).to(torch.int32)
-    next_id = (ts.next_id + torch.sum(is_new)).to(torch.int32)
+    next_id = (ts.next_id + torch.sum(is_new, dim=-1)).to(torch.int32)
     age = torch.where(is_new, 0, torch.where(tracked, ts.age + 1, 0)).to(torch.int32)
     valid = tracked | is_new
 
-    # one descriptor pass over the final table (kernel K2 on CUDA tensors):
-    # ORB gate for survivors, birth descriptors for the newly detected
+    # one descriptor pass over the final table (K2, or its batched form for a
+    # fleet, on CUDA tensors): ORB gate for survivors, birth descriptors for
+    # the newly detected
     desc_now = describe(image, pos, valid)
     margin_ok = in_bounds(pos, (H, W), margin=17.0)
     dist = hamming(desc_now, ts.desc)
@@ -190,18 +198,18 @@ def track_frame(cfg: VioConfig, ts: TrackerState, image: torch.Tensor, imu: ImuB
     tracked = tracked & (desc_ok | is_new)
     valid = tracked | is_new
     ids = torch.where(valid, ids, -1)
-    desc = torch.where(is_new[:, None], desc_now, ts.desc)
+    desc = torch.where(is_new[..., None], desc_now, ts.desc)
 
     # ---- measurement assembly ---------------------------------------------------
     uvn = undistort_normalize(pos, cfg.camera)
-    dt = torch.clamp(t_img - ts.prev_time, min=1e-6)
+    dt = torch.clamp(t_img - ts.prev_time, min=1e-6)[..., None, None]
     moved = tracked & ~is_new
-    vel = torch.where(moved[:, None], (uvn - ts.uv_norm) / dt, 0.0)
+    vel = torch.where(moved[..., None], (uvn - ts.uv_norm) / dt, 0.0)
     motion = torch.linalg.norm(uvn - ts.uv_norm, dim=-1)
-    n_moved = torch.sum(moved)
+    n_moved = torch.sum(moved, dim=-1)
     mean_motion = torch.where(
         n_moved > 0,
-        torch.sum(torch.where(moved, motion, 0.0)) / torch.clamp(n_moved, min=1),
+        torch.sum(torch.where(moved, motion, 0.0), dim=-1) / torch.clamp(n_moved, min=1),
         1.0,
     ).to(dtype)
 

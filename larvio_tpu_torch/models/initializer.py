@@ -2,7 +2,8 @@
 ``larvio_tpu/models/initializer.py``): IMU moments and image-motion evidence
 accrue until the window is long enough; if the accelerometer variance AND the
 image stillness certify rest, roll/pitch come from the mean specific force,
-the gyro bias from the mean rate, v = p = 0."""
+the gyro bias from the mean rate, v = p = 0. Every field may carry a leading
+instance axis (a fleet); the selects stay per lane."""
 
 from __future__ import annotations
 
@@ -10,11 +11,11 @@ from dataclasses import dataclass
 
 import torch
 
-from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import const
 from larvio_tpu_torch.core.quaternion import rotation_to_quat
 from larvio_tpu_torch.core.so3 import skew
-from larvio_tpu_torch.core.tree import Struct
+from larvio_tpu_torch.core.tree import Struct, where
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.models.state import FilterState, initial_covariance
 
@@ -48,23 +49,24 @@ def accumulate(acc: InitAccumulator, imu: ImuBatch, mean_motion: torch.Tensor) -
     m = imu.valid
     mf = m.to(imu.a.dtype)
     return acc.replace(
-        sum_w=acc.sum_w + torch.sum(imu.w * mf[:, None], dim=0),
-        sum_a=acc.sum_a + torch.sum(imu.a * mf[:, None], dim=0),
-        sum_a2=acc.sum_a2 + torch.sum(torch.sum(imu.a * imu.a, dim=-1) * mf),
-        count=acc.count + torch.sum(m).to(torch.int32),
-        last_t=torch.maximum(acc.last_t, torch.amax(torch.where(m, imu.t, -torch.inf))),
+        sum_w=acc.sum_w + torch.sum(imu.w * mf[..., None], dim=-2),
+        sum_a=acc.sum_a + torch.sum(imu.a * mf[..., None], dim=-2),
+        sum_a2=acc.sum_a2 + torch.sum(torch.sum(imu.a * imu.a, dim=-1) * mf, dim=-1),
+        count=acc.count + torch.sum(m, dim=-1).to(torch.int32),
+        last_t=torch.maximum(acc.last_t, torch.amax(torch.where(m, imu.t, -torch.inf), dim=-1)),
         sum_motion=acc.sum_motion + mean_motion.to(acc.sum_motion.dtype),
         n_frames=acc.n_frames + 1,
     )
 
 
 def gravity_aligned_quat(mean_a: torch.Tensor) -> torch.Tensor:
-    """JPL world->IMU quaternion with R @ [0,0,1] = normalize(mean_a), yaw 0."""
-    a_dir = mean_a / torch.clamp(torch.linalg.norm(mean_a), min=1e-9)
+    """JPL world->IMU quaternion with R @ [0,0,1] = normalize(mean_a), yaw 0.
+    mean_a (..., 3) -> (..., 4)."""
+    a_dir = mean_a / torch.clamp(torch.linalg.norm(mean_a, dim=-1, keepdim=True), min=1e-9)
     e_z = const((0.0, 0.0, 1.0), mean_a.dtype, mean_a.device)
-    v = torch.linalg.cross(e_z, a_dir)
-    s = torch.linalg.norm(v)
-    c = torch.dot(e_z, a_dir)
+    v = torch.linalg.cross(e_z.expand_as(a_dir), a_dir)
+    s = torch.linalg.norm(v, dim=-1)[..., None, None]
+    c = torch.sum(e_z * a_dir, dim=-1)[..., None, None]
     vx = skew(v)
     eye = torch.eye(3, dtype=mean_a.dtype, device=mean_a.device)
     R = eye + vx + (vx @ vx) * ((1.0 - c) / torch.clamp(s * s, min=1e-12))
@@ -77,9 +79,9 @@ def try_static_init(cfg: VioConfig, fs: FilterState, acc: InitAccumulator):
     fcfg = cfg.filter
     dtype = fs.P.dtype
     n = torch.clamp(acc.count.to(dtype), min=1.0)
-    mean_a = acc.sum_a / n
-    mean_w = acc.sum_w / n
-    var_a = acc.sum_a2 / n - torch.sum(mean_a * mean_a)
+    mean_a = acc.sum_a / n[..., None]
+    mean_w = acc.sum_w / n[..., None]
+    var_a = acc.sum_a2 / n - torch.sum(mean_a * mean_a, dim=-1)
     win_motion = acc.sum_motion / torch.clamp(acc.n_frames.to(dtype), min=1.0)
     image_still = win_motion < fcfg.static_init_max_feature_dis
 
@@ -93,21 +95,21 @@ def try_static_init(cfg: VioConfig, fs: FilterState, acc: InitAccumulator):
         P0 = torch.sqrt(P0)  # diagonal prior -> its factor
 
     fs_new = fs.replace(
-        q=torch.where(do_init, q0, fs.q),
-        q_null=torch.where(do_init, q0, fs.q_null),
-        bg=torch.where(do_init, mean_w, fs.bg),
-        v=torch.where(do_init, 0.0, fs.v),
-        v_null=torch.where(do_init, 0.0, fs.v_null),
-        p=torch.where(do_init, 0.0, fs.p),
-        p_null=torch.where(do_init, 0.0, fs.p_null),
-        P=torch.where(do_init, P0, fs.P),
+        q=where(do_init, q0, fs.q),
+        q_null=where(do_init, q0, fs.q_null),
+        bg=where(do_init, mean_w, fs.bg),
+        v=where(do_init, 0.0, fs.v),
+        v_null=where(do_init, 0.0, fs.v_null),
+        p=where(do_init, 0.0, fs.p),
+        p_null=where(do_init, 0.0, fs.p_null),
+        P=where(do_init, P0, fs.P),
         time=torch.where(do_init, acc.last_t, fs.time),
         initialized=fs.initialized | do_init,
     )
     restart = ready & ~stationary  # rolling restart of a non-stationary window
     acc_new = InitAccumulator(
-        sum_w=torch.where(restart, 0.0, acc.sum_w),
-        sum_a=torch.where(restart, 0.0, acc.sum_a),
+        sum_w=where(restart, 0.0, acc.sum_w),
+        sum_a=where(restart, 0.0, acc.sum_a),
         sum_a2=torch.where(restart, 0.0, acc.sum_a2),
         count=torch.where(restart, 0, acc.count),
         last_t=acc.last_t,

@@ -8,6 +8,11 @@ ZUPT update, online reset. Every data-dependent choice is a device-side
 select (``tree_where`` / ``torch.where``); only configuration branches are
 Python. The hybrid SLAM update (``max_slam_features > 0``) is not ported
 yet: ``filter_step`` raises for it.
+
+Every leaf of the state, ``FrameFeatures`` and ``ImuBatch`` may carry a
+leading instance axis B (a fleet, ``parallel/fleet.py``). Reductions run over
+an instance's own axes only and every select is per lane, so a reset or a
+NaN in one lane never touches another.
 """
 
 from __future__ import annotations
@@ -16,9 +21,9 @@ from dataclasses import dataclass
 
 import torch
 
-from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import const
-from larvio_tpu_torch.core.tree import Struct, tree_where
+from larvio_tpu_torch.core.tree import Struct, all_finite, take, take1, tree_where, where
 from larvio_tpu_torch.models import prune as prune_mod
 from larvio_tpu_torch.models.augmentation import add_observations, augment_state
 from larvio_tpu_torch.models.initializer import (
@@ -86,22 +91,19 @@ def init_vio_state(cfg: VioConfig, device, dtype=torch.float32) -> VioState:
                     init_acc=InitAccumulator.zero(device, dtype))
 
 
-def _all_finite(x: torch.Tensor) -> torch.Tensor:
-    return torch.all(torch.isfinite(x))
-
-
 def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest scores, ties lower-index first (jax.lax.top_k)."""
-    return torch.sort(score, descending=True, stable=True).indices[:k]
+    """Indices of the k largest scores along the last axis, ties lower-index
+    first (jax.lax.top_k)."""
+    return torch.sort(score, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 def _high_vel_unc(cfg: VioConfig, fs: FilterState) -> torch.Tensor:
-    return torch.amax(cov_diag(cfg, fs.P)[6:9]) > cfg.filter.bootstrap_vel_var
+    return torch.amax(cov_diag(cfg, fs.P)[..., 6:9], dim=-1) > cfg.filter.bootstrap_vel_var
 
 
 def _bootstrap_mode(cfg: VioConfig, fs: FilterState) -> torch.Tensor:
     """Clone window still rebuilding AND high velocity uncertainty."""
-    window_building = torch.sum(fs.clones.valid) < cfg.filter.max_clones - 2
+    window_building = torch.sum(fs.clones.valid, dim=-1) < cfg.filter.max_clones - 2
     return window_building & _high_vel_unc(cfg, fs)
 
 
@@ -118,57 +120,66 @@ def _trim_rows(cfg: VioConfig, tri, mask):
     if k <= 0:
         return mask
     rn = torch.where(mask, tri.resid, 0.0)
-    n = torch.clamp(torch.sum(mask, dim=1), min=1).to(rn.dtype)
-    scale = torch.clamp(torch.sum(rn, dim=1) / n, min=cfg.filter.tri_trim_floor)
-    return mask & (tri.resid <= k * scale[:, None])
+    n = torch.clamp(torch.sum(mask, dim=-1), min=1).to(rn.dtype)
+    scale = torch.clamp(torch.sum(rn, dim=-1) / n, min=cfg.filter.tri_trim_floor)
+    return mask & (tri.resid <= k * scale[..., None])
 
 
 def _marginalization_blocks(cfg: VioConfig, fs: FilterState, feats: FrameFeatures, slot_a, slot_b, do_prune):
     """Dead-track + prune-observation blocks from ONE triangulation batch.
     Returns (H_stack, r_stack, n_accepted, dead_rows)."""
     C = cfg.filter.max_clones
-    F = fs.obs.track_id.shape[0]
+    F = fs.obs.track_id.shape[-1]
     # the JAX package's top_k would reject k > F; clamping keeps small tables legal
     K = min(cfg.filter.max_update_features, F)
     K2 = min(cfg.filter.max_prune_features, F)
     D = state_dim(cfg)
     obs = fs.obs
     dev = fs.P.device
+    lead = fs.time.shape
 
     still_tracked = feats.valid & (feats.ids == obs.track_id)
     has_row = obs.track_id >= 0
-    n_obs = torch.sum(obs.valid, dim=1)
+    n_obs = torch.sum(obs.valid, dim=-1)
     dead = has_row & ~still_tracked
     idx_d = top_k_indices(torch.where(dead, n_obs, -1), K)
-    sel_d = dead[idx_d]
+    sel_d = take(dead, idx_d, -1)
 
     ar_c = torch.arange(C, device=dev)
-    pruned_cols = (ar_c == slot_a) | (ar_c == slot_b)
-    row_mask_all = obs.valid & pruned_cols[None, :]
-    involved = torch.sum(row_mask_all, dim=1)
-    use_p = has_row & ~dead & do_prune & (involved >= 2) & (n_obs >= 2)
+    pruned_cols = (ar_c == slot_a[..., None]) | (ar_c == slot_b[..., None])
+    row_mask_all = obs.valid & pruned_cols[..., None, :]
+    involved = torch.sum(row_mask_all, dim=-1)
+    use_p = has_row & ~dead & do_prune[..., None] & (involved >= 2) & (n_obs >= 2)
     idx_p = top_k_indices(torch.where(use_p, n_obs, -1), K2)
-    sel_p = use_p[idx_p]
+    sel_p = take(use_p, idx_p, -1)
 
-    idx = torch.cat([idx_d, idx_p])
-    sel = torch.cat([sel_d, sel_p])
-    uv_b = obs.uv[idx]
-    tri_mask = obs.valid[idx] & sel[:, None]
+    idx = torch.cat([idx_d, idx_p], dim=-1)
+    sel = torch.cat([sel_d, sel_p], dim=-1)
+    uv_b = take(obs.uv, idx, -3)
+    tri_mask = take(obs.valid, idx, -2) & sel[..., None]
     tri = triangulate_batch(cfg, camera_window(fs), fs.clones.frame, uv_b, tri_mask)
-    tri_ok = tri.valid & (tri.mean_err < _tri_err_bound(cfg, fs))
+    tri_ok = tri.valid & (tri.mean_err < _tri_err_bound(cfg, fs)[..., None])
     trim = _trim_rows(cfg, tri, tri_mask)
 
-    row_d = trim[:K] & sel_d[:, None]
-    blocks = feature_block(cfg, fs, tri.p_w[:K], uv_b[:K], row_d, tri_ok[:K] & sel_d)
+    row_d = trim[..., :K, :] & sel_d[..., None]
+    blocks = feature_block(cfg, fs, tri.p_w[..., :K, :], uv_b[..., :K, :, :], row_d,
+                           tri_ok[..., :K] & sel_d)
 
-    slots = torch.stack([slot_a, slot_b])
-    uv_p = obs.uv[idx_p][:, slots]  # (K2, 2, 2)
-    ok_p = row_mask_all[idx_p][:, slots] & sel_p[:, None] & trim[K:][:, slots]
-    H_p, r_p, acc_p = prune_feature_block(cfg, fs, tri.p_w[K:], uv_p, slots, ok_p, tri_ok[K:] & sel_p)
+    slots = torch.stack([slot_a, slot_b], dim=-1)  # (..., 2)
+    slots_k = slots[..., None, :].expand(*lead, K2, 2)
 
-    H_stack = torch.cat([blocks.H.reshape(K * 2 * C, D), H_p], dim=0)
-    r_stack = torch.cat([blocks.r.reshape(K * 2 * C), r_p])
-    n_accepted = torch.sum(blocks.accept) + torch.sum(acc_p)
+    def pruned(x):  # the two pruned clone columns: (..., K2, C, ...) -> (..., K2, 2, ...)
+        return take(x, slots_k, len(lead) + 1)
+
+    uv_p = pruned(take(obs.uv, idx_p, -3))  # (K2, 2, 2)
+    ok_p = (pruned(take(row_mask_all, idx_p, -2)) & sel_p[..., None]
+            & pruned(trim[..., K:, :]))
+    H_p, r_p, acc_p = prune_feature_block(cfg, fs, tri.p_w[..., K:, :], uv_p, slots, ok_p,
+                                          tri_ok[..., K:] & sel_p)
+
+    H_stack = torch.cat([blocks.H.reshape(*lead, K * 2 * C, D), H_p], dim=-2)
+    r_stack = torch.cat([blocks.r.reshape(*lead, K * 2 * C), r_p], dim=-1)
+    n_accepted = torch.sum(blocks.accept, dim=-1) + torch.sum(acc_p, dim=-1)
     return H_stack, r_stack, n_accepted, dead
 
 
@@ -183,6 +194,10 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
     dtype, dev = fs0.P.dtype, fs0.P.device
     C = cfg.filter.max_clones
     fcfg = cfg.filter
+    nb = fs0.time.dim()  # 0 for one instance, 1 for a fleet (B,)
+
+    def finite(x):
+        return all_finite(x, nb)
 
     # ---- 1. initialization path (masked) ------------------------------------
     acc = accumulate(vs.init_acc, imu, feats.mean_motion)
@@ -191,21 +206,21 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
 
     # ---- 2. propagation (returns the WIDE factor; pad the other branch) -----
     fs_prop = propagate(cfg, fs_init, imu, feats.t)
-    pad = fs_prop.P.shape[1] - fs_init.P.shape[1]
+    pad = fs_prop.P.shape[-1] - fs_init.P.shape[-1]
     fs_init_m = fs_init.replace(P=torch.cat(
-        [fs_init.P, torch.zeros((fs_init.P.shape[0], pad), dtype=dtype, device=dev)], dim=1))
+        [fs_init.P, torch.zeros((*fs_init.P.shape[:-1], pad), dtype=dtype, device=dev)], dim=-1))
     fs = tree_where(inited, fs_prop, fs_init_m)
 
     # ---- 2b. vision-time gate -----------------------------------------------
     t_reached = fs.time >= feats.t + fs.td - fcfg.vision_time_tol
-    feats = feats.replace(valid=feats.valid & (t_reached | ~inited))
+    feats = feats.replace(valid=feats.valid & (t_reached | ~inited)[..., None])
 
     # ---- 3. ZUPT detection --------------------------------------------------
-    n_tracked = torch.sum(feats.valid).to(torch.int32)
+    n_tracked = torch.sum(feats.valid, dim=-1).to(torch.int32)
     stationary = detect_stationary(cfg, feats.mean_motion, n_tracked, fs, imu) & inited
 
     # ---- 4. dead-track + prune blocks -> one update, THEN remove clones -----
-    n_clones = torch.sum(fs.clones.valid)
+    n_clones = torch.sum(fs.clones.valid, dim=-1)
     do_prune = (n_clones >= C) & inited
     slot_a, slot_b = prune_mod.select_redundant(cfg, fs)
     H_stack, r_stack, n_accepted, dead_rows = _marginalization_blocks(
@@ -219,18 +234,19 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
         cfg.noise.observation_noise**2,
     ).to(dtype)
     # refactor=True: with S == 0 nothing later this frame re-squares the factor
-    fs, _, _ = apply_update(cfg, fs, H_stack, r_stack, obs_var, enable=do_update, refactor=True)
+    fs, _, _ = apply_update(cfg, fs, H_stack, r_stack, obs_var[..., None], enable=do_update,
+                            refactor=True)
 
     fs = fs.replace(obs=fs.obs.replace(
-        valid=fs.obs.valid & ~dead_rows[:, None],
+        valid=fs.obs.valid & ~dead_rows[..., None],
         track_id=torch.where(dead_rows, -1, fs.obs.track_id),
     ))
     fs = prune_mod.remove_clones(cfg, fs, slot_a, slot_b, do_prune)
 
     # ---- 5. augmentation + observation insertion ----------------------------
-    do_augment = inited & t_reached & (torch.sum(fs.clones.valid) < C)
-    last = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf))
-    fs, slot = augment_state(cfg, fs, do_augment, imu.w[last] - fs.bg)
+    do_augment = inited & t_reached & (torch.sum(fs.clones.valid, dim=-1) < C)
+    last = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf), dim=-1)  # newest valid sample
+    fs, slot = augment_state(cfg, fs, do_augment, take1(imu.w, last, -2) - fs.bg)
     fs = add_observations(cfg, fs, slot, feats.ids, feats.uv, feats.valid)
 
     # ---- 8. ZUPT update -----------------------------------------------------
@@ -239,10 +255,10 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
     # ---- 10. online reset ---------------------------------------------------
     diagP = cov_diag(cfg, fs.P)
     blown = (
-        (torch.amax(diagP[12:15]) > fcfg.position_std_threshold**2)
-        | ~_all_finite(diagP)
-        | ~(_all_finite(fs.q) & _all_finite(fs.p) & _all_finite(fs.v))
-        | (inited & (torch.amin(diagP[:IMU_DIM]) <= 0.0))
+        (torch.amax(diagP[..., 12:15], dim=-1) > fcfg.position_std_threshold**2)
+        | ~finite(diagP)
+        | ~(finite(fs.q) & finite(fs.p) & finite(fs.v))
+        | (inited & (torch.amin(diagP[..., :IMU_DIM], dim=-1) <= 0.0))
     )
     do_reset = blown & inited
     # dynamic-mode prior; calibration states that survived finite keep tight priors
@@ -250,49 +266,49 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
     ar = torch.arange(d_reset.shape[0], device=dev)
 
     def _cal_var(d, i0, n, var_keep, survived):
-        return torch.where((ar >= i0) & (ar < i0 + n) & survived, var_keep, d)
+        return torch.where((ar >= i0) & (ar < i0 + n) & survived[..., None], var_keep, d)
 
-    q_ok = _all_finite(fs.q)
+    q_ok = finite(fs.q)
     d_reset = _cal_var(d_reset, 0, 2, fcfg.reset_rp_std**2, q_ok)
     d_reset = _cal_var(d_reset, 2, 1, fcfg.reset_yaw_std**2, q_ok)
     d_reset = _cal_var(d_reset, 0, 2, fcfg.reset_accel_seed_rp_std**2, ~q_ok)
-    d_reset = _cal_var(d_reset, 3, 3, fcfg.reset_bg_std**2, _all_finite(fs.bg))
-    d_reset = _cal_var(d_reset, 9, 3, fcfg.reset_ba_std**2, _all_finite(fs.ba))
+    d_reset = _cal_var(d_reset, 3, 3, fcfg.reset_bg_std**2, finite(fs.bg))
+    d_reset = _cal_var(d_reset, 9, 3, fcfg.reset_ba_std**2, finite(fs.ba))
     if fcfg.estimate_td:
         d_reset = _cal_var(d_reset, IDX_TD, 1, fcfg.reset_td_std**2, torch.isfinite(fs.td))
 
     def _san(x, fallback):
-        bad = do_reset & ~_all_finite(x)
-        return torch.where(bad, fallback, x)
+        bad = do_reset & ~finite(x)
+        return where(bad, fallback, x)
 
-    last_v = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf))
-    a_seed = imu.a[last_v]
+    a_seed = take1(imu.a, last, -2)
     a_fin = torch.where(torch.isfinite(a_seed), a_seed, 0.0)
-    a_ok = _all_finite(a_seed) & (torch.linalg.norm(a_fin) > 1.0)
-    q_fallback = torch.where(a_ok, gravity_aligned_quat(a_fin), const((0.0, 0.0, 0.0, 1.0), dtype, dev))
+    a_ok = finite(a_seed) & (torch.linalg.norm(a_fin, dim=-1) > 1.0)
+    q_fallback = where(a_ok, gravity_aligned_quat(a_fin), const((0.0, 0.0, 0.0, 1.0), dtype, dev))
     q_s = _san(fs.q, q_fallback)
     v_s = _san(fs.v, 0.0)
     p_s = _san(fs.p, 0.0)
+    lane = do_reset[..., None]  # against per-slot tables (..., S) / (..., F)
     fs = fs.replace(
-        P=torch.where(do_reset, torch.diag(torch.sqrt(d_reset)), fs.P),
+        P=where(do_reset, torch.diag_embed(torch.sqrt(d_reset)), fs.P),
         q=q_s, v=v_s, p=p_s,
         bg=_san(fs.bg, 0.0),
         ba=_san(fs.ba, 0.0),
         time=_san(fs.time, feats.t),
         td=_san(fs.td, fcfg.td_initial),
-        q_null=torch.where(do_reset, q_s, fs.q_null),
-        v_null=torch.where(do_reset, v_s, fs.v_null),
-        p_null=torch.where(do_reset, p_s, fs.p_null),
-        clones=fs.clones.replace(valid=fs.clones.valid & ~do_reset),
+        q_null=where(do_reset, q_s, fs.q_null),
+        v_null=where(do_reset, v_s, fs.v_null),
+        p_null=where(do_reset, p_s, fs.p_null),
+        clones=fs.clones.replace(valid=fs.clones.valid & ~lane),
         slam=fs.slam.replace(
-            valid=fs.slam.valid & ~do_reset,
-            track_id=torch.where(do_reset, -1, fs.slam.track_id),
-            track_slot=torch.where(do_reset, -1, fs.slam.track_slot),
-            anchor_slot=torch.where(do_reset, -1, fs.slam.anchor_slot),
+            valid=fs.slam.valid & ~lane,
+            track_id=torch.where(lane, -1, fs.slam.track_id),
+            track_slot=torch.where(lane, -1, fs.slam.track_slot),
+            anchor_slot=torch.where(lane, -1, fs.slam.anchor_slot),
         ),
         obs=fs.obs.replace(
-            valid=fs.obs.valid & ~do_reset,
-            track_id=torch.where(do_reset, -1, fs.obs.track_id),
+            valid=fs.obs.valid & ~lane[..., None],
+            track_id=torch.where(lane, -1, fs.obs.track_id),
         ),
         reset_count=fs.reset_count + do_reset.to(torch.int32),
         frame=fs.frame + 1,
@@ -304,13 +320,13 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
         q=fs.q, p=fs.p, v=fs.v, t=fs.time, td=fs.td, bg=fs.bg, ba=fs.ba,
         initialized=inited,
         stationary=stationary,
-        n_clones=torch.sum(fs.clones.valid).to(torch.int32),
+        n_clones=torch.sum(fs.clones.valid, dim=-1).to(torch.int32),
         n_tracks=n_tracked,
         n_updated=torch.where(do_update, n_accepted, 0).to(torch.int32),
-        n_slam=torch.sum(fs.slam.valid).to(torch.int32),
-        p_std=torch.sqrt(torch.clamp(diag_out[12:15], min=0.0)),
-        v_std=torch.sqrt(torch.clamp(diag_out[6:9], min=0.0)),
-        q_std=torch.sqrt(torch.clamp(diag_out[0:3], min=0.0)),
+        n_slam=torch.sum(fs.slam.valid, dim=-1).to(torch.int32),
+        p_std=torch.sqrt(torch.clamp(diag_out[..., 12:15], min=0.0)),
+        v_std=torch.sqrt(torch.clamp(diag_out[..., 6:9], min=0.0)),
+        q_std=torch.sqrt(torch.clamp(diag_out[..., 0:3], min=0.0)),
         did_reset=do_reset,
     )
     return VioState(filter=fs, init_acc=acc), out

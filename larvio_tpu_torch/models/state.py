@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.quaternion import quat_identity, rotation_to_quat
 from larvio_tpu_torch.core.tree import Struct
 

@@ -1,6 +1,7 @@
 """Gauss-Newton / LM feature triangulation in inverse depth (port of
-``larvio_tpu/models/triangulation.py``), batched over a feature batch: a
-fixed number of damped GN iterations with masked residuals."""
+``larvio_tpu/models/triangulation.py``), batched over a feature batch (and
+a fleet's leading instance axis): a fixed number of damped GN iterations with
+masked residuals."""
 
 from __future__ import annotations
 
@@ -8,9 +9,10 @@ from typing import NamedTuple
 
 import torch
 
-from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.linalg import solve3
 from larvio_tpu_torch.core.quaternion import quat_to_rotation
+from larvio_tpu_torch.core.tree import take, take1
 
 
 class CameraWindow(NamedTuple):
@@ -24,9 +26,9 @@ def camera_window(fs) -> CameraWindow:
     clones = fs.clones
     R_ci = quat_to_rotation(fs.q_ci)
     R_wi = quat_to_rotation(clones.q)
-    R_cw = R_ci @ R_wi
-    p_ic = -(R_ci.T @ fs.t_ci)
-    p_cw = clones.p + (R_wi.transpose(-1, -2) @ p_ic[:, None])[..., 0]
+    R_cw = R_ci[..., None, :, :] @ R_wi
+    p_ic = -(R_ci.transpose(-1, -2) @ fs.t_ci[..., None])[..., 0]
+    p_cw = clones.p + (R_wi.transpose(-1, -2) @ p_ic[..., None, :, None])[..., 0]
     return CameraWindow(R_cw=R_cw, p_cw=p_cw, valid=clones.valid)
 
 
@@ -39,50 +41,51 @@ class TriangulationResult(NamedTuple):
 
 
 def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch, valid_batch):
-    """uv_batch (K, C, 2), valid_batch (K, C) -> TriangulationResult (batched)."""
+    """uv_batch (..., K, C, 2), valid_batch (..., K, C) -> TriangulationResult
+    (batched); cams and clone_frame (..., C) carry the same leading axes."""
     fcfg = cfg.filter
-    K, C = valid_batch.shape
+    lead, (K, C) = valid_batch.shape[:-2], valid_batch.shape[-2:]
     dtype, dev = uv_batch.dtype, uv_batch.device
-    kidx = torch.arange(K, device=dev)
-    obs_valid = valid_batch & cams.valid[None, :]
-    n_obs = torch.sum(obs_valid, dim=1)
+    obs_valid = valid_batch & cams.valid[..., None, :]
+    n_obs = torch.sum(obs_valid, dim=-1)
     big = torch.iinfo(torch.int32).max
-    anchor = torch.argmin(torch.where(obs_valid, clone_frame[None, :], big), dim=1)
-    latest = torch.argmax(torch.where(obs_valid, clone_frame[None, :], -1), dim=1)
+    anchor = torch.argmin(torch.where(obs_valid, clone_frame[..., None, :], big), dim=-1)
+    latest = torch.argmax(torch.where(obs_valid, clone_frame[..., None, :], -1), dim=-1)
 
-    R_a = cams.R_cw[anchor]  # (K, 3, 3)
-    p_a = cams.p_cw[anchor]  # (K, 3)
-    z_a = uv_batch[kidx, anchor]  # (K, 2)
+    R_a = take(cams.R_cw, anchor, -3)  # (..., K, 3, 3)
+    p_a = take(cams.p_cw, anchor, -2)  # (..., K, 3)
+    z_a = take1(uv_batch, anchor, -2)  # (..., K, 2)
 
     # relative poses anchor cam -> each cam j: R_ja = R_cw[j] R_a^T, t_ja = R_cw[j](p_a - p_j)
-    R_ja = cams.R_cw[None] @ R_a.transpose(-1, -2)[:, None]  # (K, C, 3, 3)
-    t_ja = (cams.R_cw[None] @ (p_a[:, None, :] - cams.p_cw[None])[..., None])[..., 0]  # (K, C, 3)
+    R_cw = cams.R_cw[..., None, :, :, :]
+    R_ja = R_cw @ R_a.transpose(-1, -2)[..., :, None, :, :]  # (..., K, C, 3, 3)
+    t_ja = (R_cw @ (p_a[..., :, None, :] - cams.p_cw[..., None, :, :])[..., None])[..., 0]  # (..., K, C, 3)
 
-    ones = torch.ones((K, 1), dtype=dtype, device=dev)
-    za_h = torch.cat([z_a, ones], dim=-1)  # (K, 3)
+    ones = torch.ones((*lead, K, 1), dtype=dtype, device=dev)
+    za_h = torch.cat([z_a, ones], dim=-1)  # (..., K, 3)
     # checkMotion: baseline orthogonal to the anchor ray
     ray_w = (R_a.transpose(-1, -2) @ za_h[..., None])[..., 0]
     ray_w = ray_w / torch.linalg.norm(ray_w, dim=-1, keepdim=True)
-    trans = cams.p_cw[latest] - p_a
+    trans = take(cams.p_cw, latest, -2) - p_a
     ortho = trans - torch.sum(trans * ray_w, dim=-1, keepdim=True) * ray_w
     motion_ok = torch.linalg.norm(ortho, dim=-1) > fcfg.tri_translation_threshold
 
     # initial guess: 2-view linear depth from anchor & latest
-    Rl = R_ja[kidx, latest]
-    tl = t_ja[kidx, latest]
-    uvl = uv_batch[kidx, latest]
+    Rl = take1(R_ja, latest, -3)
+    tl = take1(t_ja, latest, -2)
+    uvl = take1(uv_batch, latest, -2)
     m = (Rl @ za_h[..., None])[..., 0]
-    a_vec = torch.stack([m[:, 0] - uvl[:, 0] * m[:, 2], m[:, 1] - uvl[:, 1] * m[:, 2]], dim=-1)
-    b_vec = torch.stack([uvl[:, 0] * tl[:, 2] - tl[:, 0], uvl[:, 1] * tl[:, 2] - tl[:, 1]], dim=-1)
+    a_vec = torch.stack([m[..., 0] - uvl[..., 0] * m[..., 2], m[..., 1] - uvl[..., 1] * m[..., 2]], dim=-1)
+    b_vec = torch.stack([uvl[..., 0] * tl[..., 2] - tl[..., 0], uvl[..., 1] * tl[..., 2] - tl[..., 1]], dim=-1)
     depth0 = torch.sum(a_vec * b_vec, dim=-1) / torch.clamp(torch.sum(a_vec * a_vec, dim=-1), min=1e-12)
     depth0 = torch.clamp(depth0, fcfg.tri_min_depth, fcfg.tri_max_depth)
-    x0 = torch.stack([z_a[:, 0], z_a[:, 1], 1.0 / depth0], dim=-1)  # (K, 3)
+    x0 = torch.stack([z_a[..., 0], z_a[..., 1], 1.0 / depth0], dim=-1)  # (..., K, 3)
 
     mask2 = obs_valid[..., None]
 
     def raw_residuals(x):
-        ab1 = torch.cat([x[:, :2], ones], dim=-1)  # (K, 3)
-        h = (R_ja @ ab1[:, None, :, None])[..., 0] + x[:, None, 2:3] * t_ja  # (K, C, 3)
+        ab1 = torch.cat([x[..., :2], ones], dim=-1)  # (..., K, 3)
+        h = (R_ja @ ab1[..., :, None, :, None])[..., 0] + x[..., :, None, 2:3] * t_ja  # (..., K, C, 3)
         h3 = torch.where(torch.abs(h[..., 2]) < 1e-8, 1e-8, h[..., 2])
         pred = h[..., :2] / h3[..., None]
         r = torch.where(mask2, pred - uv_batch, 0.0)
@@ -104,31 +107,31 @@ def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch,
 
     r, J = residuals_jac(x0)
     x = x0
-    cost = torch.sum(r * r, dim=(1, 2))
-    lam = torch.full((K,), 1e-3, dtype=dtype, device=dev)
+    cost = torch.sum(r * r, dim=(-2, -1))
+    lam = torch.full((*lead, K), 1e-3, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     for _ in range(fcfg.tri_max_iterations):
-        JtJ = torch.einsum("bnij,bnik->bjk", J, J)
-        Jtr = torch.einsum("bnij,bni->bj", J, r)
-        A = JtJ + lam[:, None, None] * torch.diag_embed(torch.diagonal(JtJ, dim1=-2, dim2=-1)) + 1e-9 * eye3
+        JtJ = torch.einsum("...nij,...nik->...jk", J, J)
+        Jtr = torch.einsum("...nij,...ni->...j", J, r)
+        A = JtJ + lam[..., None, None] * torch.diag_embed(torch.diagonal(JtJ, dim1=-2, dim2=-1)) + 1e-9 * eye3
         x_new = x - solve3(A, Jtr)
         # stay on the physical (positive inverse depth) branch
         x_new = torch.cat(
-            [x_new[:, :2], torch.clamp(x_new[:, 2:3], 1.0 / fcfg.tri_max_depth, 1.0 / fcfg.tri_min_depth)],
+            [x_new[..., :2], torch.clamp(x_new[..., 2:3], 1.0 / fcfg.tri_max_depth, 1.0 / fcfg.tri_min_depth)],
             dim=-1,
         )
         r_new, J_new = residuals_jac(x_new)
-        cost_new = torch.sum(r_new * r_new, dim=(1, 2))
+        cost_new = torch.sum(r_new * r_new, dim=(-2, -1))
         accept = cost_new < cost
-        x = torch.where(accept[:, None], x_new, x)
+        x = torch.where(accept[..., None], x_new, x)
         lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-7), torch.clamp(lam * 5.0, max=1e4))
         cost = torch.where(accept, cost_new, cost)
-        r = torch.where(accept[:, None, None], r_new, r)
-        J = torch.where(accept[:, None, None, None], J_new, J)
+        r = torch.where(accept[..., None, None], r_new, r)
+        J = torch.where(accept[..., None, None, None], J_new, J)
 
-    rho = x[:, 2]
+    rho = x[..., 2]
     depth = 1.0 / torch.where(torch.abs(rho) < 1e-8, 1e-8, rho)
-    p_anchor = torch.cat([x[:, :2], ones], dim=-1) * depth[:, None]
+    p_anchor = torch.cat([x[..., :2], ones], dim=-1) * depth[..., None]
     p_w = (R_a.transpose(-1, -2) @ p_anchor[..., None])[..., 0] + p_a
 
     mean_err = torch.sqrt(cost / torch.clamp(n_obs.to(dtype), min=1.0))

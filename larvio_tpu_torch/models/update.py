@@ -4,7 +4,8 @@ where the JAX package vmaps.
 
 FEJ: Jacobians at the clones' first-estimate poses, residuals at the current
 estimates. Square-root covariance only (``fs.P`` holds S with P = S S^T);
-the Joseph path is not ported yet.
+the Joseph path is not ported yet. The state and every block may carry a
+leading instance axis (a fleet); shapes below are one instance's.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from typing import NamedTuple
 
 import torch
 
-from larvio_tpu.config import VioConfig
+from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.chi2 import chi2_inv
 from larvio_tpu_torch.core.linalg import householder_eliminate, inv_quadform, mm, psd_factor, symmetrize
 from larvio_tpu_torch.core.quaternion import quat_multiply, quat_to_rotation, small_angle_quat
 from larvio_tpu_torch.core.so3 import skew
+from larvio_tpu_torch.core.tree import all_finite, take, where
 from larvio_tpu_torch.models.state import (
     CLONE_BASE,
     CLONE_DIM,
@@ -64,22 +66,25 @@ def _pose_jacobians(cfg: VioConfig, fs: FilterState, p_w, q_lin, p_lin, q_cur, p
     Returns H_theta, H_p, H_f (K, N, 2, 3), ext_cols (K, N, 2, 6), pred (K, N, 2).
     """
     R_ci = quat_to_rotation(fs.q_ci)
-    R_wi_lin = quat_to_rotation(q_lin)  # (N, 3, 3)
-    R_wi_cur = quat_to_rotation(q_cur)
+    R_ciT = R_ci.transpose(-1, -2)[..., None, :, :]  # against p_ij (K, N, 3)
+    R_ci = R_ci[..., None, None, :, :]  # against (K, N, 2, 3) rows
+    t_ci = fs.t_ci[..., None, None, :]
+    R_wi_lin = quat_to_rotation(q_lin)[..., None, :, :, :]  # (1, N, 3, 3)
+    R_wi_cur = quat_to_rotation(q_cur)[..., None, :, :, :]
 
     def to_cam(R_wi, p_i):
-        p_ij = (R_wi[None] @ (p_w[:, None, :] - p_i[None])[..., None])[..., 0]  # (K, N, 3)
-        return p_ij, p_ij @ R_ci.T + fs.t_ci
+        p_ij = (R_wi @ (p_w[..., :, None, :] - p_i[..., None, :, :])[..., None])[..., 0]  # (K, N, 3)
+        return p_ij, p_ij @ R_ciT + t_ci
 
     p_ij, p_cj = to_cam(R_wi_lin, p_lin)
     _, p_cj_cur = to_cam(R_wi_cur, p_cur)
     Jpi = _pinhole_jac(p_cj)  # (K, N, 2, 3)
     JR = Jpi @ R_ci
     H_theta = JR @ skew(p_ij)
-    H_p = -(JR @ R_wi_lin[None])
+    H_p = -(JR @ R_wi_lin)
     H_f = -H_p
     if cfg.filter.estimate_extrinsic:
-        ext_cols = torch.cat([Jpi @ skew(p_cj - fs.t_ci), Jpi], dim=-1)
+        ext_cols = torch.cat([Jpi @ skew(p_cj - t_ci), Jpi], dim=-1)
     else:
         ext_cols = torch.zeros((*Jpi.shape[:-1], 6), dtype=Jpi.dtype, device=Jpi.device)
     return H_theta, H_p, H_f, ext_cols, _predict(p_cj_cur)
@@ -111,7 +116,7 @@ def _project_jacobian(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask):
     """
     C = cfg.filter.max_clones
     D = state_dim(cfg)
-    K = p_w.shape[0]
+    lead_k = p_w.shape[:-1]  # (..., K)
     fej = cfg.filter.use_fej
     cl = fs.clones
     H_theta, H_p, H_f, ext_cols, pred = _pose_jacobians(
@@ -120,51 +125,52 @@ def _project_jacobian(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask):
     r = torch.where(row_mask[..., None], uv - pred, 0.0)  # (K, C, 2)
     blocks = torch.cat([H_theta, H_p], dim=-1)  # (K, C, 2, 6)
     eyeC = torch.eye(C, dtype=blocks.dtype, device=blocks.device)
-    clone_cols = (blocks[:, :, :, None, :] * eyeC[None, :, None, :, None]).reshape(K, C, 2, C * CLONE_DIM)
+    clone_cols = (blocks[..., None, :] * eyeC[:, None, :, None]).reshape(*lead_k, C, 2, C * CLONE_DIM)
     Hrows = torch.where(row_mask[..., None, None], _dense_rows(cfg, ext_cols, clone_cols), 0.0)
     H_f = torch.where(row_mask[..., None, None], H_f, 0.0)
-    return Hrows.reshape(K, 2 * C, D), H_f.reshape(K, 2 * C, 3), r.reshape(K, 2 * C)
+    return (Hrows.reshape(*lead_k, 2 * C, D), H_f.reshape(*lead_k, 2 * C, 3),
+            r.reshape(*lead_k, 2 * C))
 
 
 def feature_block(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask, tri_valid) -> FeatureBlock:
     """Projected, Huber-weighted, chi2-gated measurement blocks of a feature
     batch. p_w (K, 3), uv (K, C, 2), row_mask (K, C), tri_valid (K,)."""
     C = cfg.filter.max_clones
-    K = p_w.shape[0]
+    lead_k = p_w.shape[:-1]  # (..., K)
     dev = p_w.device
     sigma2 = cfg.noise.observation_noise**2
 
     # valid clone observations first (Householder pivot rows must be valid)
-    order = torch.argsort((~row_mask).to(torch.int32), dim=1, stable=True)
-    mask_s = torch.gather(row_mask, 1, order)
+    order = torch.argsort((~row_mask).to(torch.int32), dim=-1, stable=True)
+    mask_s = torch.gather(row_mask, -1, order)
     H_x, H_f, r = _project_jacobian(cfg, fs, p_w, uv, row_mask)
-    row_perm = (2 * order[:, :, None] + torch.arange(2, device=dev)).reshape(K, 2 * C)
-    H_x = torch.gather(H_x, 1, row_perm[:, :, None].expand(-1, -1, H_x.shape[-1]))
-    H_f = torch.gather(H_f, 1, row_perm[:, :, None].expand(-1, -1, 3))
-    r = torch.gather(r, 1, row_perm)
+    row_perm = (2 * order[..., None] + torch.arange(2, device=dev)).reshape(*lead_k, 2 * C)
+    H_x = take(H_x, row_perm, -2)
+    H_f = take(H_f, row_perm, -2)
+    r = torch.gather(r, -1, row_perm)
 
     H_o, r_o, _, (Rf, H3, r3) = householder_eliminate(H_f, H_x, r, 3)
 
     if cfg.filter.huber_k > 0:
-        n_inf = torch.clamp(torch.sum(torch.abs(r_o) > 0, dim=1), min=1)
-        scale = torch.clamp(torch.sum(torch.abs(r_o), dim=1) / n_inf, min=cfg.noise.observation_noise)
+        n_inf = torch.clamp(torch.sum(torch.abs(r_o) > 0, dim=-1), min=1)
+        scale = torch.clamp(torch.sum(torch.abs(r_o), dim=-1) / n_inf, min=cfg.noise.observation_noise)
         w = torch.clamp(
-            cfg.filter.huber_k * scale[:, None] / torch.clamp(torch.abs(r_o), min=1e-12), max=1.0
+            cfg.filter.huber_k * scale[..., None] / torch.clamp(torch.abs(r_o), min=1e-12), max=1.0
         )
         sw = torch.sqrt(w)
         H_o = H_o * sw[..., None]
         r_o = r_o * sw
 
-    T = mm(H_o, fs.P)  # H in the factor basis
+    T = mm(H_o, fs.P[..., None, :, :])  # H in the factor basis
     S = mm(T, T.transpose(-1, -2)) + sigma2 * torch.eye(2 * C, dtype=T.dtype, device=dev)
     gamma = inv_quadform(S, r_o)
-    n_obs = torch.sum(mask_s, dim=1)
+    n_obs = torch.sum(mask_s, dim=-1)
     dof = torch.clamp(2 * n_obs - 3, min=1)
     gate_ok = gamma < chi2_inv(dof, cfg.filter.chi2_confidence)
 
     accept = tri_valid & gate_ok & (n_obs >= 2)
-    H_o = torch.where(accept[:, None, None], H_o, 0.0)
-    r_o = torch.where(accept[:, None], r_o, 0.0)
+    H_o = torch.where(accept[..., None, None], H_o, 0.0)
+    r_o = torch.where(accept[..., None], r_o, 0.0)
     return FeatureBlock(H=H_o, r=r_o, accept=accept, Rf=Rf[..., :3], H3=H3, r3=r3)
 
 
@@ -175,32 +181,34 @@ def prune_feature_block(cfg: VioConfig, fs: FilterState, p_w, uv2, slots, row_ok
     row_ok (K2, 2), tri_valid (K2,). Returns (H_row (K2, D), r_row (K2,), accept)."""
     C = cfg.filter.max_clones
     D = state_dim(cfg)
-    K2 = p_w.shape[0]
+    lead_k = p_w.shape[:-1]  # (..., K2)
     fej = cfg.filter.use_fej
     sigma2 = cfg.noise.observation_noise**2
     cl = fs.clones
-    q_lin = (cl.q_null if fej else cl.q)[slots]
-    p_lin = (cl.p_null if fej else cl.p)[slots]
+    q_lin = take(cl.q_null if fej else cl.q, slots, -2)
+    p_lin = take(cl.p_null if fej else cl.p, slots, -2)
     H_theta, H_p, H_f, ext_cols, pred = _pose_jacobians(
-        cfg, fs, p_w, q_lin, p_lin, cl.q[slots], cl.p[slots]
+        cfg, fs, p_w, q_lin, p_lin, take(cl.q, slots, -2), take(cl.p, slots, -2)
     )
-    r = torch.where(row_ok[..., None], uv2 - pred, 0.0).reshape(K2, 4)
+    r = torch.where(row_ok[..., None], uv2 - pred, 0.0).reshape(*lead_k, 4)
 
     block = torch.cat([H_theta, H_p], dim=-1)  # (K2, 2, 2, 6)
-    onehot = (torch.arange(C, device=p_w.device)[None, :] == slots[:, None]).to(block.dtype)  # (2, C)
-    clone_cols = (block[:, :, :, None, :] * onehot[None, :, None, :, None]).reshape(K2, 2, 2, C * CLONE_DIM)
-    rows = torch.where(row_ok[..., None, None], _dense_rows(cfg, ext_cols, clone_cols), 0.0).reshape(K2, 4, D)
-    H_f4 = torch.where(row_ok[..., None, None], H_f, 0.0).reshape(K2, 4, 3)
+    onehot = (torch.arange(C, device=p_w.device) == slots[..., None]).to(block.dtype)  # (2, C)
+    clone_cols = (block[..., None, :] * onehot[..., None, :, None, :, None])
+    clone_cols = clone_cols.reshape(*lead_k, 2, 2, C * CLONE_DIM)
+    rows = torch.where(row_ok[..., None, None], _dense_rows(cfg, ext_cols, clone_cols), 0.0)
+    rows = rows.reshape(*lead_k, 4, D)
+    H_f4 = torch.where(row_ok[..., None, None], H_f, 0.0).reshape(*lead_k, 4, 3)
 
     H_o, r_o, _, _ = householder_eliminate(H_f4, rows, r, 3)
-    H_row, r_row = H_o[:, 3], r_o[:, 3]
+    H_row, r_row = H_o[..., 3, :], r_o[..., 3]
 
     Sh = mm(H_row, fs.P)  # (K2, W) in the factor basis
     s = torch.sum(Sh * Sh, dim=-1) + sigma2
     gamma = r_row * r_row / s
     gate_ok = gamma < chi2_inv(torch.ones_like(r_row, dtype=torch.int32), cfg.filter.chi2_confidence)
     accept = tri_valid & gate_ok & row_ok.all(dim=-1)
-    H_row = torch.where(accept[:, None], H_row, 0.0)
+    H_row = torch.where(accept[..., None], H_row, 0.0)
     r_row = torch.where(accept, r_row, 0.0)
     return H_row, r_row, accept
 
@@ -216,27 +224,29 @@ def sqrt_update(S, H, r):
     """EKF update on the factor (P = S S^T), whitened rows (R = I), stacked
     Joseph form M = [S - K (H S), K] re-compressed by psd_factor."""
     T = mm(H, S)
-    n = H.shape[0]
-    Sy = mm(T, T.T) + torch.eye(n, dtype=S.dtype, device=S.device)
+    Tt = T.transpose(-1, -2)
+    n = H.shape[-2]
+    Sy = mm(T, Tt) + torch.eye(n, dtype=S.dtype, device=S.device)
     chol = _chol_nan(symmetrize(Sy))
-    PHt = mm(S, T.T)  # (D, n)
-    K = torch.cholesky_solve(PHt.T, chol).T  # (D, n)
-    dx = mm(K, r[:, None])[:, 0]
-    M = torch.cat([S - mm(K, T), K], dim=1)
+    PHt = mm(S, Tt)  # (D, n)
+    K = torch.cholesky_solve(PHt.transpose(-1, -2), chol).transpose(-1, -2)  # (D, n)
+    dx = mm(K, r[..., None])[..., 0]
+    M = torch.cat([S - mm(K, T), K], dim=-1)
     return dx, psd_factor(M)
 
 
 def sqrt_update_gram(S, Hw, rw, refactor: bool):
     """Woodbury/information-form factor update for tall whitened stacks
     (n > D): A = I + T^T T = L L^T, S' = S L^{-T}, dx = S' L^{-1} T^T rw."""
-    D, W = S.shape
+    D, W = S.shape[-2:]
     T = mm(Hw, S)
-    A = symmetrize(mm(T.T, T)) + torch.eye(W, dtype=S.dtype, device=S.device)
+    Tt = T.transpose(-1, -2)
+    A = symmetrize(mm(Tt, T)) + torch.eye(W, dtype=S.dtype, device=S.device)
     L = _chol_nan(A)
-    g = mm(T.T, rw[:, None])  # (W, 1)
-    Y = torch.linalg.solve_triangular(L, torch.cat([S.T, g], dim=1), upper=False)
-    Sn = Y[:, :D].T
-    dx = mm(Sn, Y[:, D:])[:, 0]
+    g = mm(Tt, rw[..., None])  # (W, 1)
+    Y = torch.linalg.solve_triangular(L, torch.cat([S.transpose(-1, -2), g], dim=-1), upper=False)
+    Sn = Y[..., :D].transpose(-1, -2)
+    dx = mm(Sn, Y[..., D:])[..., 0]
     if refactor:
         Sn = psd_factor(Sn)
     return dx, Sn
@@ -244,30 +254,33 @@ def sqrt_update_gram(S, Hw, rw, refactor: bool):
 
 def apply_update(cfg: VioConfig, fs: FilterState, H, r, noise_var, enable=None, refactor: bool = True):
     """Compressed EKF update + error injection. H (N, D), r (N,); ``enable``
-    (bool tensor) turns the update into a no-op. Returns (state, dx, finite)."""
+    (bool tensor, per instance) turns the update into a no-op. ``noise_var``
+    broadcasts against r (a fleet passes (B, 1) for one variance per lane).
+    Returns (state, dx, finite)."""
     if not cfg.filter.sqrt_form:
         raise NotImplementedError("the port supports the square-root covariance form only")
     D = state_dim(cfg)
-    n = H.shape[0]
+    n = H.shape[-2]
     nv = torch.as_tensor(noise_var, dtype=fs.P.dtype, device=fs.P.device)
-    sig = torch.sqrt(torch.broadcast_to(nv, (n,)))
-    Hw = H / sig[:, None]
+    sig = torch.sqrt(torch.broadcast_to(nv, r.shape))
+    Hw = H / sig[..., None]
     rw = r / sig
+    W = fs.P.shape[-1]
     if n > D:
         dx, P_new = sqrt_update_gram(fs.P, Hw, rw, refactor=False)
     else:
         dx, P_new = sqrt_update(fs.P, Hw, rw)
-        if fs.P.shape[1] > D:
-            P_new = torch.cat(
-                [P_new, torch.zeros((D, fs.P.shape[1] - D), dtype=P_new.dtype, device=P_new.device)], dim=1
-            )
-    finite = torch.all(torch.isfinite(dx)) & torch.all(torch.isfinite(P_new))
-    dx = torch.where(finite, dx, 0.0)
-    P_new = torch.where(finite, P_new, fs.P)
+        if W > D:
+            pad = torch.zeros((*P_new.shape[:-1], W - D), dtype=P_new.dtype, device=P_new.device)
+            P_new = torch.cat([P_new, pad], dim=-1)
+    nb = fs.time.dim()
+    finite = all_finite(dx, nb) & all_finite(P_new, nb)
+    dx = where(finite, dx, 0.0)
+    P_new = where(finite, P_new, fs.P)
     if enable is not None:
-        dx = torch.where(enable, dx, 0.0)
-        P_new = torch.where(enable, P_new, fs.P)
-    if refactor and (n > D or P_new.shape[1] > D):
+        dx = where(enable, dx, 0.0)
+        P_new = where(enable, P_new, fs.P)
+    if refactor and (n > D or P_new.shape[-1] > D):
         P_new = psd_factor(P_new)
     return inject_error(cfg, fs, dx).replace(P=P_new), dx, finite
 
@@ -275,22 +288,22 @@ def apply_update(cfg: VioConfig, fs: FilterState, H, r, noise_var, enable=None, 
 def inject_error(cfg: VioConfig, fs: FilterState, dx: torch.Tensor) -> FilterState:
     """Apply an error-state correction to the nominal state (masked slots)."""
     C = cfg.filter.max_clones
-    dclone = dx[CLONE_BASE:CLONE_BASE + C * CLONE_DIM].reshape(C, CLONE_DIM)
-    valid = fs.clones.valid[:, None]
-    dtheta_c = torch.where(valid, dclone[:, 0:3], 0.0)
-    dp_c = torch.where(valid, dclone[:, 3:6], 0.0)
+    dclone = dx[..., CLONE_BASE:CLONE_BASE + C * CLONE_DIM].reshape(*dx.shape[:-1], C, CLONE_DIM)
+    valid = fs.clones.valid[..., None]
+    dtheta_c = torch.where(valid, dclone[..., 0:3], 0.0)
+    dp_c = torch.where(valid, dclone[..., 3:6], 0.0)
     clones = fs.clones.replace(
         q=quat_multiply(small_angle_quat(dtheta_c), fs.clones.q),
         p=fs.clones.p + dp_c,
     )
     return fs.replace(
-        q=quat_multiply(small_angle_quat(dx[0:3]), fs.q),
-        bg=fs.bg + dx[3:6],
-        v=fs.v + dx[6:9],
-        ba=fs.ba + dx[9:12],
-        p=fs.p + dx[12:15],
-        q_ci=quat_multiply(small_angle_quat(dx[IDX_EXT_THETA:IDX_EXT_THETA + 3]), fs.q_ci),
-        t_ci=fs.t_ci + dx[IDX_EXT_P:IDX_EXT_P + 3],
-        td=fs.td + dx[IDX_TD],
+        q=quat_multiply(small_angle_quat(dx[..., 0:3]), fs.q),
+        bg=fs.bg + dx[..., 3:6],
+        v=fs.v + dx[..., 6:9],
+        ba=fs.ba + dx[..., 9:12],
+        p=fs.p + dx[..., 12:15],
+        q_ci=quat_multiply(small_angle_quat(dx[..., IDX_EXT_THETA:IDX_EXT_THETA + 3]), fs.q_ci),
+        t_ci=fs.t_ci + dx[..., IDX_EXT_P:IDX_EXT_P + 3],
+        td=fs.td + dx[..., IDX_TD],
         clones=clones,
     )

@@ -79,14 +79,17 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.larvio_lk_track.argtypes = [
+        lib.larvio_lk_track_batched.argtypes = [
             vp, vp, vp, vp, vp, vp, i32,  # image pointer arrays, heights, widths, levels
-            vp, vp, vp, i32,  # pos, guess, valid, n_feat
+            i32, vp, vp, vp, i32,  # lanes, pos, guess, valid, n_feat per lane
             i32, i32, f32, f32, f32,  # patch, iters, precision^2, max_err, min_eig
             vp, vp, vp, vp,  # out_pos, out_valid, out_err, stream
         ]
-        lib.larvio_lk_track.restype = i32
-        lib.larvio_orb_slabs.argtypes = [vp, i32, i32, vp, i32, vp, vp]
+        lib.larvio_lk_track_batched.restype = i32
+        lib.larvio_orb_slabs.argtypes = [
+            vp, i32, i32, i32,  # img, lanes, H, W
+            vp, i32, vp, vp,  # pos, n_feat per lane, out, stream
+        ]
         lib.larvio_orb_slabs.restype = i32
         _lib = lib
     return _lib

@@ -1,5 +1,6 @@
 """Grid-based corner detection, Shi-Tomasi min-eigenvalue response (port of
-``larvio_tpu/ops/detect.py``). All outputs are fixed-shape."""
+``larvio_tpu/ops/detect.py``). All outputs are fixed-shape; images may carry
+a leading instance axis (..., H, W)."""
 
 from __future__ import annotations
 
@@ -25,18 +26,20 @@ def nms(resp: torch.Tensor, radius: int = 1) -> torch.Tensor:
     """Zero out non-maxima in a (2r+1)^2 neighborhood (separable max pool,
     -inf padding: the JAX package's "SAME" reduce_window)."""
     w = 2 * radius + 1
-    m = Fn.max_pool2d(resp[None, None], (w, 1), stride=1, padding=(radius, 0))
-    m = Fn.max_pool2d(m, (1, w), stride=1, padding=(0, radius))[0, 0]
+    H, W = resp.shape[-2:]
+    m = Fn.max_pool2d(resp.reshape(-1, 1, H, W), (w, 1), stride=1, padding=(radius, 0))
+    m = Fn.max_pool2d(m, (1, w), stride=1, padding=(0, radius)).reshape(resp.shape)
     return torch.where(resp >= m, resp, 0.0)
 
 
 def grid_topk(resp: torch.Tensor, grid_rows: int, grid_cols: int, k: int, border: int = 8):
-    """Per-cell top-k corners. Returns (scores (R*C, k), xy (R*C, k, 2)).
+    """Per-cell top-k corners of resp (..., H, W). Returns (scores (..., R*C, k),
+    xy (..., R*C, k, 2)).
 
     Ties keep the lower flat index first, as ``jax.lax.top_k`` does (a stable
     descending sort; ``torch.topk`` does not promise a tie order).
     """
-    H, W = resp.shape
+    lead, (H, W) = resp.shape[:-2], resp.shape[-2:]
     dev = resp.device
     ys = torch.arange(H, device=dev)[:, None]
     xs = torch.arange(W, device=dev)[None, :]
@@ -47,10 +50,10 @@ def grid_topk(resp: torch.Tensor, grid_rows: int, grid_cols: int, k: int, border
     cw = -(-W // grid_cols)
     Hp, Wp = ch * grid_rows, cw * grid_cols
     resp_p = Fn.pad(resp, (0, Wp - W, 0, Hp - H))
-    cells = resp_p.reshape(grid_rows, ch, grid_cols, cw).permute(0, 2, 1, 3)
-    flat = cells.reshape(grid_rows * grid_cols, ch * cw)
-    scores, idx = torch.sort(flat, dim=1, descending=True, stable=True)
-    scores, idx = scores[:, :k], idx[:, :k]
+    cells = resp_p.reshape(*lead, grid_rows, ch, grid_cols, cw).transpose(-3, -2)
+    flat = cells.reshape(*lead, grid_rows * grid_cols, ch * cw)
+    scores, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    scores, idx = scores[..., :k], idx[..., :k]
 
     cy = idx // cw
     cx = idx % cw

@@ -5,6 +5,8 @@ The test pattern and centroid grids are the JAX module's (same seed, same
 numpy draw). Descriptor words are stored as int32 BIT PATTERNS of the JAX
 package's uint32 words (PyTorch's uint32 supports few ops); the converter
 reinterprets, never casts. ``hamming`` popcounts with bit arithmetic.
+Images may carry a leading instance axis (B, H, W) with tables (B, F, ...):
+``extract_slabs`` then launches the batched slab kernel once for all lanes.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from larvio_tpu_torch.core.device import device_array
 from larvio_tpu_torch.ops import cuda_lib
+from larvio_tpu_torch.ops.image import gather_pixels
 
 PATCH = 31
 N_BITS = 256
@@ -31,60 +34,81 @@ _CIRC = (_xx**2 + _yy**2 <= _r**2).astype(np.float32)
 _XGRID = (_xx * _CIRC).astype(np.float32)
 _YGRID = (_yy * _CIRC).astype(np.float32)
 
-def _slabs_plain(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """(F, PATCH, PATCH) integer-aligned slabs: the plain version of K2 (port
-    of ``_slabs_xla``). Half-to-even rounding, centre clamped to
-    [r, W-r-1] x [r, H-r-1]; NaN positions read in bounds (content unspecified)."""
-    H, W = img.shape
+def slab_index(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Row-major pixel indices (..., F, PATCH, PATCH) of the integer-aligned
+    slabs: half-to-even rounding, centre clamped to [r, W-r-1] x [r, H-r-1];
+    NaN positions index in bounds (content unspecified)."""
+    H, W = img.shape[-2:]
     # clamp in float first (exact for finite values, saturating like the
     # kernel's conversion), then again as integers (NaN converts to garbage)
-    rx = torch.clamp(torch.round(pos[:, 0]), _r, W - _r - 1).long().clamp(_r, W - _r - 1)
-    ry = torch.clamp(torch.round(pos[:, 1]), _r, H - _r - 1).long().clamp(_r, H - _r - 1)
+    rx = torch.clamp(torch.round(pos[..., 0]), _r, W - _r - 1).long().clamp(_r, W - _r - 1)
+    ry = torch.clamp(torch.round(pos[..., 1]), _r, H - _r - 1).long().clamp(_r, H - _r - 1)
     off = torch.arange(PATCH, device=img.device)
-    idx = (ry[:, None, None] - _r + off[:, None]) * W + (rx[:, None, None] - _r + off[None, :])
-    return img.reshape(-1)[idx]
+    return (ry[..., None, None] - _r + off[:, None]) * W + (rx[..., None, None] - _r + off[None, :])
+
+
+def _slabs_plain(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """(..., F, PATCH, PATCH) integer-aligned slabs of img (..., H, W) at pos
+    (..., F, 2): the plain version of K2 and of its batched form (port of
+    ``_slabs_xla``)."""
+    return gather_pixels(img, slab_index(img, pos))
+
+
+def _check_slab_args(img: torch.Tensor, pos: torch.Tensor) -> None:
+    nd = img.dim()
+    if img.dtype != torch.float32 or nd not in (2, 3) or not img.is_contiguous():
+        raise ValueError(f"img: need a contiguous (H, W) or (B, H, W) float32 CUDA tensor, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    want = (*img.shape[:-2], pos.shape[-2] if pos.dim() >= 2 else -1, 2)
+    if pos.device != img.device or pos.dtype != torch.float32 or tuple(pos.shape) != want:
+        raise ValueError(f"pos: need float32 {want} on {img.device}, got "
+                         f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
 
 
 def extract_slabs(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """(F, PATCH, PATCH) slabs: kernel K2 for CUDA tensors, the plain version
-    for CPU tensors. ``extract_slabs.launches`` counts kernel launches."""
+    """(..., F, PATCH, PATCH) slabs: for CUDA tensors kernel K2 (img (H, W),
+    pos (F, 2)) or its batched form (img (B, H, W), pos (B, F, 2), one launch
+    for all lanes); the plain version for CPU tensors.
+    ``extract_slabs.launches`` / ``.launches_batched`` count kernel launches."""
     if img.device.type == "cpu":
         return _slabs_plain(img, pos)
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise ValueError(f"img: need a contiguous 2-D float32 CUDA tensor, got "
-                         f"{img.dtype} {tuple(img.shape)}")
-    if pos.device != img.device or pos.dtype != torch.float32 or pos.dim() != 2 or pos.shape[1] != 2:
-        raise ValueError(f"pos: need float32 (F, 2) on {img.device}, got "
-                         f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
-    H, W = img.shape
-    F = pos.shape[0]
+    _check_slab_args(img, pos)
+    H, W = img.shape[-2:]
+    F = pos.shape[-2]
     pos_c = pos.contiguous()
-    out = torch.empty((F, PATCH, PATCH), dtype=torch.float32, device=img.device)
-    code = cuda_lib.library().larvio_orb_slabs(
-        img.data_ptr(), H, W, pos_c.data_ptr(), F, out.data_ptr(),
-        torch.cuda.current_stream(img.device).cuda_stream,
-    )
-    cuda_lib.check(code, "extract_slabs")
-    extract_slabs.launches += 1
+    out = torch.empty((*pos.shape[:-1], PATCH, PATCH), dtype=torch.float32, device=img.device)
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    lib = cuda_lib.library()
+    batched = img.dim() == 3
+    code = lib.larvio_orb_slabs(img.data_ptr(), img.shape[0] if batched else 1, H, W,
+                                pos_c.data_ptr(), F, out.data_ptr(), stream)
+    cuda_lib.check(code, "extract_slabs (batched)" if batched else "extract_slabs")
+    if batched:
+        extract_slabs.launches_batched += 1
+    else:
+        extract_slabs.launches += 1
     return out
 
 
 extract_slabs.launches = 0
+extract_slabs.launches_batched = 0
 
 
 def _desc_blur(img: torch.Tensor) -> torch.Tensor:
-    """Separable binomial blur (two [1,4,6,4,1]/16 passes), edge-padded."""
+    """Separable binomial blur (two [1,4,6,4,1]/16 passes), edge-padded; img (..., H, W)."""
     k = [float(np.float32(v) / np.float32(16.0)) for v in (1.0, 4.0, 6.0, 4.0, 1.0)]
-    H, W = img.shape
-    p = torch.cat([img[:1].expand(2, W), img, img[-1:].expand(2, W)], dim=0)
+    H, W = img.shape[-2:]
+    p = torch.cat([img[..., :1, :].expand(*img.shape[:-2], 2, W), img,
+                   img[..., -1:, :].expand(*img.shape[:-2], 2, W)], dim=-2)
     acc = 0
     for i in range(5):
-        acc = acc + k[i] * p[i : i + H, :]
+        acc = acc + k[i] * p[..., i : i + H, :]
     img = acc
-    p = torch.cat([img[:, :1].expand(H, 2), img, img[:, -1:].expand(H, 2)], dim=1)
+    p = torch.cat([img[..., :1].expand(*img.shape[:-1], 2), img,
+                   img[..., -1:].expand(*img.shape[:-1], 2)], dim=-1)
     acc = 0
     for i in range(5):
-        acc = acc + k[i] * p[:, i : i + W]
+        acc = acc + k[i] * p[..., i : i + W]
     return acc
 
 
@@ -94,28 +118,28 @@ def _to_int32_bits(words: torch.Tensor) -> torch.Tensor:
 
 
 def describe(img: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Descriptors for all feature slots. pos (F,2) px -> (F, 8) int32 words
-    (bit patterns of the JAX package's uint32 words)."""
+    """Descriptors for all feature slots. img (..., H, W), pos (..., F, 2) px
+    -> (..., F, 8) int32 words (bit patterns of the JAX package's uint32 words)."""
     pat, xg, yg = (device_array(a, img.device) for a in (_PAT, _XGRID, _YGRID))
-    slabs = extract_slabs(_desc_blur(img), pos)  # (F, 31, 31)
+    slabs = extract_slabs(_desc_blur(img), pos)  # (..., F, 31, 31)
     m10 = torch.sum(slabs * xg, dim=(-2, -1))
     m01 = torch.sum(slabs * yg, dim=(-2, -1))
     th = torch.atan2(m01, m10)
-    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    c, s = torch.cos(th)[..., None], torch.sin(th)[..., None]
     # pat[:, 0:2] @ rot.T with rot = [[c, -s], [s, c]]
-    ax = pat[None, :, 0] * c - pat[None, :, 1] * s
-    ay = pat[None, :, 0] * s + pat[None, :, 1] * c
-    bx = pat[None, :, 2] * c - pat[None, :, 3] * s
-    by = pat[None, :, 2] * s + pat[None, :, 3] * c
-    px = torch.cat([ax, bx], dim=1)  # (F, 512)
-    py = torch.cat([ay, by], dim=1)
+    ax = pat[:, 0] * c - pat[:, 1] * s
+    ay = pat[:, 0] * s + pat[:, 1] * c
+    bx = pat[:, 2] * c - pat[:, 3] * s
+    by = pat[:, 2] * s + pat[:, 3] * c
+    px = torch.cat([ax, bx], dim=-1)  # (..., F, 512)
+    py = torch.cat([ay, by], dim=-1)
     ix = torch.clamp(torch.round(px).long() + _r, 0, PATCH - 1)
     iy = torch.clamp(torch.round(py).long() + _r, 0, PATCH - 1)
-    vals = torch.gather(slabs.reshape(slabs.shape[0], -1), 1, iy * PATCH + ix)
-    bits = (vals[:, :N_BITS] < vals[:, N_BITS:]).to(torch.int64)
+    vals = torch.gather(slabs.flatten(-2), -1, iy * PATCH + ix)
+    bits = (vals[..., :N_BITS] < vals[..., N_BITS:]).to(torch.int64)
     shifts = torch.arange(32, device=img.device, dtype=torch.int64)
-    packed = torch.sum(bits.reshape(-1, N_WORDS, 32) << shifts, dim=-1)
-    packed = torch.where(valid[:, None], packed, 0)
+    packed = torch.sum(bits.reshape(*bits.shape[:-1], N_WORDS, 32) << shifts, dim=-1)
+    packed = torch.where(valid[..., None], packed, 0)
     return _to_int32_bits(packed)
 
 

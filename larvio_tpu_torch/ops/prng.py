@@ -37,16 +37,17 @@ def threefry2x32(k1, k2, x0, x1):
     return x0, x1
 
 
-def prng_key(seed: int, device=None) -> torch.Tensor:
+def prng_key(seed: int, device) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a non-negative 32-bit seed."""
     return const((0, seed & _M32), torch.int64, device)
 
 
 def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """``jax.random.fold_in`` with an int32 (tensor) datum."""
+    """``jax.random.fold_in`` with an int32 (tensor) datum; key (..., 2) and
+    data (...) broadcast, so one key folds in per-lane data (as under vmap)."""
     d = data.to(torch.int64) & _M32
-    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
-    return torch.stack([y0, y1])
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
 
 
 def _counters(n: int, device):
@@ -55,20 +56,21 @@ def _counters(n: int, device):
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split`` (partitionable): (num, 2) keys."""
+    """``jax.random.split`` (partitionable): key (..., 2) -> (..., num, 2)."""
     hi, lo = _counters(num, key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
     return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit random words (as int64) of ``shape``, row-major counters."""
+    """32-bit random words (as int64), key (..., 2) -> (..., *shape), row-major
+    counters per key."""
     n = 1
     for s in shape:
         n *= int(s)
     hi, lo = _counters(n, key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
-    return (b1 ^ b2).reshape(shape)
+    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
 
 
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
@@ -79,7 +81,10 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
 
 def choice_p(key: torch.Tensor, n: int, shape, p: torch.Tensor) -> torch.Tensor:
     """``jax.random.choice(key, n, shape, replace=True, p=p)``: inverse-CDF
-    sampling, ``searchsorted(cumsum(p), cumsum(p)[-1] * (1 - u))`` (left)."""
-    p_cuml = cumsum(p)
-    r = p_cuml[-1] * (1 - uniform(key, shape))
-    return torch.searchsorted(p_cuml, r.reshape(-1)).reshape(shape).to(torch.int32)
+    sampling, ``searchsorted(cumsum(p), cumsum(p)[-1] * (1 - u))`` (left).
+    key (..., 2), p (..., n) -> (..., *shape), one draw per lane."""
+    lead = key.shape[:-1]
+    p_cuml = cumsum(p, dim=-1).contiguous()
+    total = p_cuml[..., -1].reshape(*lead, *([1] * len(shape)))
+    r = (total * (1 - uniform(key, shape))).reshape(*lead, -1)
+    return torch.searchsorted(p_cuml, r).reshape(*lead, *shape).to(torch.int32)

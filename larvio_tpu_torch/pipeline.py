@@ -1,6 +1,12 @@
 """Image-level pipeline: front-end + filter, one frame per call (port of
 ``larvio_tpu/pipeline.py``). ``run_image_sequence`` is a Python frame loop
-in place of the JAX package's ``lax.scan``."""
+in place of the JAX package's ``lax.scan``.
+
+Every leaf may carry a leading instance axis B: ``pipeline_step`` then steps
+a fleet of B independent instances at once (the JAX package's
+``jax.vmap(pipeline_step)``), with one K3 and one batched slab launch per
+frame on the card. ``parallel/fleet.py`` builds such states.
+"""
 
 from __future__ import annotations
 
@@ -8,10 +14,10 @@ from dataclasses import dataclass
 
 import torch
 
-from larvio_tpu.config import VioConfig
-from larvio_tpu_torch.core.tree import Struct
+from larvio_tpu_torch.config import VioConfig
+from larvio_tpu_torch.core.tree import Struct, scan
 from larvio_tpu_torch.models.frontend import TrackerState, init_tracker_state, track_frame
-from larvio_tpu_torch.models.msckf import StepOutput, VioState, filter_step, init_vio_state
+from larvio_tpu_torch.models.msckf import VioState, filter_step, init_vio_state
 from larvio_tpu_torch.models.propagation import ImuBatch
 
 
@@ -23,9 +29,9 @@ class PipelineState(Struct):
 
 @dataclass
 class FrameInput(Struct):
-    image: torch.Tensor  # (H, W) grayscale [0, 255], float32 or uint8
+    image: torch.Tensor  # (..., H, W) grayscale [0, 255], float32 or uint8
     imu: ImuBatch
-    t: torch.Tensor  # () image timestamp
+    t: torch.Tensor  # (...) image timestamp
 
 
 def init_pipeline_state(cfg: VioConfig, device, dtype=torch.float32) -> PipelineState:
@@ -48,18 +54,7 @@ def pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput):
 
 
 def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput):
-    """Run ``pipeline_step`` over stacked frames (leading time axis).
-    Returns (final state, StepOutput with a leading time axis)."""
-    outs = []
-    for k in range(frames.t.shape[0]):
-        frame = FrameInput(
-            image=frames.image[k],
-            imu=ImuBatch(t=frames.imu.t[k], w=frames.imu.w[k], a=frames.imu.a[k], valid=frames.imu.valid[k]),
-            t=frames.t[k],
-        )
-        ps, out = pipeline_step(cfg, ps, frame)
-        outs.append(out)
-    stacked = StepOutput(**{
-        name: torch.stack([getattr(o, name) for o in outs]) for name in StepOutput.__dataclass_fields__
-    })
-    return ps, stacked
+    """Run ``pipeline_step`` over stacked frames (leading time axis, then the
+    state's instance axis if any). Returns (final state, StepOutput with a
+    leading time axis)."""
+    return scan(lambda p, frame: pipeline_step(cfg, p, frame), ps, frames)

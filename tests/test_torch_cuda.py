@@ -6,17 +6,19 @@ conftest, which imports JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-K1 is held to the JAX package's LK kernel gate against its plain version
-(>= 95% valid agreement, >= 95% of both-valid points within 0.1 px); K2
-must match its plain version exactly on finite positions.
+K1 and K3 (batched LK, one lane per instance) are held to the JAX
+package's LK kernel gate against their plain version (>= 95% valid
+agreement, >= 95% of both-valid points within 0.1 px); each K3 lane equals
+K1 on the same inputs within 1e-4 px with identical validity; K2 and its
+batched form must match their plain version exactly on finite positions.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from larvio_tpu.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
-from larvio_tpu.data.sim import SimConfig, Simulator
+from larvio_tpu_torch.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
+from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.data.render import render_sequence
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.ops import orb
@@ -24,6 +26,7 @@ from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
 from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
+from larvio_tpu_torch.parallel.fleet import init_fleet_pipeline_state, run_fleet_image_sequence
 from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
 
 pytestmark = pytest.mark.cuda
@@ -84,6 +87,73 @@ def test_lk_kernel_matches_plain(dev, seq):
     assert not none.valid.any().item() and torch.isfinite(none.pos).all().item()
 
 
+def _lk_parity(ref, got, valid, n):
+    ok_g, ok_r = got.valid.cpu().numpy(), ref.valid.cpu().numpy()
+    assert not ok_g[n:].any()
+    assert (ok_g[:n] == ok_r[:n]).mean() >= 0.95
+    both = ok_g & ok_r
+    assert both.sum() >= 0.7 * n
+    d = np.linalg.norm(got.pos.cpu().numpy()[both] - ref.pos.cpu().numpy()[both], axis=1)
+    assert (d < 0.1).mean() >= 0.95
+
+
+def test_k3_kernel_matches_plain_and_k1(dev, seq):
+    """3 lanes, each its own frame pair: K3 against the batched plain version
+    per lane, and each lane against K1 on that lane's inputs."""
+    _, imgs = seq
+    B, F = 3, 48
+    img0 = torch.stack([imgs[40 + 3 * b] for b in range(B)])
+    img1 = torch.stack([imgs[41 + 3 * b] for b in range(B)])
+    pos = torch.zeros((B, F, 2), device=dev)
+    valid = torch.zeros((B, F), dtype=torch.bool, device=dev)
+    n = []
+    for b in range(B):
+        scores, xy = grid_topk(nms(shi_tomasi_response(img0[b]), 7), 4, 5, 4, border=20)
+        order = torch.argsort(-scores.reshape(-1), stable=True)
+        keep = order[scores.reshape(-1)[order] > 15.0][:40]
+        n.append(keep.shape[0])
+        assert n[-1] >= 30
+        pos[b, : n[-1]] = xy.reshape(-1, 2)[keep]
+        valid[b, : n[-1]] = True
+    p0, p1 = build_pyramid(img0, 3), build_pyramid(img1, 3)
+    g = make_grad_pyramid(p0)
+    gx, gy = tuple(x[0] for x in g), tuple(x[1] for x in g)
+    k1, k3 = lk_track_cuda.launches, lk_track_cuda.launches_batched
+    got = lk_track_cuda(p0, p1, gx, gy, pos, pos, valid)
+    ref = lk_track(p0, p1, g, pos, pos, valid)
+    torch.cuda.synchronize()
+    assert lk_track_cuda.launches_batched == k3 + 1 and lk_track_cuda.launches == k1
+    for b in range(B):
+        lane = lambda r: type(r)(pos=r.pos[b], valid=r.valid[b], err=r.err[b])  # noqa: E731
+        _lk_parity(lane(ref), lane(got), valid[b], n[b])
+        one = lk_track_cuda(*(tuple(x[b].contiguous() for x in pyr) for pyr in (p0, p1, gx, gy)),
+                            pos[b], pos[b], valid[b])
+        assert torch.equal(one.valid, got.valid[b])
+        assert (one.pos - got.pos[b]).abs().max().item() < 1e-4
+    none = lk_track_cuda(p0, p1, gx, gy, pos, pos, torch.zeros_like(valid))
+    assert not none.valid.any().item() and torch.isfinite(none.pos).all().item()
+
+
+@pytest.mark.parametrize("size", [(480, 752, 200), (50, 120, 16)])
+def test_batched_orb_slab_kernel_matches_plain(dev, size):
+    H, W, F = size
+    B = 3
+    rng = np.random.default_rng(1)
+    img = torch.as_tensor(rng.uniform(0, 255, (B, H, W)).astype(np.float32), device=dev)
+    p = rng.uniform([0, 0], [W - 1, H - 1], (B, F, 2)).astype(np.float32)
+    r = orb._r
+    p[:, :11] = [[0, 0], [W - 1, H - 1], [W - 1, 0], [0, H - 1], [W - r - 1.4, H / 2],
+                 [W / 2, H - r - 1.4], [r + 0.49, r + 0.51], [W - 20.5, H - 20.5],
+                 [np.nan, np.nan], [1e9, -1e9], [np.inf, -np.inf]]
+    pos = torch.as_tensor(p, device=dev)
+    launches = orb.extract_slabs.launches_batched
+    got = orb.extract_slabs(img, pos)
+    torch.cuda.synchronize()
+    assert orb.extract_slabs.launches_batched == launches + 1
+    finite = np.isfinite(p).all(axis=-1)
+    np.testing.assert_array_equal(got.cpu().numpy()[finite], orb._slabs_plain(img, pos).cpu().numpy()[finite])
+
+
 @pytest.mark.parametrize("size", [(480, 752, 200), (50, 120, 16)])
 def test_orb_slab_kernel_matches_plain(dev, size):
     H, W, F = size
@@ -109,6 +179,27 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         lk_track_cuda(p, p, p, p, torch.zeros((4, 2), device=dev), torch.zeros((4, 2), device=dev),
                       torch.ones(4, device=dev))  # valid must be bool
+
+
+def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
+    """Two lanes (the second with seeded image noise) through the fleet step:
+    one K3 and one batched slab launch per frame, no K1 or K2 launch."""
+    data, imgs = seq
+    B, T = 2, imgs.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bimgs = torch.stack([imgs, imgs + 2.0 * torch.randn(imgs.shape, generator=gen, device=dev)], dim=1)
+    lanes = lambda k: torch.as_tensor(np.ascontiguousarray(  # noqa: E731
+        np.broadcast_to(data[k][:, None], (T, B, *data[k].shape[1:]))), device=dev)
+    frames = FrameInput(image=bimgs, t=lanes("t_img"),
+                        imu=ImuBatch(t=lanes("imu_t"), w=lanes("imu_w"), a=lanes("imu_a"), valid=lanes("imu_valid")))
+    counts = (lk_track_cuda.launches, lk_track_cuda.launches_batched,
+              orb.extract_slabs.launches, orb.extract_slabs.launches_batched)
+    _, outs = run_fleet_image_sequence(CFG, init_fleet_pipeline_state(CFG, B, dev), frames)
+    torch.cuda.synchronize()
+    assert (lk_track_cuda.launches, lk_track_cuda.launches_batched, orb.extract_slabs.launches,
+            orb.extract_slabs.launches_batched) == (counts[0], counts[1] + T, counts[2], counts[3] + T)
+    assert outs.p.shape == (T, B, 3) and torch.isfinite(outs.p).all().item()
+    assert (outs.initialized.sum(0) >= 40).all().item() and int(outs.did_reset.sum()) == 0
 
 
 def test_main_path_on_card_launches_both_kernels(dev, seq):

@@ -159,7 +159,7 @@ def test_prng_bit_exact():
     for t in np.float32(0.05) * np.arange(1, 61, dtype=np.float32):
         data = (jnp.float32(t) * 1e4).astype(jnp.int32)
         kj = jax.random.fold_in(jax.random.PRNGKey(0), data)
-        kt = tprng.fold_in(tprng.prng_key(0), torch.tensor(int(data), dtype=torch.int32))
+        kt = tprng.fold_in(tprng.prng_key(0, "cpu"), torch.tensor(int(data), dtype=torch.int32))
         np.testing.assert_array_equal(kt.numpy(), np.asarray(kj).astype(np.int64))
         k1j = jax.random.split(kj)[0]
         k1t = tprng.split(kt)[0]
@@ -193,7 +193,7 @@ def test_two_point_ransac_inliers_exact(rng, scene):
     rj = jransac.two_point_ransac(jnp.asarray(pts), jnp.asarray(cur), jnp.asarray(R), jnp.asarray(valid),
                                   key, threshold=3.0 / 195.0, n_hyp=64)
     rt = transac.two_point_ransac(_t(pts), _t(cur), _t(R), _t(valid),
-                                  tprng.fold_in(tprng.prng_key(0), torch.tensor(12345)),
+                                  tprng.fold_in(tprng.prng_key(0, "cpu"), torch.tensor(12345)),
                                   threshold=3.0 / 195.0, n_hyp=64)
     np.testing.assert_array_equal(rt.inliers.numpy(), np.asarray(rj.inliers))
     assert bool(rt.degenerate) == bool(rj.degenerate)

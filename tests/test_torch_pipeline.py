@@ -153,8 +153,8 @@ def test_port_imports_no_jax():
 
         sys.meta_path.insert(0, _BlockJax())
         import numpy as np, torch
-        from larvio_tpu.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
-        from larvio_tpu.data.sim import SimConfig, Simulator
+        from larvio_tpu_torch.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
+        from larvio_tpu_torch.data.sim import SimConfig, Simulator
         from larvio_tpu_torch.data.render import render_sequence
         from larvio_tpu_torch.models.propagation import ImuBatch
         from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
@@ -167,7 +167,7 @@ def test_port_imports_no_jax():
             filter=FilterConfig(max_slam_features=0, max_clones=4, imu_slots_per_frame=14))
         sim = Simulator(SimConfig(duration=0.15), cfg)
         d = sim.generate()
-        imgs = render_sequence(cfg, sim, d["t_img"])
+        imgs = render_sequence(cfg, sim, d["t_img"], device="cpu")
         ps = init_pipeline_state(cfg, "cpu")
         for k in range(3):
             imu = ImuBatch(t=torch.from_numpy(d["imu_t"][k]), w=torch.from_numpy(d["imu_w"][k]),

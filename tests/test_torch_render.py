@@ -47,7 +47,7 @@ def test_render_matches_jax(sim, t):
     p_cam = p_w + R_wi.T @ (-R_ci.T @ np.asarray(sim.t_ci))
     ref = np.asarray(JRenderer(CFG, np.asarray(sim.landmarks)).render(
         jnp.asarray(R_wc_T, jnp.float32), jnp.asarray(p_cam, jnp.float32)))
-    got = Renderer(CFG, np.asarray(sim.landmarks))(
+    got = Renderer(CFG, np.asarray(sim.landmarks), device="cpu")(
         torch.as_tensor(R_wc_T, dtype=torch.float32), torch.as_tensor(p_cam, dtype=torch.float32)).numpy()
     _assert_images_close(got, ref)
 
@@ -60,7 +60,7 @@ def test_render_sequence_matches_jax(sim):
 
 
 def test_renderer_is_a_module_with_buffers(sim):
-    rend = Renderer(CFG, np.asarray(sim.landmarks))
+    rend = Renderer(CFG, np.asarray(sim.landmarks), device="cpu")
     names = {n for n, _ in rend.named_buffers()}
     assert {"texture", "rays_cam", "landmarks", "amps", "offs"} <= names
     assert rend.rays_cam.shape == (CFG.camera.height * CFG.camera.width, 3)

@@ -1,6 +1,6 @@
 """Where a frame's time goes in the PyTorch port on one NVIDIA GPU.
 
-    python3 tools/torch_profile_step.py [--frames 160] [--out profile_step.txt]
+    python3 tools/torch_profile_step.py [--frames 160] [--fleet B] [--out profile_step.txt]
 
 Runs the slice's main path (pure-MSCKF ``VioConfig``, 752x480, the clean
 8 s simulator workload rendered on the card) and reports, after a warm-up run:
@@ -11,6 +11,10 @@ Runs the slice's main path (pure-MSCKF ``VioConfig``, 752x480, the clean
 * a ``torch.profiler`` window over 20 steady frames: device busy time per
   frame, the device's idle share, kernel launches per frame, and the top
   kernels by device time (the full table goes to ``--out``).
+
+With ``--fleet B`` the same frames go to B instances at once (lane b > 0
+with 2-gray-level image noise seeded by b) through the batched step, and
+every per-frame figure is per batched frame (B instance-frames).
 
 Needs a CUDA GPU; prints the card's name and power limit first.
 """
@@ -32,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=160)
+    ap.add_argument("--fleet", type=int, default=0, help="profile B instances per batched frame")
     ap.add_argument("--out", default="profile_step.txt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -43,12 +48,13 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
 
-    from larvio_tpu.config import FilterConfig, VioConfig
-    from larvio_tpu.data.sim import SimConfig, Simulator
+    from larvio_tpu_torch.config import FilterConfig, VioConfig
+    from larvio_tpu_torch.data.sim import SimConfig, Simulator
     from larvio_tpu_torch.data.render import render_sequence
     from larvio_tpu_torch.models.frontend import track_frame
     from larvio_tpu_torch.models.msckf import filter_step
     from larvio_tpu_torch.models.propagation import ImuBatch
+    from larvio_tpu_torch.parallel.fleet import init_fleet_pipeline_state
     from larvio_tpu_torch.pipeline import FrameInput, PipelineState, init_pipeline_state, pipeline_step
 
     dev = torch.device("cuda:0")
@@ -57,13 +63,20 @@ def main() -> int:
     data = sim.generate()
     imgs = render_sequence(cfg, sim, data["t_img"], device=dev)
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
+    B = args.fleet
+    if B:  # lane axis second: (T, B, ...)
+        noisy = [imgs] + [imgs + 2.0 * torch.randn(imgs.shape, device=dev,
+                                                   generator=torch.Generator(device=dev).manual_seed(b))
+                          for b in range(1, B)]
+        imgs = torch.stack(noisy, dim=1)
+        g = {k: v[:, None].expand(v.shape[0], B, *v.shape[1:]).contiguous() for k, v in g.items()}
     T = min(args.frames, imgs.shape[0])
     frames = [FrameInput(image=imgs[k], t=g["t_img"][k],
                          imu=ImuBatch(t=g["imu_t"][k], w=g["imu_w"][k], a=g["imu_a"][k], valid=g["imu_valid"][k]))
               for k in range(T)]
 
     def run(split: bool, prof=None, window=()):
-        ps = init_pipeline_state(cfg, dev)
+        ps = init_fleet_pipeline_state(cfg, B, dev) if B else init_pipeline_state(cfg, dev)
         fe_s = fi_s = 0.0
         for k, fr in enumerate(frames):
             if prof is not None and k == window[0]:
@@ -93,7 +106,9 @@ def main() -> int:
     run(False)
     wall = time.perf_counter() - t0
     fe_s, fi_s = run(True)
-    print(f"end to end: {1e3 * wall / T:.3f} ms/frame ({T / wall:.3f} fps) over {T} frames", flush=True)
+    what = f"batched frame of {B} instances" if B else "frame"
+    print(f"end to end: {1e3 * wall / T:.3f} ms per {what} ({T / wall:.3f} per s"
+          f"{f', {B * T / wall:.3f} instance-frames/s' if B else ''}) over {T} frames", flush=True)
     print(f"split (synchronized): track_frame {1e3 * fe_s / T:.3f} ms/frame, "
           f"filter_step {1e3 * fi_s / T:.3f} ms/frame", flush=True)
 
