@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (``larvio_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases, each raising on failure (the script then exits non-zero):
 
@@ -8,26 +8,35 @@ Phases, each raising on failure (the script then exits non-zero):
    card's name and power limit;
 1. build: compiles the hand-written kernels (``larvio_tpu_torch/csrc``) with
    nvcc, or reuses an up-to-date build;
-2. kernels: K1 (pyramidal LK) and K2 (ORB slabs) against their plain PyTorch
-   versions on the card at main-path shapes (480x752 frames, 200 feature
-   slots), with timings from CUDA events;
+2. kernels: K1 (pyramidal LK, also on a ragged 45-slot table) and the fused
+   ORB describe kernel against their plain PyTorch versions on the card at
+   main-path shapes (480x752 frames, 200 feature slots);
 2b. batched kernels: K3 (LK over 8 lanes, each lane its own frame pair)
    against the batched plain version and against K1 per lane, and the
-   batched slab kernel against the plain version per lane;
+   batched describe launch against the plain version per lane and against
+   the one-lane launch;
 3. main path: 160 rendered frames of the clean 8 s simulator workload through
    ``pipeline_step`` at full EuRoC width in the pure-MSCKF configuration;
    checks initialization, resets, finiteness, track counts, ATE and that
-   every frame launched K1 and K2;
+   every frame launched K1 and the describe kernel once;
 4. fleet path: the same 160 frames for 8 instances at once (lanes 1-7 with
    their own image noise, lane 7 with 1 s of NaN accelerometer samples)
    through ``run_fleet_image_sequence``; checks every lane's health, lane
    isolation, the fleet metrics and that every frame launched K3 and the
-   batched slab kernel once for all lanes.
+   batched describe kernel once for all lanes, and no one-lane kernel;
+5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
+   version at the same shapes (after phases 3 and 4: a process that has run
+   ``torch.profiler`` launches every later kernel more slowly).
 
-Each kernel's line carries its card time, its plain version's time, its
-bound (the larger of the bytes it must move over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, counted from this run's inputs) and, for the
-slab kernels, the time of one PyTorch gather on precomputed indices.
+Each kernel's line carries its own device time per launch (``ms``, from
+``torch.profiler``'s device events of its ``__global__`` over 100-200
+launches), the time a caller pays per wrapper call, host work included
+(``call_ms``, one CUDA-event window), its plain version's time, its bound
+(the larger of the bytes it must move over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, counted from this run's inputs) and
+``library_ms`` (null: no one PyTorch call computes LK or the descriptor).
+``--kernels-only`` runs phases 0-2b and 5 alone (for A/B runs of two trees
+in one call) and prints no contract line.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -38,6 +47,8 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -52,8 +63,7 @@ from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
 from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
-from larvio_tpu_torch.ops.orb import PATCH as ORB_PATCH
-from larvio_tpu_torch.ops.orb import _r, _slabs_plain, extract_slabs, slab_index
+from larvio_tpu_torch.ops.orb import _CIRC, N_BITS, _describe_plain, _r, describe
 from larvio_tpu_torch.parallel.fleet import fleet_metrics, init_fleet_pipeline_state, run_fleet_image_sequence
 from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
 
@@ -84,7 +94,7 @@ def _lk_origins(centres: np.ndarray, H: int, W: int):
 
 
 def _slab_origins(pos: np.ndarray, H: int, W: int):
-    """Top-left corners of the slab kernel's 31x31 windows: half-to-even
+    """Top-left corners of the describe kernel's 31x31 slabs: half-to-even
     rounding, NaN to 0, the centre clamped to [r, W-r-1]."""
     p = np.rint(np.nan_to_num(pos, nan=0.0, posinf=1e9, neginf=-1e9))
     return (np.clip(p[:, 0], _r, W - _r - 1).astype(np.int64) - _r,
@@ -93,10 +103,10 @@ def _slab_origins(pos: np.ndarray, H: int, W: int):
 
 def _covered_px(x0: np.ndarray, y0: np.ndarray, size: int, H: int, W: int) -> int:
     """Distinct pixels of an (H, W) image that the size x size windows with
-    top-left corners (x0, y0) cover."""
+    top-left corners (x0, y0) cover, each window clipped to the image."""
     mask = np.zeros((H, W), dtype=bool)
     for x, y in zip(x0, y0):
-        mask[y:y + size, x:x + size] = True
+        mask[max(y, 0):y + size, max(x, 0):x + size] = True
     return int(mask.sum())
 
 
@@ -129,15 +139,45 @@ def _lk_bound(shapes, pos, valid, out_pos, iters_run):
     return _bound(n_bytes, n_ops)
 
 
-def _slab_bound(img, pos):
-    """Slab bound from this run's inputs, img (..., H, W), pos (..., F, 2):
-    the distinct pixels the windows cover read once per lane, every slab
-    written once, the positions read once."""
+def _describe_bound(img, pos, valid):
+    """Describe bound from this run's inputs, img (..., H, W), pos (..., F, 2),
+    valid (..., F). Bytes: per lane, the distinct raw pixels that the valid
+    slots' clamped 35x35 windows (the 31x31 slab and the blur's 2-pixel
+    apron) cover, read once; positions (8 B) and mask (1 B) in and 32 B of
+    descriptor out per slot. Operations per valid slot: the two blur passes
+    (31x35 and 31x31 outputs, 5 products and 4 sums each), the moments (a
+    product and a sum for m10 and for m01 per disc pixel) and the 256 tests
+    (8 products, 4 sums and a comparison each)."""
     H, W = img.shape[-2:]
     F = pos.shape[-2]
     pos_l = pos.reshape(-1, F, 2).cpu().numpy().astype(np.float64)
-    n_read = sum(_covered_px(*_slab_origins(p, H, W), ORB_PATCH, H, W) for p in pos_l)
-    return _bound(4 * n_read + pos_l.shape[0] * F * (ORB_PATCH * ORB_PATCH * 4 + 8), 0.0)
+    ok_l = valid.reshape(-1, F).cpu().numpy()
+    n_read = 0
+    for p, m in zip(pos_l, ok_l):
+        x0, y0 = _slab_origins(p[m], H, W)
+        n_read += _covered_px(x0 - 2, y0 - 2, 31 + 4, H, W)
+    n_slots = pos_l.shape[0] * F
+    per_slot = (31 * 35 + 31 * 31) * 9 + int(_CIRC.sum()) * 4 + N_BITS * 13
+    return _bound(4 * n_read + n_slots * (8 + 1 + 32), int(ok_l.sum()) * per_slot)
+
+
+def _describe_gate(got, ref, mask):
+    """The describe kernel against its plain version on the slots in mask:
+    >= 97% of them bit-identical, >= 99.9% of their bits equal, none more
+    than 8 bits apart (the blur is bit-exact; the moments are summed in
+    another order than torch.sum, so a rotated sample may round the other
+    way). Returns (identical share, equal-bit share, max Hamming distance)."""
+    m = mask.cpu().numpy()
+    g = got.cpu().numpy()[m].view(np.uint8)
+    r = ref.cpu().numpy()[m].view(np.uint8)
+    diff = np.unpackbits(g ^ r, axis=-1).sum(axis=-1)  # Hamming distance per slot
+    same = float((diff == 0).mean())
+    bits = 1.0 - float(diff.sum()) / (N_BITS * max(len(diff), 1))
+    worst = int(diff.max()) if len(diff) else 0
+    assert same >= 0.97, f"describe: only {same:.4f} of {len(diff)} slots bit-identical"
+    assert bits >= 0.999, f"describe: only {bits:.5f} of the bits equal"
+    assert worst <= 8, f"describe: a slot {worst} bits from the plain version"
+    return same, bits, worst
 
 
 def _card_line() -> str:
@@ -149,7 +189,8 @@ def _card_line() -> str:
 
 
 def _time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over ``reps`` calls, after warm-up (CUDA events)."""
+    """Time per call of fn() as a caller pays it, host work included: one
+    CUDA-event window around ``reps`` calls, after warm-up."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -160,6 +201,46 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, kernel: str, reps: int = 100, min_events: int = 100) -> float:
+    """Device time per launch of the ``__global__`` named ``kernel`` that fn()
+    launches once per call: the mean duration of its device events in
+    ``torch.profiler`` windows of ``reps`` calls after warm-up, repeated
+    until at least ``min_events`` launches were seen (the profiler can drop
+    events). Host time between launches is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    durs = []
+    for _ in range(20):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(evs) > reps:
+            raise RuntimeError(f"profiler saw {len(evs)} launches of {kernel} in {reps} calls")
+        durs += [e.time_range.elapsed_us() for e in evs]
+        if len(durs) >= min_events:
+            return sum(durs) / 1e3 / len(durs)
+    raise RuntimeError(f"profiler saw only {len(durs)} launches of {kernel}")
+
+
+@dataclass
+class _Timing:
+    """A kernel's JSON row and what times it: ``call`` launches the kernel
+    named ``kernel`` once per call (``call_ms`` over ``reps`` calls, then
+    ``ms``); ``windows`` maps further keys (``plain_ms``, ...) to (fn, reps)."""
+
+    row: dict
+    kernel: str
+    call: Callable
+    reps: int
+    windows: dict
 
 
 def _check_parity(ref, got, valid, n):
@@ -247,50 +328,53 @@ def phase_kernels(dev, sim, rend):
     torch.cuda.synchronize()
     assert not none.valid.any().item(), "all-invalid table came back with valid slots"
     assert torch.isfinite(none.pos).all().item(), "all-invalid table returned non-finite positions"
-    lk_ms, lk_plain_ms = _time_ms(run_kernel, 50), _time_ms(run_plain, 10)
     iters_run = []
     lk_track(list(pyr0), list(pyr1), grads, pos, pos, valid, patch=PATCH, iters=ITERS,
              precision=PREC, iters_run=iters_run)
     lk_bound, lk_by = _lk_bound([p.shape for p in pyr0], pos, valid, got.pos, iters_run)
     print(f"K1 lk_track_cuda: {n} features / {F_MAIN} slots, valid agreement {agree:.4f}, "
           f"{frac:.4f} within 0.1 px, max |d| {lk_err:.4f} px (both valid); "
-          f"kernel {lk_ms:.4f} ms, plain {lk_plain_ms:.4f} ms, bound {lk_bound:.6f} ms ({lk_by})",
-          flush=True)
+          f"bound {lk_bound:.6f} ms ({lk_by})", flush=True)
 
-    # K2 at the JAX test's edge/clamp positions (NaN included), padded to F=200
+    # K1 on a ragged table (45 slots: not a multiple of the warps per block)
+    part = lk_track_cuda(pyr0, pyr1, gx, gy, pos[:45], pos[:45], valid[:45], PATCH, ITERS, PREC)
+    torch.cuda.synchronize()
+    assert torch.equal(part.pos, got.pos[:45]) and torch.equal(part.valid, got.valid[:45]), \
+        "K1 on 45 slots differs from the first 45 of 200"
+
+    # describe at the JAX slab test's edge/clamp positions (NaN, inf
+    # included) and a random tenth of the slots invalid, F = 200
     rng = np.random.default_rng(0)
     img = torch.as_tensor(rng.uniform(0.0, 255.0, (H, W)).astype(np.float32), device=dev)
     pos2 = torch.as_tensor(_slab_positions(rng, H, W, F_MAIN), device=dev)
-    slabs = extract_slabs(img, pos2)
+    dvalid = torch.as_tensor(rng.uniform(size=F_MAIN) >= 0.1, device=dev)
+    dvalid[:11] = True
+    desc = describe(img, pos2, dvalid)
     torch.cuda.synchronize()
-    plain = _slabs_plain(img, pos2)
-    finite = torch.isfinite(pos2).all(dim=1)
-    assert slabs.shape == (F_MAIN, 31, 31) and slabs.is_contiguous()
-    orb_err = float((slabs[finite] - plain[finite]).abs().max())
-    assert orb_err == 0.0, f"ORB slabs differ from the plain version by {orb_err}"
-    assert torch.isfinite(slabs).all().item()
-    flat, idx = img.reshape(-1), slab_index(img, pos2)  # library yardstick: one gather
-    orb_ms = _time_ms(lambda: extract_slabs(img, pos2), 200)
-    orb_plain_ms = _time_ms(lambda: _slabs_plain(img, pos2), 200)
-    orb_lib_ms = _time_ms(lambda: flat[idx], 200)
-    orb_bound, orb_by = _slab_bound(img, pos2)
-    print(f"K2 extract_slabs: exact on {int(finite.sum())} finite positions of {F_MAIN}; "
-          f"kernel {orb_ms:.4f} ms, plain {orb_plain_ms:.4f} ms, gather {orb_lib_ms:.4f} ms, "
-          f"bound {orb_bound:.6f} ms ({orb_by})", flush=True)
+    plain = _describe_plain(img, pos2, dvalid)
+    assert desc.shape == (F_MAIN, 8) and desc.dtype == torch.int32
+    assert not desc[~dvalid].any().item(), "describe: an invalid slot has a non-zero descriptor"
+    same, bits, worst = _describe_gate(desc, plain, dvalid & torch.isfinite(pos2).all(dim=1))
+    d_bound, d_by = _describe_bound(img, pos2, dvalid)
+    print(f"orb_describe: {int(dvalid.sum())} valid slots of {F_MAIN}; {same:.4f} of the valid "
+          f"finite ones bit-identical to the plain version, {bits:.6f} of their bits, max "
+          f"Hamming {worst}; bound {d_bound:.6f} ms ({d_by})", flush=True)
     return [
-        {"name": "lk_track", "route": "cuda", "source": "larvio_tpu_torch/csrc/lk.cu",
-         "replaces": "larvio_tpu/ops/lk_pallas.py:507", "max_abs_err": lk_err,
-         "ms": lk_ms, "plain_ms": lk_plain_ms, "bound_ms": lk_bound, "bound_by": lk_by,
-         "library_ms": None},
-        {"name": "orb_slabs", "route": "cuda", "source": "larvio_tpu_torch/csrc/orb_slab.cu",
-         "replaces": "larvio_tpu/ops/orb.py:111", "max_abs_err": orb_err,
-         "ms": orb_ms, "plain_ms": orb_plain_ms, "bound_ms": orb_bound, "bound_by": orb_by,
-         "library_ms": orb_lib_ms},
+        _Timing({"name": "lk_track", "route": "cuda", "source": "larvio_tpu_torch/csrc/lk.cu",
+                 "replaces": "larvio_tpu/ops/lk_pallas.py:507", "max_abs_err": lk_err,
+                 "bound_ms": lk_bound, "bound_by": lk_by, "library_ms": None},
+                "lk_track_kernel", run_kernel, 50, {"plain_ms": (run_plain, 10)}),
+        _Timing({"name": "orb_describe", "route": "cuda",
+                 "source": "larvio_tpu_torch/csrc/orb_describe.cu",
+                 "replaces": "larvio_tpu/ops/orb.py:111", "max_abs_err": worst,
+                 "bound_ms": d_bound, "bound_by": d_by, "library_ms": None},
+                "orb_describe_kernel", lambda: describe(img, pos2, dvalid), 200,
+                {"plain_ms": (lambda: _describe_plain(img, pos2, dvalid), 200)}),
     ]
 
 
 def phase_kernels_batched(dev, sim, rend):
-    """K3 and the batched slab kernel on B_FLEET lanes, each with its own data."""
+    """K3 and the batched describe kernel on B_FLEET lanes, each with its own data."""
     B = B_FLEET
     pairs = [(_render(dev, sim, rend, 6.0 + 0.25 * b), _render(dev, sim, rend, 6.05 + 0.25 * b))
              for b in range(B)]
@@ -338,62 +422,81 @@ def phase_kernels_batched(dev, sim, rend):
     torch.cuda.synchronize()
     assert not none.valid.any().item(), "K3: all-invalid tables came back with valid slots"
     assert torch.isfinite(none.pos).all().item(), "K3: all-invalid tables returned non-finite positions"
-    k3_ms = _time_ms(run_k3, 20)
-    k3_plain_ms = _time_ms(run_plain, 5)
-    k1x8_ms = _time_ms(lambda: [run_k1(b) for b in range(B)], 20)
     iters_run = []
     lk_track(list(pyr0), list(pyr1), grads, pos, pos, valid, patch=PATCH, iters=ITERS,
              precision=PREC, iters_run=iters_run)
     k3_bound, k3_by = _lk_bound([p.shape[-2:] for p in pyr0], pos, valid, got.pos, iters_run)
     print(f"K3 lk_track_cuda (batched): {B} lanes, {sum(n_lane)} features / {B * F_MAIN} slots; "
           f"per lane within the K1 gate of the plain version (max |d| {k3_err:.4f} px) and equal "
-          f"to K1; kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, {B} sequential K1 "
-          f"{k1x8_ms:.4f} ms, bound {k3_bound:.6f} ms ({k3_by})", flush=True)
+          f"to K1; bound {k3_bound:.6f} ms ({k3_by})", flush=True)
 
     rng = np.random.default_rng(1)
     H, W = pairs[0][0].shape
     img = torch.as_tensor(rng.uniform(0.0, 255.0, (B, H, W)).astype(np.float32), device=dev)
     pos2 = torch.as_tensor(np.stack([_slab_positions(rng, H, W, F_MAIN) for _ in range(B)]),
                            device=dev)
-    slabs = extract_slabs(img, pos2)
+    dvalid = torch.as_tensor(rng.uniform(size=(B, F_MAIN)) >= 0.1, device=dev)
+    dvalid[:, :11] = True
+    desc = describe(img, pos2, dvalid)
     torch.cuda.synchronize()
-    plain = _slabs_plain(img, pos2)
-    finite = torch.isfinite(pos2).all(dim=-1)
-    assert slabs.shape == (B, F_MAIN, 31, 31) and slabs.is_contiguous()
-    orb_err = float((slabs[finite] - plain[finite]).abs().max())
-    assert orb_err == 0.0, f"batched ORB slabs differ from the plain version by {orb_err}"
+    plain = _describe_plain(img, pos2, dvalid)
+    assert desc.shape == (B, F_MAIN, 8) and desc.dtype == torch.int32
+    assert not desc[~dvalid].any().item(), "batched describe: an invalid slot is non-zero"
+    same, bits, worst = 1.0, 1.0, 0
     for b in range(B):
-        assert torch.equal(slabs[b][finite[b]], _slabs_plain(img[b], pos2[b])[finite[b]]), b
-    assert torch.isfinite(slabs).all().item()
-    flat = img.reshape(-1)
-    idx = slab_index(img, pos2) + (torch.arange(B, device=dev) * H * W)[:, None, None, None]
-    orb_ms = _time_ms(lambda: extract_slabs(img, pos2), 200)
-    orb_plain_ms = _time_ms(lambda: _slabs_plain(img, pos2), 200)
-    orb_lib_ms = _time_ms(lambda: flat[idx], 200)
-    orb_bound, orb_by = _slab_bound(img, pos2)
-    print(f"K2 extract_slabs (batched): {B} lanes, exact on {int(finite.sum())} finite positions "
-          f"of {B * F_MAIN}; kernel {orb_ms:.4f} ms, plain {orb_plain_ms:.4f} ms, gather "
-          f"{orb_lib_ms:.4f} ms, bound {orb_bound:.6f} ms ({orb_by})", flush=True)
+        sb, bb, wb = _describe_gate(desc[b], plain[b], dvalid[b] & torch.isfinite(pos2[b]).all(dim=1))
+        same, bits, worst = min(same, sb), min(bits, bb), max(worst, wb)
+        one = describe(img[b].contiguous(), pos2[b].contiguous(), dvalid[b].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(one, desc[b]), f"lane {b}: batched describe differs from one lane's"
+    d_bound, d_by = _describe_bound(img, pos2, dvalid)
+    print(f"orb_describe (batched): {B} lanes, {int(dvalid.sum())} valid slots of {B * F_MAIN}; "
+          f"per lane >= {same:.4f} of the valid finite ones bit-identical to the plain version, "
+          f">= {bits:.6f} of their bits, max Hamming {worst}, each lane equal to its one-lane "
+          f"launch; bound {d_bound:.6f} ms ({d_by})", flush=True)
     return [
-        {"name": "lk_track_batched", "route": "cuda", "source": "larvio_tpu_torch/csrc/lk.cu",
-         "replaces": "larvio_tpu/ops/lk_pallas.py:411", "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None, "k1_sequential_ms": k1x8_ms},
-        {"name": "orb_slabs_batched", "route": "cuda", "source": "larvio_tpu_torch/csrc/orb_slab.cu",
-         "replaces": "larvio_tpu/ops/orb.py:111", "max_abs_err": orb_err,
-         "ms": orb_ms, "plain_ms": orb_plain_ms, "bound_ms": orb_bound, "bound_by": orb_by,
-         "library_ms": orb_lib_ms},
+        _Timing({"name": "lk_track_batched", "route": "cuda", "source": "larvio_tpu_torch/csrc/lk.cu",
+                 "replaces": "larvio_tpu/ops/lk_pallas.py:411", "max_abs_err": k3_err,
+                 "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+                "lk_track_kernel", run_k3, 20,
+                {"plain_ms": (run_plain, 5),
+                 "k1_sequential_ms": (lambda: [run_k1(b) for b in range(B)], 20)}),
+        _Timing({"name": "orb_describe_batched", "route": "cuda",
+                 "source": "larvio_tpu_torch/csrc/orb_describe.cu",
+                 "replaces": "larvio_tpu/ops/orb.py:111", "max_abs_err": worst,
+                 "bound_ms": d_bound, "bound_by": d_by, "library_ms": None},
+                "orb_describe_kernel", lambda: describe(img, pos2, dvalid), 200,
+                {"plain_ms": (lambda: _describe_plain(img, pos2, dvalid), 200)}),
     ]
+
+
+def phase_timing(timings):
+    """Every kernel's times, after the main path and the fleet ran: first the
+    CUDA-event windows (``call_ms``, ``plain_ms``, extras), then the
+    profiler's device times (``ms``), since a process that has run
+    ``torch.profiler`` launches every later kernel more slowly."""
+    for t in timings:
+        t.row["call_ms"] = _time_ms(t.call, t.reps)
+        for key, (fn, reps) in t.windows.items():
+            t.row[key] = _time_ms(fn, reps)
+    for t in timings:
+        t.row["ms"] = _device_ms(t.call, t.kernel, reps=max(t.reps, 100))
+        r = t.row
+        extra = "".join(f", {k} {r[k]:.4f} ms" for k in t.windows if k != "plain_ms")
+        print(f"{r['name']}: kernel {r['ms']:.4f} ms on the device, {r['call_ms']:.4f} ms per "
+              f"call, plain {r['plain_ms']:.4f} ms{extra}, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})", flush=True)
+    return [t.row for t in timings]
 
 
 def _reset_counts():
     lk_track_cuda.launches = lk_track_cuda.launches_batched = 0
-    extract_slabs.launches = extract_slabs.launches_batched = 0
+    describe.launches = describe.launches_batched = 0
 
 
 def _counts():
     return {"lk_track": lk_track_cuda.launches, "lk_track_batched": lk_track_cuda.launches_batched,
-            "orb_slabs": extract_slabs.launches, "orb_slabs_batched": extract_slabs.launches_batched}
+            "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched}
 
 
 def _health(o, gt_p, lane: str, resets_ok: bool = False):
@@ -441,9 +544,9 @@ def phase_main_path(dev, cfg, data, imgs, card):
     outs = run()
     wall = time.perf_counter() - t0
     launches = _counts()
-    for name in ("lk_track", "orb_slabs"):
+    for name in ("lk_track", "orb_describe"):
         assert launches[name] == T, f"{name}: {launches[name]} kernel launches in {T} frames"
-    for name in ("lk_track_batched", "orb_slabs_batched"):
+    for name in ("lk_track_batched", "orb_describe_batched"):
         assert launches[name] == 0, f"{name}: {launches[name]} launches on the single-instance path"
 
     o = {k: torch.stack([getattr(x, k) for x in outs]).cpu().numpy() for k in _OUT_KEYS}
@@ -490,9 +593,9 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card):
     outs = run()
     wall = time.perf_counter() - t0
     launches = _counts()
-    for name in ("lk_track_batched", "orb_slabs_batched"):
+    for name in ("lk_track_batched", "orb_describe_batched"):
         assert launches[name] == T, f"{name}: {launches[name]} launches in {T} fleet frames"
-    for name in ("lk_track", "orb_slabs"):
+    for name in ("lk_track", "orb_describe"):
         assert launches[name] == 0, f"{name}: {launches[name]} single-instance launches in the fleet"
 
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}  # (T, B, ...)
@@ -523,7 +626,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card):
     return launches
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -544,7 +647,12 @@ def main() -> int:
     cfg = VioConfig(filter=FilterConfig(max_slam_features=0))  # the pure-MSCKF slice
     sim = Simulator(SimConfig(duration=8.0), cfg)
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
-    kernels = phase_kernels(dev, sim, rend) + phase_kernels_batched(dev, sim, rend)
+    timings = phase_kernels(dev, sim, rend) + phase_kernels_batched(dev, sim, rend)
+    if kernels_only:  # phases 0-2b and the timing alone, for A/B runs of two trees
+        kernels = phase_timing(timings)
+        print(card, flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
 
     data = sim.generate()
     t0 = time.perf_counter()
@@ -555,6 +663,7 @@ def main() -> int:
     launches, ate = phase_main_path(dev, cfg, data, imgs, card)
     launches.update({k: v for k, v in phase_fleet(dev, cfg, data, imgs, ate, card).items()
                      if k.endswith("_batched")})
+    kernels = phase_timing(timings)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card, flush=True)
@@ -565,4 +674,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(kernels_only="--kernels-only" in sys.argv[1:]))

@@ -6,10 +6,8 @@
 // _lk_track_pallas_impl). K3 replaces _make_kernel_batched (launched by
 // _lk_track_pallas_batched_impl, grid (B, F), the custom_vmap rule that
 // jax.vmap of the pipeline step takes). Both are one __global__, K1 being its
-// launch with one lane, whose device body lk_track_feature plays the part of
-// the Pallas kernels' shared _make_multi_feature_body. They follow the
-// Pallas semantics, which differ slightly from the plain
-// larvio_tpu/ops/lk.py::lk_track:
+// launch with one lane. They follow the Pallas semantics, which differ
+// slightly from the plain larvio_tpu/ops/lk.py::lk_track:
 //   * the slab centre is clamped to [r, W-r-2] and the bilinear fraction is
 //     taken from the clamped centre;
 //   * the stopping iteration (|step| < precision, or the last of `iters`)
@@ -18,33 +16,70 @@
 //     flow; validity is decided at level 0 only, with err < 25;
 //   * an invalid slot returns its guess, valid 0, err 0.
 //
-// What bounds it on an H100: latency, not bandwidth or FLOPs. A frame tracks
-// at most F = 200 features; each does <= 4 levels x <= 12 dependent
-// Gauss-Newton iterations, and each iteration is 225 bilinear samples plus a
-// block-wide reduction. The whole pyramid (prev, curr, gx, gy over 4 levels,
-// ~7.7 MB at 480x752) fits in the 50 MB L2, so the samples are L1/L2 hits.
+// What bounds it on an H100: the latency of one dependent chain, not bytes
+// or FLOPs. A frame tracks at most F = 200 features per lane; each runs
+// <= 4 levels x <= 12 Gauss-Newton iterations, and iteration k+1 samples
+// `curr` at an address that depends on iteration k's sums. The data are
+// small (the whole 4-level pyramid of one lane, ~7.7 MB at 480x752, sits in
+// the 50 MB L2), so the time is the chain: per iteration one round of
+// bilinear taps plus one reduction, per level the loads that start it.
 //
-// Design: one thread block per feature, 256 threads = the 16x16 slab, one
-// bilinear pixel of the 15x15 patch per thread (the spare row/column idle).
-// Sums go through warp shuffles and one shared-memory pass; every thread
-// then adds the 8 warp partials in the same order, so all threads hold
-// bit-identical sums and the iteration loop is block-uniform: the early exit
-// costs no divergence. The pyramid is read straight from global memory.
-// K3 is the same kernel with grid (F, B): blockIdx.y picks the lane, whose
-// pyramid levels sit at b * H_l * W_l in contiguous (B, H_l, W_l) arrays and
-// whose table at b * F. What bounds it is again latency: at B = 8 it has 1,600 blocks, which
-// fill the 132 SMs better than K1's 200, but the 8 lanes' pyramids (~62 MB)
-// no longer fit the 50 MB L2 as one lane's 7.7 MB does, so a lane's samples
-// may come from device memory the first time they are touched.
-// Not yet done (later work): several features per block, shared-memory
-// pyramid tiles via TMA, and capturing the step in a CUDA graph.
+// Design (what it does about the chain):
+//   * One warp per (feature, lane), LK_WARPS warps per block (the ragged
+//     last block exits warp-uniformly). Lane j owns patch pixels j, j+32,
+//     ..., up to 8 of the 225, and keeps their template T and gradients Gx,
+//     Gy in registers.
+//   * Sums are a per-lane sum in a fixed order, then a __shfl_xor_sync
+//     butterfly: every lane ends with the same bits, so the iteration loop
+//     and its early exit are warp-uniform. No __syncthreads, no shared
+//     partials anywhere in the kernel.
+//   * The templates do not depend on the flow: level l-1's prev/gx/gy
+//     windows are copied to shared memory with cp.async while level l
+//     iterates, so their global latency is off the chain.
+//   * At each level a 32x32 tile of `curr` around the level's starting
+//     estimate is copied to shared memory (cp.async, one column per lane);
+//     the iterations read their taps from it, and from global memory only
+//     when the estimate leaves the tile (a warp-uniform branch). The tile's
+//     row stride is 47 (= 15 mod 32), so a warp's 32 pixels of a 15-wide
+//     patch fall in 32 different banks. (Staging the next level's tile
+//     speculatively during this level's iterations, into a second buffer,
+//     measured slower: PERF.md.)
+//   * The per-pixel work is branch-free (padding pixels carry a 0 mask), so
+//     a lane's 32 taps are in flight together.
+//   * Tensor cores do not apply: the work is 2x2 solves and 225-element sums.
+// K3 is the same kernel with grid (ceil(F / LK_WARPS), B): blockIdx.y picks
+// the lane, whose pyramid levels sit at b * H_l * W_l in contiguous
+// (B, H_l, W_l) arrays and whose table at b * F. At B = 8, 1,600 warps.
+// Compile with -DLK_NO_TILE to read every tap from global memory instead of
+// the tile, -DLK_WARPS=n for n features per block, or -DLK_STATS to count
+// iterations, tile hits and per-phase clock cycles into lk_stats (read by
+// larvio_lk_stats); the A/B runs of tools/torch_lk_ab.py use them.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define LK_MAX_LEVELS 8
-#define LK_THREADS 256
-#define LK_WARPS (LK_THREADS / 32)
+#ifndef LK_WARPS
+#define LK_WARPS 4                 // features (warps) per block
+#endif
+#define LK_THREADS (32 * LK_WARPS)
+#define LK_PX 8                    // patch pixels per lane: ceil(15 * 15 / 32)
+#define LK_WIN 16                  // template window side: patch + 1 <= 16
+#define LK_TILE 32                 // curr tile side: the 16x16 slab and an 8-pixel margin
+#define LK_MARGIN 8
+#define LK_TILE_S 47               // tile row stride (floats), 15 mod 32: conflict-free taps
+
+#ifdef LK_STATS
+// iterations, tile hits, global reads, tracked warps, cycles: staging waits,
+// iterations, templates, whole warp; the slowest warp's cycles
+__device__ unsigned long long lk_stats[9];
+#define LK_CLOCK(v) const long long v = clock64()
+#define LK_ADD(i, x) \
+  if (lane == 0) atomicAdd(&lk_stats[i], (unsigned long long)(x))
+#else
+#define LK_CLOCK(v)
+#define LK_ADD(i, x)
+#endif
 
 struct LkPyramid {
   const float* prev[LK_MAX_LEVELS];
@@ -57,31 +92,24 @@ struct LkPyramid {
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Sum three per-thread values over the block; every thread gets the same
-// bit pattern (lane 0's warp partials, added in warp order by all threads).
-__device__ __forceinline__ float3 block_sum3(float a, float b, float c, float* sh) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  c = warp_sum(c);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    sh[warp] = a;
-    sh[LK_WARPS + warp] = b;
-    sh[2 * LK_WARPS + warp] = c;
-  }
-  __syncthreads();
-  float3 r = make_float3(0.f, 0.f, 0.f);
-  for (int w = 0; w < LK_WARPS; ++w) {
-    r.x += sh[w];
-    r.y += sh[LK_WARPS + w];
-    r.z += sh[2 * LK_WARPS + w];
-  }
-  __syncthreads();  // sh is reused by the next call
-  return r;
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Slab origin and bilinear fraction for a patch centred at (cx, cy):
@@ -98,68 +126,208 @@ __device__ __forceinline__ void slab_origin(float cx, float cy, int H, int W, in
   *fy = cyc - fly;
 }
 
-__device__ __forceinline__ float bilinear(const float* img, int W, int x0, int y0, int px,
-                                          int py, float fx, float fy) {
-  const float* p = img + (size_t)(y0 + py) * W + (x0 + px);
-  const float i00 = p[0], i01 = p[1], i10 = p[W], i11 = p[W + 1];
-  return i00 * (1.f - fx) * (1.f - fy) + i01 * fx * (1.f - fy) + i10 * (1.f - fx) * fy +
-         i11 * fx * fy;
+struct Bilerp {
+  float w00, w01, w10, w11;
+  __device__ __forceinline__ Bilerp(float fx, float fy)
+      : w00((1.f - fx) * (1.f - fy)), w01(fx * (1.f - fy)), w10((1.f - fx) * fy), w11(fx * fy) {}
+  __device__ __forceinline__ float operator()(const float* p, int stride) const {
+    return p[0] * w00 + p[1] * w01 + p[stride] * w10 + p[stride + 1] * w11;
+  }
+};
+
+// Copy the 16x16 windows of prev, gx and gy under level lvl's template slab
+// into win (3 x 16 x 16 floats, row stride 16), asynchronously, rows and
+// columns clamped into the level (for patch 15 the window lies inside it);
+// returns the template's bilinear fraction.
+__device__ __forceinline__ void stage_template(const LkPyramid& pyr, size_t b, int lvl, float px,
+                                               float py, int r, float* win, int lane, float* fx,
+                                               float* fy) {
+  const int H = pyr.H[lvl], W = pyr.W[lvl];
+  const size_t off = b * (size_t)H * (size_t)W;
+  const float scale = ldexpf(1.f, -lvl);
+  int x0, y0;
+  slab_origin(px * scale, py * scale, H, W, r, &x0, &y0, fx, fy);
+  const float* prev = pyr.prev[lvl] + off;
+  const float* gx = pyr.gx[lvl] + off;
+  const float* gy = pyr.gy[lvl] + off;
+  const int col = min(x0 + (lane & 15), W - 1);
+#pragma unroll
+  for (int m = 0; m < LK_WIN * LK_WIN / 32; ++m) {
+    const int i = m * 32 + lane;
+    const int o = min(y0 + (i >> 4), H - 1) * W + col;
+    cp_async4(win + i, prev + o);
+    cp_async4(win + LK_WIN * LK_WIN + i, gx + o);
+    cp_async4(win + 2 * LK_WIN * LK_WIN + i, gy + o);
+  }
 }
 
-// One feature's whole pyramid track (the body of K1 and K3). `pyr` holds
-// lane 0's level pointers; lane b's level l starts b * H_l * W_l floats on
-// (the offset is taken per level, so the kernel keeps no per-lane copy of
-// the pointer table). `pos`, `guess`, `valid` and the outputs point at the
-// lane's table; f indexes it.
-__device__ __forceinline__ void lk_track_feature(
-    const LkPyramid& pyr, size_t b, int f, const float* __restrict__ pos,
-    const float* __restrict__ guess, const int* __restrict__ valid, int patch, int iters,
-    float precision_sq, float max_err, float min_eig, float* __restrict__ out_pos,
-    int* __restrict__ out_valid, float* __restrict__ out_err, float* sh) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const bool active = (tx < patch) && (ty < patch);
-  const int r = patch / 2;
-  const float n_px = (float)(patch * patch);
-  const float px = pos[2 * f], py = pos[2 * f + 1];
-  const float gpx = guess[2 * f], gpy = guess[2 * f + 1];
+// Copy the 32x32 tile of `curr` around the slab at (ix0, iy0) asynchronously:
+// lane j copies column j of every row. The tile's origin is clamped so that
+// its tw x th extent (32 x 32, or the level where it is smaller) lies inside
+// the level; rows and columns past the extent repeat the last one.
+__device__ __forceinline__ void stage_tile(const float* curr, int H, int W, int ix0, int iy0,
+                                           float* tile, int lane, int* tx0, int* ty0, int* tw,
+                                           int* th) {
+  *tw = min(LK_TILE, W);
+  *th = min(LK_TILE, H);
+  *tx0 = min(max(ix0 - LK_MARGIN, 0), W - *tw);
+  *ty0 = min(max(iy0 - LK_MARGIN, 0), H - *th);
+  const float* src = curr + min(*tx0 + lane, W - 1);
+#pragma unroll 8
+  for (int yy = 0; yy < LK_TILE; ++yy)
+    cp_async4(tile + yy * LK_TILE_S + lane, src + min(*ty0 + yy, H - 1) * W);
+}
 
-  if (valid[f] == 0) {  // block-uniform
-    if (threadIdx.x == 0) {
-      out_pos[2 * f] = gpx;
-      out_pos[2 * f + 1] = gpy;
-      out_valid[f] = 0;
-      out_err[f] = 0.f;
+// Per-lane residual sums (|e|, Gx e, Gy e) of the slab whose top-left tap is
+// base, with row stride `stride` and this lane's pixel offsets off[k]: in
+// shared memory (the tile) or in global memory. Branch-free: padding pixels
+// (mask 0) read a real pixel and have T = Gx = Gy = 0, so only |e| needs
+// the mask; all 32 taps of a lane can be in flight at once.
+__device__ __forceinline__ void residual_sums(const float* base, int stride, const int* off,
+                                              const Bilerp& w, const float* T, const float* GX,
+                                              const float* GY, const float* msk, float* sa,
+                                              float* sx, float* sy) {
+  float a = 0.f, x = 0.f, y = 0.f;
+#pragma unroll
+  for (int k = 0; k < LK_PX; ++k) {
+    const float e = w(base + off[k], stride) - T[k];
+    a = fmaf(msk[k], fabsf(e), a);
+    x += GX[k] * e;
+    y += GY[k] * e;
+  }
+  *sa = a;
+  *sx = x;
+  *sy = y;
+}
+
+// K1 and K3: one warp per (feature, lane); blockIdx.y = lane b of B (K1 is
+// the launch with B = 1). Lane b's table starts b * n_feat slots on.
+__global__ void __launch_bounds__(LK_THREADS)
+lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
+                const float* __restrict__ guess, const int* __restrict__ valid, int patch,
+                int iters, float precision_sq, float max_err, float min_eig,
+                float* __restrict__ out_pos, int* __restrict__ out_valid,
+                float* __restrict__ out_err) {
+  __shared__ float s_win[LK_WARPS][3 * LK_WIN * LK_WIN];
+  __shared__ float s_tile[LK_WARPS][LK_TILE * LK_TILE_S];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f = blockIdx.x * LK_WARPS + warp;
+  if (f >= n_feat) return;  // warp-uniform: the ragged last block
+  const size_t b = blockIdx.y;
+  const size_t slot = b * (size_t)n_feat + f;
+  float* win = s_win[warp];
+  float* tile = s_tile[warp];
+
+  const float px = pos[2 * slot], py = pos[2 * slot + 1];
+  const float gpx = guess[2 * slot], gpy = guess[2 * slot + 1];
+  if (valid[slot] == 0) {  // warp-uniform
+    if (lane == 0) {
+      out_pos[2 * slot] = gpx;
+      out_pos[2 * slot + 1] = gpy;
+      out_valid[slot] = 0;
+      out_err[slot] = 0.f;
     }
     return;
   }
 
+  LK_CLOCK(t_start);
+  const int r = patch / 2, npx = patch * patch;
+  const float n_px = (float)npx;
+  const float margin = (float)(patch / 2 + 1);
+  // this lane's patch pixels p = 32k + lane as (row, column), padding
+  // (p >= npx) clamped onto the last real pixel with mask 0
+  int prow[LK_PX], pcol[LK_PX], owin[LK_PX], otile[LK_PX];
+  float msk[LK_PX];
+#pragma unroll
+  for (int k = 0; k < LK_PX; ++k) {
+    const int p = min(k * 32 + lane, npx - 1);
+    prow[k] = p / patch;
+    pcol[k] = p - prow[k] * patch;
+    owin[k] = prow[k] * LK_WIN + pcol[k];
+    otile[k] = prow[k] * LK_TILE_S + pcol[k];
+    msk[k] = k * 32 + lane < npx ? 1.f : 0.f;
+  }
+
+  float T[LK_PX], GX[LK_PX], GY[LK_PX];
+  float gxx, gxy, gyy;
+  float tfx, tfy;
+  // the template (T, Gx, Gy and the Hessian) of a level from its staged windows
+  auto load_template = [&]() {
+    const Bilerp w(tfx, tfy);
+    float a = 0.f, c = 0.f, d = 0.f;
+#pragma unroll
+    for (int k = 0; k < LK_PX; ++k) {
+      T[k] = msk[k] * w(win + owin[k], LK_WIN);
+      GX[k] = msk[k] * w(win + LK_WIN * LK_WIN + owin[k], LK_WIN);
+      GY[k] = msk[k] * w(win + 2 * LK_WIN * LK_WIN + owin[k], LK_WIN);
+      a += GX[k] * GX[k];
+      c += GX[k] * GY[k];
+      d += GY[k] * GY[k];
+    }
+    gxx = warp_sum(a);
+    gxy = warp_sum(c);
+    gyy = warp_sum(d);
+  };
+
+  const int top = pyr.levels - 1;
   float flow_x = gpx - px, flow_y = gpy - py;
   bool ok = false;
   float err = 0.f;
-  const float margin = (float)(patch / 2 + 1);
+  int tx0 = 0, ty0 = 0, tw = 0, th = 0;
 
-  for (int lvl = pyr.levels - 1; lvl >= 0; --lvl) {
+  // coarsest level: its template windows and its curr tile in flight together
+  {
+    const int H = pyr.H[top], W = pyr.W[top];
+    const float scale = ldexpf(1.f, -top);
+    stage_template(pyr, b, top, px, py, r, win, lane, &tfx, &tfy);
+    int ix0, iy0;
+    float ifx, ify;
+    slab_origin(px * scale + flow_x * scale, py * scale + flow_y * scale, H, W, r, &ix0, &iy0,
+                &ifx, &ify);
+#ifndef LK_NO_TILE
+    stage_tile(pyr.curr[top] + b * (size_t)H * (size_t)W, H, W, ix0, iy0, tile, lane, &tx0, &ty0,
+               &tw, &th);
+#endif
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+    LK_CLOCK(t_staged);
+    LK_ADD(4, t_staged - t_start);
+    load_template();
+    LK_CLOCK(t_template);
+    LK_ADD(6, t_template - t_staged);
+  }
+  int n_hit = 0, n_miss = 0;
+
+  for (int lvl = top; lvl >= 0; --lvl) {
     const int H = pyr.H[lvl], W = pyr.W[lvl];
-    const size_t off = b * (size_t)H * (size_t)W;
-    const float* prev = pyr.prev[lvl] + off;
-    const float* curr = pyr.curr[lvl] + off;
-    const float* gxl = pyr.gx[lvl] + off;
-    const float* gyl = pyr.gy[lvl] + off;
+    const float* curr = pyr.curr[lvl] + b * (size_t)H * (size_t)W;
     const float scale = ldexpf(1.f, -lvl);
     const float cx = px * scale, cy = py * scale;
+    float dx = flow_x * scale, dy = flow_y * scale;
 
-    int x0, y0;
-    float fx, fy;
-    slab_origin(cx, cy, H, W, r, &x0, &y0, &fx, &fy);
-    float T = 0.f, Gx = 0.f, Gy = 0.f;
-    if (active) {
-      T = bilinear(prev, W, x0, y0, tx, ty, fx, fy);
-      Gx = bilinear(gxl, W, x0, y0, tx, ty, fx, fy);
-      Gy = bilinear(gyl, W, x0, y0, tx, ty, fx, fy);
+    __syncwarp();  // every lane is done with the previous tile and windows
+    LK_CLOCK(t_level);
+#ifndef LK_NO_TILE
+    if (lvl < top) {
+      int ix0, iy0;
+      float ifx, ify;
+      slab_origin(cx + dx, cy + dy, H, W, r, &ix0, &iy0, &ifx, &ify);
+      stage_tile(curr, H, W, ix0, iy0, tile, lane, &tx0, &ty0, &tw, &th);
     }
-    const float3 g = block_sum3(Gx * Gx, Gx * Gy, Gy * Gy, sh);
-    const float gxx = g.x, gxy = g.y, gyy = g.z;
+#endif
+    cp_async_commit();
+    float nfx = 0.f, nfy = 0.f;  // the next level's template, copied while this one iterates
+    if (lvl > 0) stage_template(pyr, b, lvl - 1, px, py, r, win, lane, &nfx, &nfy);
+    cp_async_commit();
+    cp_async_wait<1>();  // this level's tile has landed; the windows may still be in flight
+    __syncwarp();
+    LK_CLOCK(t_tile);
+    LK_ADD(4, t_tile - t_level);
+
+    int oglob[LK_PX];  // this lane's pixel offsets in the level
+#pragma unroll
+    for (int k = 0; k < LK_PX; ++k) oglob[k] = prow[k] * W + pcol[k];
     const float det = gxx * gyy - gxy * gxy;
     const float tr = gxx + gyy;
     const float min_e = (tr - sqrtf(fmaxf(tr * tr - 4.f * det, 0.f))) / (2.f * n_px);
@@ -167,26 +335,37 @@ __device__ __forceinline__ void lk_track_feature(
     const bool lvl_ok = (min_e > min_eig) && (cx >= margin) && (cx <= (float)(W - 1) - margin) &&
                         (cy >= margin) && (cy <= (float)(H - 1) - margin);
 
-    float dx = flow_x * scale, dy = flow_y * scale;
     float lerr = 0.f;
     bool done = !lvl_ok;
     for (int it = 0; it < iters && !done; ++it) {
       int ix0, iy0;
       float ifx, ify;
       slab_origin(cx + dx, cy + dy, H, W, r, &ix0, &iy0, &ifx, &ify);
-      float e = 0.f;
-      if (active) e = bilinear(curr, W, ix0, iy0, tx, ty, ifx, ify) - T;
-      const float3 s = block_sum3(fabsf(e), Gx * e, Gy * e, sh);
-      const float sx = (gyy * s.y - gxy * s.z) * inv_det;
-      const float sy = (gxx * s.z - gxy * s.y) * inv_det;
-      const bool stop = (sx * sx + sy * sy < precision_sq) || (it + 1 >= iters);
-      lerr = s.x / n_px;
+      const Bilerp w(ifx, ify);
+      float sa, sx, sy;
+      if (ix0 >= tx0 && ix0 + patch < tx0 + tw && iy0 >= ty0 && iy0 + patch < ty0 + th) {
+        residual_sums(tile + (iy0 - ty0) * LK_TILE_S + (ix0 - tx0), LK_TILE_S, otile, w, T, GX,
+                      GY, msk, &sa, &sx, &sy);  // warp-uniform branch
+        ++n_hit;
+      } else {
+        residual_sums(curr + iy0 * W + ix0, W, oglob, w, T, GX, GY, msk, &sa, &sx, &sy);
+        ++n_miss;
+      }
+      sa = warp_sum(sa);
+      sx = warp_sum(sx);
+      sy = warp_sum(sy);
+      const float stx = (gyy * sx - gxy * sy) * inv_det;
+      const float sty = (gxx * sy - gxy * sx) * inv_det;
+      const bool stop = (stx * stx + sty * sty < precision_sq) || (it + 1 >= iters);
+      lerr = sa / n_px;
       if (!stop) {
-        dx -= sx;
-        dy -= sy;
+        dx -= stx;
+        dy -= sty;
       }
       done = stop;
     }
+    LK_CLOCK(t_iter);
+    LK_ADD(5, t_iter - t_tile);
     const bool inb = (cx + dx >= 1.f) && (cx + dx <= (float)W - 2.f) && (cy + dy >= 1.f) &&
                      (cy + dy <= (float)H - 2.f);
     const bool new_ok = lvl_ok && inb;
@@ -197,31 +376,32 @@ __device__ __forceinline__ void lk_track_feature(
     if (lvl == 0) {
       ok = new_ok && (lerr < max_err);
       err = lerr;
+    } else {
+      cp_async_wait<0>();
+      __syncwarp();
+      tfx = nfx;
+      tfy = nfy;
+      load_template();
+      LK_CLOCK(t_next);
+      LK_ADD(6, t_next - t_iter);
     }
   }
+  LK_ADD(0, n_hit + n_miss);
+  LK_ADD(1, n_hit);
+  LK_ADD(2, n_miss);
+  LK_ADD(3, 1);
+#ifdef LK_STATS
+  const long long t_end = clock64();
+  LK_ADD(7, t_end - t_start);
+  if (lane == 0) atomicMax(&lk_stats[8], (unsigned long long)(t_end - t_start));
+#endif
 
-  if (threadIdx.x == 0) {
-    out_pos[2 * f] = px + flow_x;
-    out_pos[2 * f + 1] = py + flow_y;
-    out_valid[f] = ok ? 1 : 0;
-    out_err[f] = err;
+  if (lane == 0) {
+    out_pos[2 * slot] = px + flow_x;
+    out_pos[2 * slot + 1] = py + flow_y;
+    out_valid[slot] = ok ? 1 : 0;
+    out_err[slot] = err;
   }
-}
-
-// K1 and K3: one block per (feature, lane); blockIdx.y = lane b of B (K1 is
-// the launch with B = 1). Lane b's table starts b * n_feat slots on.
-__global__ void __launch_bounds__(LK_THREADS)
-lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
-                const float* __restrict__ guess, const int* __restrict__ valid, int patch,
-                int iters, float precision_sq, float max_err, float min_eig,
-                float* __restrict__ out_pos, int* __restrict__ out_valid,
-                float* __restrict__ out_err) {
-  __shared__ float sh[3 * LK_WARPS];
-  const size_t b = blockIdx.y;
-  const size_t t = b * (size_t)n_feat;
-  lk_track_feature(pyr, b, blockIdx.x, pos + 2 * t, guess + 2 * t, valid + t, patch, iters,
-                   precision_sq, max_err, min_eig, out_pos + 2 * t, out_valid + t, out_err + t,
-                   sh);
 }
 
 static int fill_pyramid(LkPyramid* pyr, const void* const* prev, const void* const* curr,
@@ -229,6 +409,7 @@ static int fill_pyramid(LkPyramid* pyr, const void* const* prev, const void* con
                         const int* widths, int levels) {
   if (levels < 1 || levels > LK_MAX_LEVELS) return (int)cudaErrorInvalidValue;
   for (int l = 0; l < levels; ++l) {
+    if (heights[l] < LK_WIN || widths[l] < LK_WIN) return (int)cudaErrorInvalidValue;
     pyr->prev[l] = (const float*)prev[l];
     pyr->curr[l] = (const float*)curr[l];
     pyr->gx[l] = (const float*)gx[l];
@@ -244,9 +425,9 @@ static int fill_pyramid(LkPyramid* pyr, const void* const* prev, const void* con
 // level shapes are host arrays of `levels` entries; everything else lives on
 // the device. The level pointers are those of contiguous (B, H_l, W_l)
 // arrays and the tables (B, n_feat, 2) / (B, n_feat), with B = n_lanes: all
-// lanes in one launch (K3), or one table with n_lanes = 1 (K1). It launches
-// on `stream`, does not synchronize, and returns cudaGetLastError() of the
-// launch (0 on success).
+// lanes in one launch (K3), or one table with n_lanes = 1 (K1). Every level
+// must be at least 16x16. It launches on `stream`, does not synchronize, and
+// returns cudaGetLastError() of the launch (0 on success).
 extern "C" int larvio_lk_track_batched(const void* const* prev, const void* const* curr,
                                        const void* const* gx, const void* const* gy,
                                        const int* heights, const int* widths, int levels,
@@ -261,9 +442,19 @@ extern "C" int larvio_lk_track_batched(const void* const* prev, const void* cons
   const int bad = fill_pyramid(&pyr, prev, curr, gx, gy, heights, widths, levels);
   if (bad) return bad;
   if (n_feat == 0 || n_lanes == 0) return 0;
-  const dim3 grid(n_feat, n_lanes);
+  const dim3 grid((n_feat + LK_WARPS - 1) / LK_WARPS, n_lanes);
   lk_track_kernel<<<grid, LK_THREADS, 0, (cudaStream_t)stream>>>(
       pyr, n_feat, (const float*)pos, (const float*)guess, (const int*)valid, patch, iters,
       precision_sq, max_err, min_eig, (float*)out_pos, (int*)out_valid, (float*)out_err);
   return (int)cudaGetLastError();
 }
+
+#ifdef LK_STATS
+// Copy lk_stats (9 counters) to host memory `out` and zero them.
+extern "C" int larvio_lk_stats(unsigned long long* out) {
+  static const unsigned long long zero[9] = {0};
+  cudaMemcpyFromSymbol(out, lk_stats, sizeof(zero));
+  cudaMemcpyToSymbol(lk_stats, zero, sizeof(zero));
+  return (int)cudaGetLastError();
+}
+#endif

@@ -1,13 +1,14 @@
 """IMU-aided feature-tracking front-end (port of
 ``larvio_tpu/models/frontend.py``): pyramid, gyro-predicted pyramidal LK
 (kernel K1 on the card), two-point RANSAC, Shi-Tomasi grid replenishment,
-the ORB descriptor gate (kernel K2 on the card), then ``FrameFeatures``.
+the ORB descriptor gate (the fused describe kernel on the card), then
+``FrameFeatures``.
 
 The feature table is fixed-slot: a track keeps its slot for life, slots
 free on death and refill from per-cell detection candidates the same frame.
 Every tensor may carry a leading instance axis (a fleet's lanes): image
 (B, H, W), tables (B, F, ...), per-frame scalars (B,). On the card a fleet
-launches K3 and the batched slab kernel once per frame for all lanes.
+launches K3 and the batched describe kernel once per frame for all lanes.
 """
 
 from __future__ import annotations
@@ -188,9 +189,9 @@ def track_frame(cfg: VioConfig, ts: TrackerState, image: torch.Tensor, imu: ImuB
     age = torch.where(is_new, 0, torch.where(tracked, ts.age + 1, 0)).to(torch.int32)
     valid = tracked | is_new
 
-    # one descriptor pass over the final table (K2, or its batched form for a
-    # fleet, on CUDA tensors): ORB gate for survivors, birth descriptors for
-    # the newly detected
+    # one descriptor pass over the final table (one launch of the describe
+    # kernel on CUDA tensors, for all lanes of a fleet): ORB gate for
+    # survivors, birth descriptors for the newly detected
     desc_now = describe(image, pos, valid)
     margin_ok = in_bounds(pos, (H, W), margin=17.0)
     dist = hamming(desc_now, ts.desc)

@@ -1,12 +1,14 @@
 """Rotation-steered binary (ORB-style) descriptors + Hamming matching (port of
-``larvio_tpu/ops/orb.py``), and the wrapper of kernel K2 (``csrc/orb_slab.cu``).
+``larvio_tpu/ops/orb.py``), and the wrapper of the fused describe kernel
+(``csrc/orb_describe.cu``).
 
 The test pattern and centroid grids are the JAX module's (same seed, same
-numpy draw). Descriptor words are stored as int32 BIT PATTERNS of the JAX
-package's uint32 words (PyTorch's uint32 supports few ops); the converter
-reinterprets, never casts. ``hamming`` popcounts with bit arithmetic.
-Images may carry a leading instance axis (B, H, W) with tables (B, F, ...):
-``extract_slabs`` then launches the batched slab kernel once for all lanes.
+numpy draw); the kernel reads the pattern from ``csrc/orb_pattern.cuh``,
+which ``pattern_header()`` writes. Descriptor words are stored as int32 BIT
+PATTERNS of the JAX package's uint32 words (PyTorch's uint32 supports few
+ops); the converter reinterprets, never casts. ``hamming`` popcounts with
+bit arithmetic. Images may carry a leading instance axis (B, H, W) with
+tables (B, F, ...): ``describe`` then launches the kernel once for all lanes.
 """
 
 from __future__ import annotations
@@ -34,6 +36,19 @@ _CIRC = (_xx**2 + _yy**2 <= _r**2).astype(np.float32)
 _XGRID = (_xx * _CIRC).astype(np.float32)
 _YGRID = (_yy * _CIRC).astype(np.float32)
 
+
+def pattern_header() -> str:
+    """The text of ``csrc/orb_pattern.cuh``: ``_PAT`` as a device table of
+    float4 (ax, ay, bx, by), each value the shortest decimal that reads back
+    as the same float32."""
+    rows = ",\n".join("  {" + ", ".join(str(np.float32(v)) + "f" for v in row) + "}" for row in _PAT)
+    return ("// The ORB test pattern larvio_tpu_torch/ops/orb.py::_PAT, written by\n"
+            "// ops/orb.py::pattern_header(); do not edit by hand.\n"
+            "#pragma once\n\n"
+            f"#define ORB_BITS {N_BITS}\n\n"
+            f"__device__ const float4 ORB_PAT[ORB_BITS] = {{\n{rows}}};\n")
+
+
 def slab_index(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Row-major pixel indices (..., F, PATCH, PATCH) of the integer-aligned
     slabs: half-to-even rounding, centre clamped to [r, W-r-1] x [r, H-r-1];
@@ -49,49 +64,9 @@ def slab_index(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 def _slabs_plain(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """(..., F, PATCH, PATCH) integer-aligned slabs of img (..., H, W) at pos
-    (..., F, 2): the plain version of K2 and of its batched form (port of
-    ``_slabs_xla``)."""
+    (..., F, 2) (port of ``_slabs_xla``, the plain version of the Pallas slab
+    kernel); the plain ``describe`` cuts its slabs with it."""
     return gather_pixels(img, slab_index(img, pos))
-
-
-def _check_slab_args(img: torch.Tensor, pos: torch.Tensor) -> None:
-    nd = img.dim()
-    if img.dtype != torch.float32 or nd not in (2, 3) or not img.is_contiguous():
-        raise ValueError(f"img: need a contiguous (H, W) or (B, H, W) float32 CUDA tensor, got "
-                         f"{img.dtype} {tuple(img.shape)}")
-    want = (*img.shape[:-2], pos.shape[-2] if pos.dim() >= 2 else -1, 2)
-    if pos.device != img.device or pos.dtype != torch.float32 or tuple(pos.shape) != want:
-        raise ValueError(f"pos: need float32 {want} on {img.device}, got "
-                         f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
-
-
-def extract_slabs(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """(..., F, PATCH, PATCH) slabs: for CUDA tensors kernel K2 (img (H, W),
-    pos (F, 2)) or its batched form (img (B, H, W), pos (B, F, 2), one launch
-    for all lanes); the plain version for CPU tensors.
-    ``extract_slabs.launches`` / ``.launches_batched`` count kernel launches."""
-    if img.device.type == "cpu":
-        return _slabs_plain(img, pos)
-    _check_slab_args(img, pos)
-    H, W = img.shape[-2:]
-    F = pos.shape[-2]
-    pos_c = pos.contiguous()
-    out = torch.empty((*pos.shape[:-1], PATCH, PATCH), dtype=torch.float32, device=img.device)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    lib = cuda_lib.library()
-    batched = img.dim() == 3
-    code = lib.larvio_orb_slabs(img.data_ptr(), img.shape[0] if batched else 1, H, W,
-                                pos_c.data_ptr(), F, out.data_ptr(), stream)
-    cuda_lib.check(code, "extract_slabs (batched)" if batched else "extract_slabs")
-    if batched:
-        extract_slabs.launches_batched += 1
-    else:
-        extract_slabs.launches += 1
-    return out
-
-
-extract_slabs.launches = 0
-extract_slabs.launches_batched = 0
 
 
 def _desc_blur(img: torch.Tensor) -> torch.Tensor:
@@ -117,11 +92,11 @@ def _to_int32_bits(words: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def describe(img: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Descriptors for all feature slots. img (..., H, W), pos (..., F, 2) px
-    -> (..., F, 8) int32 words (bit patterns of the JAX package's uint32 words)."""
+def _describe_plain(img: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The plain version of the describe kernel: blur, slabs, centroid
+    angle, steered tests, bit packing, as separate PyTorch ops."""
     pat, xg, yg = (device_array(a, img.device) for a in (_PAT, _XGRID, _YGRID))
-    slabs = extract_slabs(_desc_blur(img), pos)  # (..., F, 31, 31)
+    slabs = _slabs_plain(_desc_blur(img), pos)  # (..., F, 31, 31)
     m10 = torch.sum(slabs * xg, dim=(-2, -1))
     m01 = torch.sum(slabs * yg, dim=(-2, -1))
     th = torch.atan2(m01, m10)
@@ -141,6 +116,44 @@ def describe(img: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> torch
     packed = torch.sum(bits.reshape(*bits.shape[:-1], N_WORDS, 32) << shifts, dim=-1)
     packed = torch.where(valid[..., None], packed, 0)
     return _to_int32_bits(packed)
+
+
+def describe(img: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Descriptors for all feature slots. img (..., H, W) raw image, pos
+    (..., F, 2) px, valid (..., F) bool -> (..., F, 8) int32 words (bit
+    patterns of the JAX package's uint32 words), 0 for invalid slots.
+
+    CPU tensors take the plain version; CUDA tensors launch the fused kernel
+    once, (H, W) images as one lane and (B, H, W) images as B lanes, or
+    raise. ``describe.launches`` / ``.launches_batched`` count the launches."""
+    if img.device.type == "cpu":
+        return _describe_plain(img, pos, valid)
+    lead = tuple(img.shape[:-2])
+    if img.dtype != torch.float32 or len(lead) > 1 or not img.is_contiguous():
+        raise ValueError(f"img: need a contiguous (H, W) or (B, H, W) float32 CUDA tensor, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    F = pos.shape[-2] if pos.dim() >= 2 else -1
+    for name, t, shp, dt in (("pos", pos, lead + (F, 2), torch.float32),
+                             ("valid", valid, lead + (F,), torch.bool)):
+        if t.device != img.device or t.dtype != dt or tuple(t.shape) != shp:
+            raise ValueError(f"{name}: need {dt} {shp} on {img.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    H, W = img.shape[-2:]
+    pos_c, valid_c = pos.contiguous(), valid.contiguous()
+    out = torch.empty(lead + (F, N_WORDS), dtype=torch.int32, device=img.device)
+    code = cuda_lib.library().larvio_orb_describe(
+        img.data_ptr(), lead[0] if lead else 1, H, W, pos_c.data_ptr(), valid_c.data_ptr(), F,
+        out.data_ptr(), torch.cuda.current_stream(img.device).cuda_stream)
+    cuda_lib.check(code, "describe (batched)" if lead else "describe")
+    if lead:
+        describe.launches_batched += 1
+    else:
+        describe.launches += 1
+    return out
+
+
+describe.launches = 0
+describe.launches_batched = 0
 
 
 def hamming(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ instance axis is written out: every leaf of the state, ``FrameFeatures``,
 ``ImuBatch`` and ``FrameInput`` carries a leading axis B, and the same
 ``filter_step`` / ``pipeline_step`` that steps one instance steps all B at
 once. On the card an image-level fleet frame launches the batched LK kernel
-(K3) and the batched slab kernel once each, for all lanes. Lanes never
+(K3) and the batched describe kernel once each, for all lanes. Lanes never
 interact: every reduction runs over one instance's own axes and every select
 is per lane, so a reset or a NaN in one lane leaves the others bit-identical.
 

@@ -4,8 +4,8 @@ in place of the JAX package's ``lax.scan``.
 
 Every leaf may carry a leading instance axis B: ``pipeline_step`` then steps
 a fleet of B independent instances at once (the JAX package's
-``jax.vmap(pipeline_step)``), with one K3 and one batched slab launch per
-frame on the card. ``parallel/fleet.py`` builds such states.
+``jax.vmap(pipeline_step)``), with one K3 and one batched describe launch
+per frame on the card. ``parallel/fleet.py`` builds such states.
 """
 
 from __future__ import annotations

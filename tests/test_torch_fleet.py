@@ -2,7 +2,8 @@
 
 A fleet is B independent instances with every state leaf on a leading axis.
 The JAX package vmaps its step; the port writes the axis out, and on the card
-launches the batched LK kernel K3 and the batched slab kernel once per frame.
+launches the batched LK kernel K3 and the batched describe kernel once per
+frame.
 Here (CPU) the plain versions run. Both packages' configs come from one dict
 (``convert.config_from_dict``); inputs are numpy arrays made from seeds.
 
@@ -12,8 +13,8 @@ Tolerances:
   ``tests/test_lk_pallas.py::_check_parity`` per lane; each lane against the
   port's single-instance plain version: < 1e-4 px, identical validity
   (``test_batched_kernel_matches_single``'s gate);
-- batched slabs, the PRNG, the state converter and the plain LK's
-  iteration counts: exact;
+- batched slabs and plain descriptors (per lane against one instance), the
+  PRNG, the state converter and the plain LK's iteration counts: exact;
 - the filter fleet against ``jax.vmap`` + ``lax.scan``: positions within
   1e-3 m on every lane and frame, ``initialized`` / ``did_reset`` exact (the
   JAX package's own vmap-vs-single bound, ``tests/test_fleet.py``);
@@ -190,36 +191,44 @@ def test_lk_plain_iteration_counts(lk_lanes):
             assert torch.equal(a, c[b])
 
 
-@pytest.mark.parametrize("case", ["apart", "overlapping", "clamped", "slabs"])
+@pytest.mark.parametrize("case", ["apart", "overlapping", "clamped", "slabs", "windows"])
 def test_lk_bound_counts_distinct_pixels(case):
     """chip_smoke's bytes terms count each pixel once: the union of the LK
-    kernel's 16x16 slabs (or the slab kernel's 31x31 windows), clamped as the
-    kernel clamps, never above the image's size."""
+    kernel's 16x16 slabs, the describe kernel's 31x31 slabs or its 35x35 raw
+    windows (the slab and the blur's apron, clipped to the image), clamped as
+    the kernel clamps, never above the image's size."""
     import chip_smoke
 
     H, W = 40, 60
     centres = {"apart": [[10.0, 10.0], [40.0, 25.0]],
                "overlapping": [[20.0, 20.0], [20.0, 20.0], [24.0, 20.0]],
                "clamped": [[0.0, 0.0], [np.nan, np.nan], [1e9, -1e9], [30.0, 20.0]],
-               "slabs": [[0.0, 0.0], [np.nan, np.nan], [20.5, 20.5], [21.5, 20.5], [1e9, 1e9]]}[case]
+               "slabs": [[0.0, 0.0], [np.nan, np.nan], [20.5, 20.5], [21.5, 20.5], [1e9, 1e9]],
+               "windows": [[0.0, 0.0], [np.nan, np.nan], [20.5, 20.5], [1e9, 1e9]]}[case]
     origins = {"apart": None, "overlapping": None,
                "clamped": [(0, 0), (0, 0), (W - 16, 0), (23, 13)],
-               "slabs": [(0, 0), (0, 0), (5, 5), (7, 5), (W - 31, H - 31)]}[case]
-    size = 31 if case == "slabs" else 16
+               "slabs": [(0, 0), (0, 0), (5, 5), (7, 5), (W - 31, H - 31)],
+               "windows": [(-2, -2), (-2, -2), (3, 3), (W - 33, H - 33)]}[case]
+    size = {"slabs": 31, "windows": 35}.get(case, 16)
     if case == "slabs":
         got = chip_smoke._covered_px(*chip_smoke._slab_origins(np.array(centres), H, W), size, H, W)
+    elif case == "windows":
+        x0, y0 = chip_smoke._slab_origins(np.array(centres), H, W)
+        got = chip_smoke._covered_px(x0 - 2, y0 - 2, size, H, W)
     else:
         got = chip_smoke._covered_px(*chip_smoke._lk_origins(np.array(centres), H, W), size, H, W)
     want = {"apart": 2 * 256, "overlapping": 16 * 20}.get(case)
     if want is None:  # brute force over the kernel's window corners
         mask = np.zeros((H, W), bool)
         for x0, y0 in origins:
-            mask[y0:y0 + size, x0:x0 + size] = True
+            mask[max(y0, 0):y0 + size, max(x0, 0):x0 + size] = True
         want = int(mask.sum())
     assert got == want <= H * W
 
 
 def test_batched_slabs_equal_single_per_lane():
+    """The plain slab function and the plain describe on (B, ...) inputs equal
+    their single-instance calls lane by lane; CPU tensors launch no kernel."""
     rng = np.random.default_rng(5)
     H, W, F = 50, 120, 16
     img = rng.uniform(0, 255, (B, H, W)).astype(np.float32)
@@ -228,11 +237,15 @@ def test_batched_slabs_equal_single_per_lane():
     pos[:, :9] = [[0.0, 0.0], [W - 1.0, H - 1.0], [W - 1.0, 0.0], [0.0, H - 1.0],
                   [W - r - 1.4, H / 2], [W / 2, H - r - 1.4], [r + 0.49, r + 0.51],
                   [W - 20.5, H - 20.5], [np.nan, np.nan]]
-    got = torb.extract_slabs(_t(img), _t(pos))
-    assert got.shape == (B, F, 31, 31)
+    valid = rng.uniform(size=(B, F)) < 0.8
+    got = torb._slabs_plain(_t(img), _t(pos))
+    desc = torb.describe(_t(img), _t(pos), _t(valid))
+    assert got.shape == (B, F, 31, 31) and desc.shape == (B, F, 8)
     for b in range(B):
         np.testing.assert_array_equal(got[b].numpy(), torb._slabs_plain(_t(img[b]), _t(pos[b])).numpy())
-    assert torb.extract_slabs.launches == 0 and torb.extract_slabs.launches_batched == 0
+        assert torch.equal(desc[b], torb.describe(_t(img[b]), _t(pos[b]), _t(valid[b])))
+    assert not desc[~_t(valid)].any()
+    assert torb.describe.launches == 0 and torb.describe.launches_batched == 0
 
 
 def test_batched_prng_matches_vmap():

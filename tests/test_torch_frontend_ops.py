@@ -6,10 +6,16 @@ atol for near-zero gradients); nms, grid_topk (ties included), descriptor
 bits, the PRNG and RANSAC inliers exact; the plain LK (K1's plain version)
 within 1e-3 px of ``lk_track`` with >= 99% valid agreement, and within the
 Pallas kernel's own gate (tests/test_lk_pallas.py::_check_parity) of the
-kernel run in interpret mode; ORB slabs (K2's plain version) exact against
-the Pallas kernel in interpret mode. Kernel-vs-plain on the card:
-tests/test_torch_cuda.py and chip_smoke.py.
+kernel run in interpret mode; ORB slabs (the plain slab function that the
+plain ``describe`` cuts with) exact against the Pallas kernel in interpret
+mode; the describe kernel's premise, that blurring each clamped 35x35 raw
+window in the kernel's order equals the crop of the whole-image blur, bit
+for bit; the kernel's pattern header equal to ``_PAT``. Kernel-vs-plain on
+the card: tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+from pathlib import Path
+
 
 import jax
 import jax.numpy as jnp
@@ -260,9 +266,64 @@ def _slab_problem(rng, H, W, F):
 def test_orb_slabs_plain_vs_pallas_interpret(rng, size):
     img, pos = _slab_problem(rng, *size)
     ref = np.asarray(jorb._slabs_pallas_impl(jnp.asarray(img), jnp.asarray(pos), interpret=True))
-    got = torb.extract_slabs(_t(img), _t(pos)).numpy()
+    got = torb._slabs_plain(_t(img), _t(pos)).numpy()
     finite = np.isfinite(pos).all(axis=1)
     assert got.shape == (size[2], 31, 31)
     np.testing.assert_array_equal(got[finite], ref[finite])
     np.testing.assert_array_equal(got[finite], np.asarray(jorb._slabs_xla(jnp.asarray(img), jnp.asarray(pos)))[finite])
-    assert torb.extract_slabs.launches == 0
+    desc = torb.describe(_t(img), _t(pos), torch.ones(size[2], dtype=torch.bool))
+    assert desc.shape == (size[2], 8)
+    assert torb.describe.launches == 0 and torb.describe.launches_batched == 0  # CPU: plain
+
+
+def _window_blur(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The describe kernel's blurred slabs, in PyTorch: per slot the raw 35x35
+    window around the slab at round(pos) (NaN -> 0, centre clamped to
+    [15, W-16], rows and columns clamped to the image), blurred vertically
+    then horizontally, each pass k0*p0 + k1*p1 + ... as the kernel sums it."""
+    H, W = img.shape[-2:]
+    r = torb._r
+    k = [float(np.float32(v) / np.float32(16.0)) for v in (1.0, 4.0, 6.0, 4.0, 1.0)]
+    c = torch.round(torch.nan_to_num(pos, nan=0.0))
+    rx = torch.clamp(c[..., 0], r, W - r - 1).long()
+    ry = torch.clamp(c[..., 1], r, H - r - 1).long()
+    off = torch.arange(2 * r + 5)
+    rows = torch.clamp(ry[..., None] - r - 2 + off, 0, H - 1)
+    cols = torch.clamp(rx[..., None] - r - 2 + off, 0, W - 1)
+    raw = timg.gather_pixels(img, rows[..., :, None] * W + cols[..., None, :])  # (..., F, 35, 35)
+    n = 2 * r + 1
+    v = raw[..., 0:n, :] * k[0]
+    for i in range(1, 5):
+        v = v + raw[..., i:i + n, :] * k[i]
+    h = v[..., 0:n] * k[0]
+    for i in range(1, 5):
+        h = h + v[..., i:i + n] * k[i]
+    return h
+
+
+@pytest.mark.parametrize("lanes", [0, 3])
+def test_describe_window_blur_equals_full_blur(rng, lanes):
+    """Single image and 3 lanes: the blur of each clamped raw window equals
+    the crop of the whole-image blur bit for bit, at every clamp, edge, inf
+    and NaN position of the slab tests."""
+    H, W, F = 60, 90, 24
+    probs = [_slab_problem(rng, H, W, F) for _ in range(max(lanes, 1))]
+    for img_, pos_ in probs:
+        pos_[9:12] = [[np.inf, -np.inf], [1e9, -1e9], [-np.inf, np.nan]]
+    img = _t(np.stack([p[0] for p in probs]) if lanes else probs[0][0])
+    pos = _t(np.stack([p[1] for p in probs]) if lanes else probs[0][1])
+    got = _window_blur(img, pos)
+    want = torb._slabs_plain(torb._desc_blur(img), pos)
+    assert got.shape == want.shape == (*img.shape[:-2], F, 31, 31)
+    assert torch.equal(got, want)
+
+
+def test_orb_pattern_header_is_current():
+    """csrc/orb_pattern.cuh is pattern_header()'s output and reads back as _PAT."""
+    path = Path(torb.__file__).resolve().parent.parent / "csrc" / "orb_pattern.cuh"
+    text = path.read_text()
+    assert text == torb.pattern_header()
+    body = text.split("= {", 1)[1]
+    vals = np.array([float(v.rstrip("f")) for v in body.replace("{", " ").replace("}", " ")
+                     .replace(";", " ").replace(",", " ").split()], np.float32)
+    np.testing.assert_array_equal(vals.reshape(torb.N_BITS, 4), torb._PAT)

@@ -10,7 +10,9 @@ Runs the slice's main path (pure-MSCKF ``VioConfig``, 752x480, the clean
   synchronize on both sides (so their sum exceeds the pipelined frame time);
 * a ``torch.profiler`` window over 20 steady frames: device busy time per
   frame, the device's idle share, kernel launches per frame, and the top
-  kernels by device time (the full table goes to ``--out``).
+  kernels by device time (the full table goes to ``--out``);
+* the descriptor pass alone: one steady frame's ``describe`` call replayed
+  50 times under the profiler, its device time and kernel launches per call.
 
 With ``--fleet B`` the same frames go to B instances at once (lane b > 0
 with 2-gray-level image noise seeded by b) through the batched step, and
@@ -140,6 +142,35 @@ def main() -> int:
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {tot / 1e3 / n_win:9.4f} ms/frame  {cnt / n_win:7.1f} launches/frame  {name[:100]}")
+
+    # the descriptor pass alone: replay one frame's describe() call under the profiler
+    from larvio_tpu_torch.models import frontend
+    from larvio_tpu_torch.ops import orb
+
+    seen = []
+
+    def spy(*a):
+        seen.append(a)
+        return orb.describe(*a)
+
+    frontend.describe = spy
+    ps = init_fleet_pipeline_state(cfg, B, dev) if B else init_pipeline_state(cfg, dev)
+    for fr in frames[:window[0] + 1]:
+        ps, _ = pipeline_step(cfg, ps, fr)
+    frontend.describe = orb.describe
+    args = seen[window[0]]
+    n_rep = 50
+    for _ in range(3):
+        orb.describe(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as dprof:
+        for _ in range(n_rep):
+            orb.describe(*args)
+        torch.cuda.synchronize()
+    dk = [e for e in dprof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"describe (frame {window[0]}'s inputs, {n_rep} calls): "
+          f"{sum(e.time_range.elapsed_us() for e in dk) / 1e3 / n_rep:.4f} ms device time and "
+          f"{len(dk) / n_rep:.1f} kernel launches per {what}", flush=True)
     print(card, flush=True)
     return 0
 
