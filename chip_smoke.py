@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (``larvio_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py
 
 Phases, each raising on failure (the script then exits non-zero):
 
@@ -35,8 +35,6 @@ launches), the time a caller pays per wrapper call, host work included
 (the larger of the bytes it must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs) and
 ``library_ms`` (null: no one PyTorch call computes LK or the descriptor).
-``--kernels-only`` runs phases 0-2b and 5 alone (for A/B runs of two trees
-in one call) and prints no contract line.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -143,8 +141,8 @@ def _describe_bound(img, pos, valid):
     """Describe bound from this run's inputs, img (..., H, W), pos (..., F, 2),
     valid (..., F). Bytes: per lane, the distinct raw pixels that the valid
     slots' clamped 35x35 windows (the 31x31 slab and the blur's 2-pixel
-    apron) cover, read once; positions (8 B) and mask (1 B) in and 32 B of
-    descriptor out per slot. Operations per valid slot: the two blur passes
+    apron) cover, read once; the mask (1 B) in and 32 B of descriptor out
+    per slot, and the position (8 B) of each valid slot. Operations per valid slot: the two blur passes
     (31x35 and 31x31 outputs, 5 products and 4 sums each), the moments (a
     product and a sum for m10 and for m01 per disc pixel) and the 256 tests
     (8 products, 4 sums and a comparison each)."""
@@ -158,7 +156,8 @@ def _describe_bound(img, pos, valid):
         n_read += _covered_px(x0 - 2, y0 - 2, 31 + 4, H, W)
     n_slots = pos_l.shape[0] * F
     per_slot = (31 * 35 + 31 * 31) * 9 + int(_CIRC.sum()) * 4 + N_BITS * 13
-    return _bound(4 * n_read + n_slots * (8 + 1 + 32), int(ok_l.sum()) * per_slot)
+    n_valid = int(ok_l.sum())
+    return _bound(4 * n_read + n_valid * 8 + n_slots * (1 + 32), n_valid * per_slot)
 
 
 def _describe_gate(got, ref, mask):
@@ -626,7 +625,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card):
     return launches
 
 
-def main(kernels_only: bool = False) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -648,11 +647,6 @@ def main(kernels_only: bool = False) -> int:
     sim = Simulator(SimConfig(duration=8.0), cfg)
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
     timings = phase_kernels(dev, sim, rend) + phase_kernels_batched(dev, sim, rend)
-    if kernels_only:  # phases 0-2b and the timing alone, for A/B runs of two trees
-        kernels = phase_timing(timings)
-        print(card, flush=True)
-        print(json.dumps({"kernels": kernels}), flush=True)
-        return 0
 
     data = sim.generate()
     t0 = time.perf_counter()
@@ -674,4 +668,4 @@ def main(kernels_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(kernels_only="--kernels-only" in sys.argv[1:]))
+    sys.exit(main())

@@ -39,7 +39,8 @@
 //   * At each level a 32x32 tile of `curr` around the level's starting
 //     estimate is copied to shared memory (cp.async, one column per lane);
 //     the iterations read their taps from it, and from global memory only
-//     when the estimate leaves the tile (a warp-uniform branch). The tile's
+//     when the estimate leaves the tile (a warp-uniform branch); this
+//     measured faster than reading every tap from global memory. The tile's
 //     row stride is 47 (= 15 mod 32), so a warp's 32 pixels of a 15-wide
 //     patch fall in 32 different banks. (Staging the next level's tile
 //     speculatively during this level's iterations, into a second buffer,
@@ -50,36 +51,18 @@
 // K3 is the same kernel with grid (ceil(F / LK_WARPS), B): blockIdx.y picks
 // the lane, whose pyramid levels sit at b * H_l * W_l in contiguous
 // (B, H_l, W_l) arrays and whose table at b * F. At B = 8, 1,600 warps.
-// Compile with -DLK_NO_TILE to read every tap from global memory instead of
-// the tile, -DLK_WARPS=n for n features per block, or -DLK_STATS to count
-// iterations, tile hits and per-phase clock cycles into lk_stats (read by
-// larvio_lk_stats); the A/B runs of tools/torch_lk_ab.py use them.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define LK_MAX_LEVELS 8
-#ifndef LK_WARPS
 #define LK_WARPS 4                 // features (warps) per block
-#endif
 #define LK_THREADS (32 * LK_WARPS)
 #define LK_PX 8                    // patch pixels per lane: ceil(15 * 15 / 32)
 #define LK_WIN 16                  // template window side: patch + 1 <= 16
 #define LK_TILE 32                 // curr tile side: the 16x16 slab and an 8-pixel margin
 #define LK_MARGIN 8
 #define LK_TILE_S 47               // tile row stride (floats), 15 mod 32: conflict-free taps
-
-#ifdef LK_STATS
-// iterations, tile hits, global reads, tracked warps, cycles: staging waits,
-// iterations, templates, whole warp; the slowest warp's cycles
-__device__ unsigned long long lk_stats[9];
-#define LK_CLOCK(v) const long long v = clock64()
-#define LK_ADD(i, x) \
-  if (lane == 0) atomicAdd(&lk_stats[i], (unsigned long long)(x))
-#else
-#define LK_CLOCK(v)
-#define LK_ADD(i, x)
-#endif
 
 struct LkPyramid {
   const float* prev[LK_MAX_LEVELS];
@@ -230,7 +213,6 @@ lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
     return;
   }
 
-  LK_CLOCK(t_start);
   const int r = patch / 2, npx = patch * patch;
   const float n_px = (float)npx;
   const float margin = (float)(patch / 2 + 1);
@@ -284,20 +266,13 @@ lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
     float ifx, ify;
     slab_origin(px * scale + flow_x * scale, py * scale + flow_y * scale, H, W, r, &ix0, &iy0,
                 &ifx, &ify);
-#ifndef LK_NO_TILE
     stage_tile(pyr.curr[top] + b * (size_t)H * (size_t)W, H, W, ix0, iy0, tile, lane, &tx0, &ty0,
                &tw, &th);
-#endif
     cp_async_commit();
     cp_async_wait<0>();
     __syncwarp();
-    LK_CLOCK(t_staged);
-    LK_ADD(4, t_staged - t_start);
     load_template();
-    LK_CLOCK(t_template);
-    LK_ADD(6, t_template - t_staged);
   }
-  int n_hit = 0, n_miss = 0;
 
   for (int lvl = top; lvl >= 0; --lvl) {
     const int H = pyr.H[lvl], W = pyr.W[lvl];
@@ -307,23 +282,18 @@ lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
     float dx = flow_x * scale, dy = flow_y * scale;
 
     __syncwarp();  // every lane is done with the previous tile and windows
-    LK_CLOCK(t_level);
-#ifndef LK_NO_TILE
     if (lvl < top) {
       int ix0, iy0;
       float ifx, ify;
       slab_origin(cx + dx, cy + dy, H, W, r, &ix0, &iy0, &ifx, &ify);
       stage_tile(curr, H, W, ix0, iy0, tile, lane, &tx0, &ty0, &tw, &th);
     }
-#endif
     cp_async_commit();
     float nfx = 0.f, nfy = 0.f;  // the next level's template, copied while this one iterates
     if (lvl > 0) stage_template(pyr, b, lvl - 1, px, py, r, win, lane, &nfx, &nfy);
     cp_async_commit();
     cp_async_wait<1>();  // this level's tile has landed; the windows may still be in flight
     __syncwarp();
-    LK_CLOCK(t_tile);
-    LK_ADD(4, t_tile - t_level);
 
     int oglob[LK_PX];  // this lane's pixel offsets in the level
 #pragma unroll
@@ -346,10 +316,8 @@ lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
       if (ix0 >= tx0 && ix0 + patch < tx0 + tw && iy0 >= ty0 && iy0 + patch < ty0 + th) {
         residual_sums(tile + (iy0 - ty0) * LK_TILE_S + (ix0 - tx0), LK_TILE_S, otile, w, T, GX,
                       GY, msk, &sa, &sx, &sy);  // warp-uniform branch
-        ++n_hit;
       } else {
         residual_sums(curr + iy0 * W + ix0, W, oglob, w, T, GX, GY, msk, &sa, &sx, &sy);
-        ++n_miss;
       }
       sa = warp_sum(sa);
       sx = warp_sum(sx);
@@ -364,8 +332,6 @@ lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
       }
       done = stop;
     }
-    LK_CLOCK(t_iter);
-    LK_ADD(5, t_iter - t_tile);
     const bool inb = (cx + dx >= 1.f) && (cx + dx <= (float)W - 2.f) && (cy + dy >= 1.f) &&
                      (cy + dy <= (float)H - 2.f);
     const bool new_ok = lvl_ok && inb;
@@ -382,20 +348,8 @@ lk_track_kernel(LkPyramid pyr, int n_feat, const float* __restrict__ pos,
       tfx = nfx;
       tfy = nfy;
       load_template();
-      LK_CLOCK(t_next);
-      LK_ADD(6, t_next - t_iter);
     }
   }
-  LK_ADD(0, n_hit + n_miss);
-  LK_ADD(1, n_hit);
-  LK_ADD(2, n_miss);
-  LK_ADD(3, 1);
-#ifdef LK_STATS
-  const long long t_end = clock64();
-  LK_ADD(7, t_end - t_start);
-  if (lane == 0) atomicMax(&lk_stats[8], (unsigned long long)(t_end - t_start));
-#endif
-
   if (lane == 0) {
     out_pos[2 * slot] = px + flow_x;
     out_pos[2 * slot + 1] = py + flow_y;
@@ -449,12 +403,3 @@ extern "C" int larvio_lk_track_batched(const void* const* prev, const void* cons
   return (int)cudaGetLastError();
 }
 
-#ifdef LK_STATS
-// Copy lk_stats (9 counters) to host memory `out` and zero them.
-extern "C" int larvio_lk_stats(unsigned long long* out) {
-  static const unsigned long long zero[9] = {0};
-  cudaMemcpyFromSymbol(out, lk_stats, sizeof(zero));
-  cudaMemcpyToSymbol(lk_stats, zero, sizeof(zero));
-  return (int)cudaGetLastError();
-}
-#endif

@@ -26,9 +26,10 @@
 //   3. the intensity centroid m10, m01 over the radius-15 disc (per-thread
 //      sums, warp shuffles, 8 warp partials added in one order by every
 //      thread), then atan2f, cosf, sinf (the accurate functions);
-//   4. thread t runs test t: both points rotated with the plain version's
-//      expression order, rounded half-to-even, offset by 15, clamped to
-//      [0, 30], compared a < b on the blurred slab;
+//   4. thread t runs test t of the pattern (ops/orb.py::_PAT, which the
+//      wrapper passes as a device array): both points rotated with the plain
+//      version's expression order, rounded half-to-even, offset by 15,
+//      clamped to [0, 30], compared a < b on the blurred slab;
 //   5. __ballot_sync packs warp w's 32 tests into word w (bit j = test
 //      32w + j); invalid slots write 0.
 // Only the moment sums run in another order than torch.sum, so a rotated
@@ -41,8 +42,7 @@
 
 #include <cuda_runtime.h>
 
-#include "orb_pattern.cuh"
-
+#define ORB_BITS 256
 #define ORB_PATCH 31
 #define ORB_R (ORB_PATCH / 2)
 #define ORB_WIN (ORB_PATCH + 4)  // the slab and the blur's 2-pixel apron
@@ -68,7 +68,7 @@ __device__ __forceinline__ float blur5(const float* p, int s) {
 __global__ void __launch_bounds__(ORB_THREADS)
 orb_describe_kernel(const float* __restrict__ img, int H, int W, int n_feat,
                     const float* __restrict__ pos, const unsigned char* __restrict__ valid,
-                    unsigned* __restrict__ out) {
+                    const float4* __restrict__ pat, unsigned* __restrict__ out) {
   __shared__ float raw[ORB_WIN * ORB_WIN];
   __shared__ float vert[ORB_PATCH * ORB_WIN];
   __shared__ float slab[ORB_PATCH * ORB_PATCH];
@@ -130,7 +130,7 @@ orb_describe_kernel(const float* __restrict__ img, int H, int W, int n_feat,
   const float c = cosf(th), s = sinf(th);
 
   // 4. test t: a = rot(pat[t].xy), b = rot(pat[t].zw), as the plain version
-  const float4 p = ORB_PAT[t];
+  const float4 p = pat[t];
   const float ax = __fsub_rn(__fmul_rn(p.x, c), __fmul_rn(p.y, s));
   const float ay = __fadd_rn(__fmul_rn(p.x, s), __fmul_rn(p.y, c));
   const float bx = __fsub_rn(__fmul_rn(p.z, c), __fmul_rn(p.w, s));
@@ -148,16 +148,18 @@ orb_describe_kernel(const float* __restrict__ img, int H, int W, int n_feat,
 
 // Plain C entry point (bound with ctypes); see lk.cu for the conventions.
 // img (B, H, W) float32, pos (B, n_feat, 2) float32, valid (B, n_feat) bool
-// (one byte each), out (B, n_feat, 8) 32-bit words, all contiguous,
+// (one byte each), pat (256, 4) float32 test pairs (ax, ay, bx, by), 16-byte
+// aligned, out (B, n_feat, 8) 32-bit words, all contiguous on the device,
 // B = n_lanes; one launch for all lanes (n_lanes = 1: one image).
 extern "C" int larvio_orb_describe(const void* img, int n_lanes, int H, int W, const void* pos,
-                                   const void* valid, int n_feat, void* out, void* stream) {
+                                   const void* valid, int n_feat, const void* pat, void* out,
+                                   void* stream) {
   if (H < ORB_PATCH || W < ORB_PATCH || n_feat < 0 || n_lanes < 0 || n_lanes > 65535)
     return (int)cudaErrorInvalidValue;
   if (n_feat == 0 || n_lanes == 0) return 0;
   const dim3 grid(n_feat, n_lanes);
   orb_describe_kernel<<<grid, ORB_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)img, H, W, n_feat, (const float*)pos, (const unsigned char*)valid,
-      (unsigned*)out);
+      (const float4*)pat, (unsigned*)out);
   return (int)cudaGetLastError();
 }

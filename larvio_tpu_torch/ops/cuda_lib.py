@@ -3,13 +3,10 @@
 The kernels are compiled at first use with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
 plain C interface, under ``larvio_tpu_torch/_build/`` (git-ignored), and
-loaded with ``ctypes``. The library name carries a hash of the sources
-(``*.cu`` and the headers ``*.cuh``) and flags, so an edited kernel rebuilds
-and an unchanged one is reused. ``DEFINES`` adds ``-D`` macros to the
-library that ``library()`` returns (a variant for an A/B run, e.g.
-``LK_NO_TILE``); it is empty on every path of the port. Nothing here runs at
-import time: this module imports on hosts without ``nvcc``. A build failure
-raises; there is no fallback.
+loaded with ``ctypes``. The library name carries a hash of the sources and
+flags, so an edited kernel rebuilds and an unchanged one is reused. Nothing
+here runs at import time: this module imports on hosts without ``nvcc``.
+A build failure raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -31,8 +28,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-DEFINES: tuple = ()
-_libs: dict = {}  # DEFINES -> loaded library
+_lib = None
 build_info: dict = {}  # {"path", "seconds", "log", "reused"} of the last build
 
 
@@ -47,12 +43,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def build(defines: tuple = ()) -> Path:
+def build() -> Path:
     """Compile csrc/*.cu into the shared library (or reuse an up-to-date one)."""
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     srcs = sorted(SRC_DIR.glob("*.cu"))
-    h = hashlib.sha256(" ".join(flags).encode())
-    for s in sorted(SRC_DIR.glob("*.cu*")):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"liblarvio_kernels_{h.hexdigest()[:16]}.so"
@@ -64,7 +59,7 @@ def build(defines: tuple = ()) -> Path:
             build_info.update(path=str(out), seconds=time.perf_counter() - t0, log="", reused=True)
             return out
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, srcs)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -79,9 +74,10 @@ def build(defines: tuple = ()) -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built with ``DEFINES``), built on first call."""
-    if DEFINES not in _libs:
-        lib = ctypes.CDLL(str(build(DEFINES)))
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.larvio_lk_track_batched.argtypes = [
             vp, vp, vp, vp, vp, vp, i32,  # image pointer arrays, heights, widths, levels
@@ -92,11 +88,11 @@ def library() -> ctypes.CDLL:
         lib.larvio_lk_track_batched.restype = i32
         lib.larvio_orb_describe.argtypes = [
             vp, i32, i32, i32,  # img, lanes, H, W
-            vp, vp, i32, vp, vp,  # pos, valid, n_feat per lane, out, stream
+            vp, vp, i32, vp, vp, vp,  # pos, valid, n_feat per lane, pattern, out, stream
         ]
         lib.larvio_orb_describe.restype = i32
-        _libs[DEFINES] = lib
-    return _libs[DEFINES]
+        _lib = lib
+    return _lib
 
 
 def check(code: int, name: str) -> None:

@@ -3,11 +3,11 @@
 (``csrc/orb_describe.cu``).
 
 The test pattern and centroid grids are the JAX module's (same seed, same
-numpy draw); the kernel reads the pattern from ``csrc/orb_pattern.cuh``,
-which ``pattern_header()`` writes. Descriptor words are stored as int32 BIT
-PATTERNS of the JAX package's uint32 words (PyTorch's uint32 supports few
-ops); the converter reinterprets, never casts. ``hamming`` popcounts with
-bit arithmetic. Images may carry a leading instance axis (B, H, W) with
+numpy draw); the wrapper passes the pattern to the kernel as a device
+array. Descriptor words are stored as int32 BIT PATTERNS of the JAX
+package's uint32 words (PyTorch's uint32 supports few ops); the converter
+reinterprets, never casts. ``hamming`` popcounts with bit arithmetic.
+Images may carry a leading instance axis (B, H, W) with
 tables (B, F, ...): ``describe`` then launches the kernel once for all lanes.
 """
 
@@ -35,18 +35,6 @@ _yy, _xx = np.mgrid[-_r : _r + 1, -_r : _r + 1]
 _CIRC = (_xx**2 + _yy**2 <= _r**2).astype(np.float32)
 _XGRID = (_xx * _CIRC).astype(np.float32)
 _YGRID = (_yy * _CIRC).astype(np.float32)
-
-
-def pattern_header() -> str:
-    """The text of ``csrc/orb_pattern.cuh``: ``_PAT`` as a device table of
-    float4 (ax, ay, bx, by), each value the shortest decimal that reads back
-    as the same float32."""
-    rows = ",\n".join("  {" + ", ".join(str(np.float32(v)) + "f" for v in row) + "}" for row in _PAT)
-    return ("// The ORB test pattern larvio_tpu_torch/ops/orb.py::_PAT, written by\n"
-            "// ops/orb.py::pattern_header(); do not edit by hand.\n"
-            "#pragma once\n\n"
-            f"#define ORB_BITS {N_BITS}\n\n"
-            f"__device__ const float4 ORB_PAT[ORB_BITS] = {{\n{rows}}};\n")
 
 
 def slab_index(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -143,7 +131,8 @@ def describe(img: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> torch
     out = torch.empty(lead + (F, N_WORDS), dtype=torch.int32, device=img.device)
     code = cuda_lib.library().larvio_orb_describe(
         img.data_ptr(), lead[0] if lead else 1, H, W, pos_c.data_ptr(), valid_c.data_ptr(), F,
-        out.data_ptr(), torch.cuda.current_stream(img.device).cuda_stream)
+        device_array(_PAT, img.device).data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(img.device).cuda_stream)
     cuda_lib.check(code, "describe (batched)" if lead else "describe")
     if lead:
         describe.launches_batched += 1

@@ -10,12 +10,9 @@ kernel run in interpret mode; ORB slabs (the plain slab function that the
 plain ``describe`` cuts with) exact against the Pallas kernel in interpret
 mode; the describe kernel's premise, that blurring each clamped 35x35 raw
 window in the kernel's order equals the crop of the whole-image blur, bit
-for bit; the kernel's pattern header equal to ``_PAT``. Kernel-vs-plain on
-the card: tests/test_torch_cuda.py and chip_smoke.py.
+for bit; the pattern and centroid tables equal to the JAX module's.
+Kernel-vs-plain on the card: tests/test_torch_cuda.py and chip_smoke.py.
 """
-
-from pathlib import Path
-
 
 import jax
 import jax.numpy as jnp
@@ -318,12 +315,11 @@ def test_describe_window_blur_equals_full_blur(rng, lanes):
     assert torch.equal(got, want)
 
 
-def test_orb_pattern_header_is_current():
-    """csrc/orb_pattern.cuh is pattern_header()'s output and reads back as _PAT."""
-    path = Path(torb.__file__).resolve().parent.parent / "csrc" / "orb_pattern.cuh"
-    text = path.read_text()
-    assert text == torb.pattern_header()
-    body = text.split("= {", 1)[1]
-    vals = np.array([float(v.rstrip("f")) for v in body.replace("{", " ").replace("}", " ")
-                     .replace(";", " ").replace(",", " ").split()], np.float32)
-    np.testing.assert_array_equal(vals.reshape(torb.N_BITS, 4), torb._PAT)
+def test_orb_pattern_table_matches_jax():
+    """The tables the describe kernel and its plain version read: the test
+    pattern (passed to the kernel as 256 float4 pairs, so (256, 4) float32,
+    C-contiguous) and the centroid grids are the JAX module's, bit for bit."""
+    assert torb._PAT.shape == (torb.N_BITS, 4) and torb._PAT.dtype == np.float32
+    assert torb._PAT.flags.c_contiguous
+    for mine, ref in ((torb._PAT, jorb._PAT), (torb._XGRID, jorb._XGRID), (torb._YGRID, jorb._YGRID)):
+        np.testing.assert_array_equal(mine, np.asarray(ref))
