@@ -16,14 +16,21 @@ Phases, each raising on failure (the script then exits non-zero):
    batched describe launch against the plain version per lane and against
    the one-lane launch;
 3. main path: 160 rendered frames of the clean 8 s simulator workload through
-   ``pipeline_step`` at full EuRoC width in the pure-MSCKF configuration;
-   checks initialization, resets, finiteness, track counts, ATE and that
+   ``pipeline_step`` at full EuRoC width in the default configuration
+   (``VioConfig()``: 6 SLAM slots, D = 160, the hybrid SLAM/MSCKF update);
+   checks initialization, resets, finiteness, track counts, ATE, that SLAM
+   features entered the state (``n_slam`` >= 3 at some frame) and that
    every frame launched K1 and the describe kernel once;
 4. fleet path: the same 160 frames for 8 instances at once (lanes 1-7 with
    their own image noise, lane 7 with 1 s of NaN accelerometer samples)
-   through ``run_fleet_image_sequence``; checks every lane's health, lane
-   isolation, the fleet metrics and that every frame launched K3 and the
-   batched describe kernel once for all lanes, and no one-lane kernel;
+   through ``run_fleet_image_sequence``, default configuration; checks every
+   lane's health, lane 0's SLAM engagement and its ATE against the single
+   path's, that the NaN lane holds no SLAM slot on its reset frames, the
+   fleet metrics and that every frame launched K3 and the batched describe
+   kernel once for all lanes, and no one-lane kernel;
+4b. the pure-MSCKF configuration (``max_slam_features=0``, D = 142): the
+   single path of phase 3 and the 8-lane fleet of phase 4 with the same
+   gates, SLAM aside;
 5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
    version at the same shapes (after phases 3 and 4: a process that has run
    ``torch.profiler`` launches every later kernel more slowly).
@@ -514,10 +521,17 @@ def _health(o, gt_p, lane: str, resets_ok: bool = False):
     return ate, mean_tracks, int(m.sum())
 
 
-_OUT_KEYS = ("p", "q", "v", "initialized", "did_reset", "n_tracks", "p_std")
+_OUT_KEYS = ("p", "q", "v", "initialized", "did_reset", "n_tracks", "n_slam", "p_std")
+SLAM_GATE = 3  # in-state SLAM features at some frame (tests/test_slam.py's engagement gate)
 
 
-def phase_main_path(dev, cfg, data, imgs, card):
+def _slam_gate(o, lane: str) -> int:
+    n = int(o["n_slam"].max())
+    assert n >= SLAM_GATE, f"{lane}: at most {n} in-state SLAM features (gate {SLAM_GATE})"
+    return n
+
+
+def phase_main_path(dev, cfg, data, imgs, card, label="main path"):
     T = imgs.shape[0]
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
     frames = [
@@ -549,16 +563,19 @@ def phase_main_path(dev, cfg, data, imgs, card):
         assert launches[name] == 0, f"{name}: {launches[name]} launches on the single-instance path"
 
     o = {k: torch.stack([getattr(x, k) for x in outs]).cpu().numpy() for k in _OUT_KEYS}
-    ate, mean_tracks, n_init = _health(o, data["gt_p"], "main path")
-    print(f"main path: {T} frames, {n_init} initialized, 0 resets, mean n_tracks "
-          f"{mean_tracks:.2f}, ATE {ate:.5f} m (gate {ATE_GATE}); {T / wall:.3f} fps, "
+    ate, mean_tracks, n_init = _health(o, data["gt_p"], label)
+    slam = ""
+    if cfg.filter.max_slam_features:
+        slam = f", n_slam max {_slam_gate(o, label)} mean {o['n_slam'][o['initialized']].mean():.2f}"
+    print(f"{label}: {T} frames, {n_init} initialized, 0 resets, mean n_tracks "
+          f"{mean_tracks:.2f}{slam}, ATE {ate:.5f} m (gate {ATE_GATE}); {T / wall:.3f} fps, "
           f"{1e3 * wall / T:.3f} ms/frame (warm-up run {warm_s:.3f} s) on {card}", flush=True)
     return launches, ate
 
 
-def phase_fleet(dev, cfg, data, imgs, single_ate, card):
-    """B_FLEET instances through one batched image step per frame."""
-    B, T = B_FLEET, imgs.shape[0]
+def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path"):
+    """B instances through one batched image step per frame."""
+    T = imgs.shape[0]
     bimgs = torch.empty((T, B, *imgs.shape[1:]), dtype=torch.float32, device=dev)
     bimgs[:, 0] = imgs  # lane 0: the main path's frames unchanged
     for b in range(1, B):  # 2-gray-level sensor noise of each lane's own seed
@@ -601,25 +618,32 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card):
     gt_p = data["gt_p"]
     ates, tracks = [], []
     for b in range(B - 1):
-        ate, mean_tracks, _ = _health({k: v[:, b] for k, v in o.items()}, gt_p, f"fleet lane {b}")
+        ate, mean_tracks, _ = _health({k: v[:, b] for k, v in o.items()}, gt_p, f"{label} lane {b}")
         ates.append(ate)
         tracks.append(mean_tracks)
     assert abs(ates[0] - single_ate) < 0.002, \
-        f"fleet lane 0 ATE {ates[0]:.5f} m vs single-instance {single_ate:.5f} m"
+        f"{label} lane 0 ATE {ates[0]:.5f} m vs single-instance {single_ate:.5f} m"
+    slam = ""
+    if cfg.filter.max_slam_features:
+        slam = f"; lane 0 n_slam max {_slam_gate({k: v[:, 0] for k, v in o.items()}, f'{label} lane 0')}"
     bad = {k: v[:, B - 1] for k, v in o.items()}
-    _, _, n_init_bad = _health(bad, gt_p, f"fleet lane {B - 1}", resets_ok=True)
-    n_resets_bad = int(bad["did_reset"].sum())
-    assert n_resets_bad >= 1, f"fleet lane {B - 1}: the NaN accelerometer caused no reset"
+    _, _, n_init_bad = _health(bad, gt_p, f"{label} lane {B - 1}", resets_ok=True)
+    reset_frames = bad["did_reset"].astype(bool)
+    n_resets_bad = int(reset_frames.sum())
+    assert n_resets_bad >= 1, f"{label} lane {B - 1}: the NaN accelerometer caused no reset"
+    assert not bad["n_slam"][reset_frames].any(), \
+        f"{label} lane {B - 1}: SLAM slots valid on a reset frame"
     fm = {k: v.cpu().numpy() for k, v in fleet_metrics(outs).items()}
     assert np.array_equal(fm["n_initialized"], o["initialized"].astype(np.int64).sum(1))
     assert np.array_equal(fm["n_resets"], o["did_reset"].astype(np.int64).sum(1))
     assert np.array_equal(fm["mean_tracks"], o["n_tracks"].astype(np.int64).sum(1))
-    print(f"fleet path: {B} lanes x {T} frames; lanes 0-{B - 2}: 0 resets, ATE "
+    print(f"{label}: {B} lanes x {T} frames; lanes 0-{B - 2}: 0 resets, ATE "
           f"{', '.join(f'{x:.5f}' for x in ates)} m, mean n_tracks "
-          f"{', '.join(f'{x:.1f}' for x in tracks)}; lane 0 vs single-instance ATE "
+          f"{', '.join(f'{x:.1f}' for x in tracks)}{slam}; lane 0 vs single-instance ATE "
           f"{abs(ates[0] - single_ate):.6f} m; lane {B - 1} (NaN accel): {n_resets_bad} resets, "
-          f"{n_init_bad} initialized frames, finite; fleet metrics match", flush=True)
-    print(f"fleet throughput: {B * T / wall:.3f} instance-frames/s aggregate, "
+          f"no SLAM slot on them, {n_init_bad} initialized frames, finite; fleet metrics match",
+          flush=True)
+    print(f"{label} throughput: {B * T / wall:.3f} instance-frames/s aggregate, "
           f"{1e3 * wall / T:.3f} ms per batched frame (warm-up run {warm_s:.3f} s) on {card}",
           flush=True)
     return launches
@@ -643,7 +667,8 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    cfg = VioConfig(filter=FilterConfig(max_slam_features=0))  # the pure-MSCKF slice
+    t_start = time.perf_counter()
+    cfg = VioConfig()  # the default configuration: 6 SLAM slots, D = 160
     sim = Simulator(SimConfig(duration=8.0), cfg)
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
     timings = phase_kernels(dev, sim, rend) + phase_kernels_batched(dev, sim, rend)
@@ -657,9 +682,13 @@ def main() -> int:
     launches, ate = phase_main_path(dev, cfg, data, imgs, card)
     launches.update({k: v for k, v in phase_fleet(dev, cfg, data, imgs, ate, card).items()
                      if k.endswith("_batched")})
+    pure = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM slots
+    _, pure_ate = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path")
+    phase_fleet(dev, pure, data, imgs, pure_ate, card, label="pure-MSCKF fleet")
     kernels = phase_timing(timings)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    print(f"command time {time.perf_counter() - t_start:.1f} s after the kernel build", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

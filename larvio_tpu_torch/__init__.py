@@ -9,9 +9,10 @@ with ``nvcc`` at first use and bound through ``ctypes``. A wrapper dispatches
 on the tensor's device: CPU tensors take the plain PyTorch version, CUDA
 tensors take the kernel.
 
-Covered: the pure-MSCKF configuration (``FilterConfig.max_slam_features ==
-0``), one instance or a fleet of B independent instances (every state leaf
-with a leading instance axis, ``parallel/fleet.py``). The configuration
+Covered: the hybrid SLAM/MSCKF filter in square-root covariance form (the
+default ``VioConfig``, and the pure-MSCKF ``max_slam_features == 0``), one
+instance or a fleet of B independent instances (every state leaf with a
+leading instance axis, ``parallel/fleet.py``). The configuration
 schema, the simulator and the ATE evaluation are the port's own modules
 (``config``, ``data.sim``, ``data.evaluate``). Nothing here imports JAX or
 the JAX package.

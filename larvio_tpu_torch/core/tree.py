@@ -88,7 +88,9 @@ def take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     """
     d = dim % x.dim()
     tail = x.shape[d + 1:]
-    idx = idx.expand(*x.shape[:d], idx.shape[-1])
+    # int64: gather misreads an expanded (stride-0) int32 index (the slots
+    # of the state are int32)
+    idx = idx.to(torch.int64).expand(*x.shape[:d], idx.shape[-1])
     return torch.gather(x, d, idx.reshape(idx.shape + (1,) * len(tail)).expand(*idx.shape, *tail))
 
 

@@ -1,13 +1,13 @@
-"""The per-frame filter step, pure-MSCKF configuration (port of
-``larvio_tpu/models/msckf.py``).
+"""The hybrid-MSCKF per-frame filter step (port of ``larvio_tpu/models/msckf.py``).
 
 Stage order as in the JAX package: static-init accumulation, IMU
 propagation, the vision-time gate, ZUPT detection, one dead-track + prune
-marginalization update, clone removal, augmentation + observation insertion,
-ZUPT update, online reset. Every data-dependent choice is a device-side
-select (``tree_where`` / ``torch.where``); only configuration branches are
-Python. The hybrid SLAM update (``max_slam_features > 0``) is not ported
-yet: ``filter_step`` raises for it.
+marginalization update, SLAM re-anchoring and clone removal, augmentation +
+observation insertion, the hybrid update (SLAM rows + the promotion
+candidates' consumed windows) followed by promotion, drop and
+relinearization of in-state SLAM features, ZUPT update, online reset. Every
+data-dependent choice is a device-side select (``tree_where`` /
+``torch.where``); only configuration branches (``S == 0``) are Python.
 
 Every leaf of the state, ``FrameFeatures`` and ``ImuBatch`` may carry a
 leading instance axis B (a fleet, ``parallel/fleet.py``). Reductions run over
@@ -25,6 +25,7 @@ from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import const
 from larvio_tpu_torch.core.tree import Struct, all_finite, take, take1, tree_where, where
 from larvio_tpu_torch.models import prune as prune_mod
+from larvio_tpu_torch.models import slam as slam_mod
 from larvio_tpu_torch.models.augmentation import add_observations, augment_state
 from larvio_tpu_torch.models.initializer import (
     InitAccumulator,
@@ -183,16 +184,51 @@ def _marginalization_blocks(cfg: VioConfig, fs: FilterState, feats: FrameFeature
     return H_stack, r_stack, n_accepted, dead
 
 
+def _consume_blocks(cfg: VioConfig, fs: FilterState, cand, wide):
+    """MSCKF blocks consuming promotion candidates' observation windows.
+
+    Selects candidate rows by window length: up to ``max_slam_features`` in
+    steady state, widened to ``bootstrap_consume_k`` on lanes where ``wide``
+    (a per-lane bool: high velocity uncertainty); the extra consumed windows retire as plain
+    MSCKF marginalization. The width is clamped to the feature table (the
+    JAX package's ``top_k`` rejects a width above it). Returns (blocks,
+    consumed rows (..., F), idx (..., K), triangulation, sel (..., K)): the
+    consumed rows retire this frame and the same set is promoted.
+    """
+    S = cfg.filter.max_slam_features
+    obs = fs.obs
+    F = obs.track_id.shape[-1]
+    K = min(max(S, cfg.filter.bootstrap_consume_k), F)
+    n_obs = torch.sum(obs.valid, dim=-1)
+    idx = top_k_indices(torch.where(cand, n_obs, -1), K)
+    sel = take(cand, idx, -1)
+    if K > S:
+        # top-k is count-ordered, so rank < S keeps exactly the slot-budget
+        # selection in steady state; bootstrap opens the full width
+        sel = sel & ((torch.arange(K, device=cand.device) < S) | wide[..., None])
+
+    uv_b = take(obs.uv, idx, -3)
+    mask_b = take(obs.valid, idx, -2) & sel[..., None]
+    tri = triangulate_batch(cfg, camera_window(fs), fs.clones.frame, uv_b, mask_b)
+    tri_ok = tri.valid & (tri.mean_err < _tri_err_bound(cfg, fs)[..., None])
+    # outlier rows trimmed: the promoted landmark's delayed init reads this block
+    mask_t = _trim_rows(cfg, tri, mask_b)
+    blocks = feature_block(cfg, fs, tri.p_w, uv_b, mask_t, tri_ok & sel)
+
+    sel = sel & blocks.accept  # only promoted if the block actually updated
+    consumed = torch.zeros_like(cand).scatter(-1, idx, sel)
+    return blocks, consumed, idx, tri, sel
+
+
 def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatch):
     """One frame. Returns (VioState, StepOutput)."""
-    if cfg.filter.max_slam_features > 0:
-        raise NotImplementedError(
-            "larvio_tpu_torch ports the pure-MSCKF configuration (max_slam_features=0); "
-            "the hybrid SLAM update is not ported yet"
-        )
+    if not cfg.filter.sqrt_form:
+        raise NotImplementedError("the port supports the square-root covariance form only")
     fs0 = vs.filter
     dtype, dev = fs0.P.dtype, fs0.P.device
     C = cfg.filter.max_clones
+    S = cfg.filter.max_slam_features
+    D = state_dim(cfg)
     fcfg = cfg.filter
     nb = fs0.time.dim()  # 0 for one instance, 1 for a fleet (B,)
 
@@ -227,27 +263,69 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
         cfg, fs, feats, slot_a, slot_b, do_prune
     )
     do_update = inited & (n_accepted > 0)
-    infl = cfg.noise.observation_noise**2 * fcfg.bootstrap_noise_inflation
-    obs_var = torch.where(
-        _high_vel_unc(cfg, fs),
-        max(infl, fcfg.bootstrap_noise_floor**2),
-        cfg.noise.observation_noise**2,
-    ).to(dtype)
-    # refactor=True: with S == 0 nothing later this frame re-squares the factor
-    fs, _, _ = apply_update(cfg, fs, H_stack, r_stack, obs_var[..., None], enable=do_update,
-                            refactor=True)
+    infl = max(cfg.noise.observation_noise**2 * fcfg.bootstrap_noise_inflation,
+               fcfg.bootstrap_noise_floor**2)
+
+    def obs_var(high_unc):  # measurement underweighting while velocity is uncertain
+        return torch.where(high_unc, infl, cfg.noise.observation_noise**2).to(dtype)[..., None]
+
+    # refactor=(S == 0): with SLAM slots the hybrid update below re-squares
+    # the factor (every consumer until then is a row op); without them
+    # nothing later this frame would
+    fs, _, _ = apply_update(cfg, fs, H_stack, r_stack, obs_var(_high_vel_unc(cfg, fs)),
+                            enable=do_update, refactor=(S == 0))
 
     fs = fs.replace(obs=fs.obs.replace(
         valid=fs.obs.valid & ~dead_rows[..., None],
         track_id=torch.where(dead_rows, -1, fs.obs.track_id),
     ))
+    # re-anchor SLAM features whose anchor clone is being pruned BEFORE its
+    # factor rows are zeroed (the transform reads them)
+    fs = slam_mod.reanchor_on_prune(cfg, fs, slot_a, slot_b, do_prune)
     fs = prune_mod.remove_clones(cfg, fs, slot_a, slot_b, do_prune)
 
     # ---- 5. augmentation + observation insertion ----------------------------
+    owned = slam_mod.slam_owned_rows(cfg, fs) if S > 0 else None
     do_augment = inited & t_reached & (torch.sum(fs.clones.valid, dim=-1) < C)
     last = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf), dim=-1)  # newest valid sample
     fs, slot = augment_state(cfg, fs, do_augment, take1(imu.w, last, -2) - fs.bg)
-    fs = add_observations(cfg, fs, slot, feats.ids, feats.uv, feats.valid)
+    fs = add_observations(cfg, fs, slot, feats.ids, feats.uv, feats.valid, slam_owned=owned)
+
+    # ---- 6. hybrid update: SLAM rows + promotion-consumption blocks ---------
+    if S > 0:
+        newest = torch.argmax(torch.where(fs.clones.valid, fs.clones.frame, -1), dim=-1)
+        slam_H, slam_r, slam_accept, slam_hard_fail = slam_mod.slam_measurement_blocks(
+            cfg, fs, feats, newest)
+        # promotion candidates: live tracks with at least the promotion count
+        # of window observations (bootstrap mode: bootstrap_min_obs)
+        promote_thresh = torch.where(_bootstrap_mode(cfg, fs), fcfg.bootstrap_min_obs,
+                                     fcfg.slam_promote_obs)
+        promote_cand = (feats.valid & (feats.ids == fs.obs.track_id) & ~owned
+                        & (fs.obs.track_id >= 0)
+                        & (torch.sum(fs.obs.valid, dim=-1) >= promote_thresh[..., None])
+                        & inited[..., None])
+        # the consume width and the underweighting both key on velocity
+        # uncertainty after the marginalizing update
+        high_unc_b = _high_vel_unc(cfg, fs)
+        blocks, consumed_rows, consume_idx, consume_tri, consumed_sel = _consume_blocks(
+            cfg, fs, promote_cand, high_unc_b)
+        H_b = torch.cat([slam_H, blocks.H.reshape(*slam_H.shape[:-2], -1, D)], dim=-2)
+        r_b = torch.cat([slam_r, blocks.r.reshape(*slam_r.shape[:-1], -1)], dim=-1)
+        n_acc_b = torch.sum(slam_accept, dim=-1) + torch.sum(blocks.accept, dim=-1)
+        enable_b = inited & (n_acc_b > 0)
+        fs, dx, upd_ok = apply_update(cfg, fs, H_b, r_b, obs_var(high_unc_b), enable=enable_b)
+
+        # ---- 7. SLAM lifecycle: promote consumed candidates, drop lost ------
+        # only through an update that was applied (finite and enabled): a
+        # rejected one leaves the pre-update factor and a dx to ignore. The
+        # anchor is the newest clone; consumed windows retire with it.
+        applied = (upd_ok & enable_b)[..., None]
+        fs = slam_mod.promote_features(cfg, fs, blocks, consume_tri, consume_idx,
+                                       consumed_sel & applied, dx, anchor_slot=newest)
+        fs = slam_mod.drop_lost(cfg, fs, feats, slam_hard_fail)
+        fs = slam_mod.relinearize_nulls(cfg, fs)
+        fs = fs.replace(obs=fs.obs.replace(
+            valid=fs.obs.valid & ~(consumed_rows & applied)[..., None]))
 
     # ---- 8. ZUPT update -----------------------------------------------------
     fs = zupt_update(cfg, fs, stationary)

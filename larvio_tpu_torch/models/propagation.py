@@ -30,6 +30,7 @@ from larvio_tpu_torch.models.state import (
     IDX_V,
     IMU_DIM,
     FilterState,
+    slam_offset,
 )
 
 
@@ -192,7 +193,8 @@ def propagate(cfg: VioConfig, fs: FilterState, imu: ImuBatch, t_target_img: torc
     S_after = torch.cat([R_suffix[..., 1:, :, :], eye15.expand(*lead, 1, IMU_DIM, IMU_DIM)], dim=-3)
     Q_acc = torch.sum(mm(mm(S_after, Qd_s), S_after.transpose(-1, -2)), dim=-3)
 
-    P = _apply_frame_transition(fs.P, Phi_acc, Q_acc)
+    P = _apply_frame_transition(cfg, fs.P, Phi_acc, Q_acc,
+                                _slam_frame_noise(cfg, fs, torch.sum(dt, dim=-1)))
 
     q_new = quat_normalize(q_chain[..., -1, :])
     # the time integration actually REACHED (an IMU blackout must stay visible
@@ -205,11 +207,36 @@ def propagate(cfg: VioConfig, fs: FilterState, imu: ImuBatch, t_target_img: torc
     )
 
 
-def _apply_frame_transition(P, Phi_acc, Q_acc):
+def _apply_frame_transition(cfg: VioConfig, P, Phi_acc, Q_acc, slam_q=None):
     """Factor form: S[:15] <- Phi S[:15], and the process noise stacks its own
     factor as 15 extra columns. The WIDE (..., D, W+15) factor is returned
-    as-is; the frame's measurement update re-compresses it to square."""
+    as-is; the frame's measurement update re-compresses it to square.
+
+    ``slam_q`` (optional, (..., 3S) per-component std over this frame) adds
+    a landmark random walk on the in-state SLAM rows: one more noise column
+    per SLAM component, so the factor becomes (..., D, W+15+3S)."""
     S = torch.cat([mm(Phi_acc, P[..., :IMU_DIM, :]), P[..., IMU_DIM:, :]], dim=-2)
     col = torch.zeros((*S.shape[:-1], IMU_DIM), dtype=S.dtype, device=S.device)
     col[..., :IMU_DIM, :] = psd_chol(Q_acc)
-    return torch.cat([S, col], dim=-1)
+    S = torch.cat([S, col], dim=-1)
+    if slam_q is not None:
+        n = slam_q.shape[-1]
+        base = slam_offset(cfg, 0)
+        scol = torch.zeros((*S.shape[:-1], n), dtype=S.dtype, device=S.device)
+        scol[..., base:base + n, :] = torch.diag_embed(slam_q)
+        S = torch.cat([S, scol], dim=-1)
+    return S
+
+
+def _slam_frame_noise(cfg: VioConfig, fs: FilterState, dt_frame):
+    """(..., 3S) per-component random-walk std of the in-state landmarks over
+    this frame (``FilterConfig.slam_process_noise`` per sqrt(s) on rho, 0.2x
+    on the bearing), or None when the option is off."""
+    spn = cfg.filter.slam_process_noise
+    if spn <= 0.0 or cfg.filter.max_slam_features == 0:
+        return None
+    dtype, dev = fs.P.dtype, fs.P.device
+    w = const((0.2, 0.2, 1.0), dtype, dev)
+    scale = spn * torch.sqrt(torch.clamp(dt_frame, 0.0, 1.0)).to(dtype)
+    per_slot = fs.slam.valid.to(dtype)[..., None] * w
+    return scale[..., None] * per_slot.flatten(-2)

@@ -44,6 +44,11 @@ def clone_offset(slot):
     return CLONE_BASE + CLONE_DIM * slot
 
 
+def slam_offset(cfg: VioConfig, slot):
+    """Column offset of a SLAM slot's error block (the tail of the state)."""
+    return CLONE_BASE + CLONE_DIM * cfg.filter.max_clones + SLAM_DIM * slot
+
+
 @dataclass
 class CloneStates(Struct):
     q: torch.Tensor  # (C, 4) JPL world->IMU at clone time
@@ -57,16 +62,23 @@ class CloneStates(Struct):
 
 @dataclass
 class SlamFeatures(Struct):
-    """In-state SLAM features. Present for layout parity with the JAX state;
-    the pure-MSCKF slice (max_slam_features == 0) never writes them."""
+    """In-state long-lived SLAM features (the hybrid part of the filter).
+
+    Parameterization: anchored inverse depth [alpha, beta, rho], the
+    feature's normalized image coordinates and inverse depth in the anchor
+    clone's camera. ``models/slam.py`` holds the geometry and the anchor
+    lifecycle (promotion anchors at the newest clone; pruning the anchor
+    triggers an exact re-anchoring transform). With ``max_slam_features ==
+    0`` one unused slot keeps the shapes legal.
+    """
 
     idp: torch.Tensor  # (S, 3) [alpha, beta, rho] in the anchor camera
-    idp_null: torch.Tensor  # (S, 3)
-    anchor_slot: torch.Tensor  # (S,) int32
-    track_slot: torch.Tensor  # (S,) int32
-    track_id: torch.Tensor  # (S,) int32
+    idp_null: torch.Tensor  # (S, 3) FEJ value
+    anchor_slot: torch.Tensor  # (S,) int32 clone slot anchoring the feature (-1 free)
+    track_slot: torch.Tensor  # (S,) int32 front-end slot feeding it (-1 free)
+    track_id: torch.Tensor  # (S,) int32 id of the owning track
     valid: torch.Tensor  # (S,) bool
-    age: torch.Tensor  # (S,) int32
+    age: torch.Tensor  # (S,) int32 frames since promotion (slam_max_lifetime cap)
 
 
 @dataclass

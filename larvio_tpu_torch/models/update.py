@@ -26,7 +26,9 @@ from larvio_tpu_torch.models.state import (
     IDX_EXT_P,
     IDX_EXT_THETA,
     IDX_TD,
+    SLAM_DIM,
     FilterState,
+    slam_offset,
     state_dim,
 )
 
@@ -288,6 +290,7 @@ def apply_update(cfg: VioConfig, fs: FilterState, H, r, noise_var, enable=None, 
 def inject_error(cfg: VioConfig, fs: FilterState, dx: torch.Tensor) -> FilterState:
     """Apply an error-state correction to the nominal state (masked slots)."""
     C = cfg.filter.max_clones
+    S = cfg.filter.max_slam_features
     dclone = dx[..., CLONE_BASE:CLONE_BASE + C * CLONE_DIM].reshape(*dx.shape[:-1], C, CLONE_DIM)
     valid = fs.clones.valid[..., None]
     dtheta_c = torch.where(valid, dclone[..., 0:3], 0.0)
@@ -296,6 +299,11 @@ def inject_error(cfg: VioConfig, fs: FilterState, dx: torch.Tensor) -> FilterSta
         q=quat_multiply(small_angle_quat(dtheta_c), fs.clones.q),
         p=fs.clones.p + dp_c,
     )
+    slam = fs.slam
+    if S > 0:
+        base = slam_offset(cfg, 0)
+        dslam = dx[..., base:base + S * SLAM_DIM].reshape(*dx.shape[:-1], S, SLAM_DIM)
+        slam = slam.replace(idp=slam.idp + torch.where(slam.valid[..., None], dslam, 0.0))
     return fs.replace(
         q=quat_multiply(small_angle_quat(dx[..., 0:3]), fs.q),
         bg=fs.bg + dx[..., 3:6],
@@ -306,4 +314,5 @@ def inject_error(cfg: VioConfig, fs: FilterState, dx: torch.Tensor) -> FilterSta
         t_ci=fs.t_ci + dx[..., IDX_EXT_P:IDX_EXT_P + 3],
         td=fs.td + dx[..., IDX_TD],
         clones=clones,
+        slam=slam,
     )

@@ -1,9 +1,12 @@
 """Where a frame's time goes in the PyTorch port on one NVIDIA GPU.
 
-    python3 tools/torch_profile_step.py [--frames 160] [--fleet B] [--out profile_step.txt]
+    python3 tools/torch_profile_step.py [--frames 160] [--fleet B] [--max-slam-features S]
+                                        [--out profile_step.txt]
 
-Runs the slice's main path (pure-MSCKF ``VioConfig``, 752x480, the clean
-8 s simulator workload rendered on the card) and reports, after a warm-up run:
+Runs the main path (the default ``VioConfig``: 6 SLAM slots, D = 160; or
+``--max-slam-features 0`` for the pure-MSCKF configuration, D = 142; 752x480,
+the clean 8 s simulator workload rendered on the card) and reports, after a
+warm-up run:
 
 * end-to-end ms/frame (host clock around work that ends in a synchronize);
 * the two halves, ``track_frame`` and ``filter_step``, each timed with a
@@ -39,6 +42,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=160)
     ap.add_argument("--fleet", type=int, default=0, help="profile B instances per batched frame")
+    ap.add_argument("--max-slam-features", type=int, default=None,
+                    help="SLAM slots (default: the default VioConfig's; 0 = pure MSCKF)")
     ap.add_argument("--out", default="profile_step.txt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -60,7 +65,10 @@ def main() -> int:
     from larvio_tpu_torch.pipeline import FrameInput, PipelineState, init_pipeline_state, pipeline_step
 
     dev = torch.device("cuda:0")
-    cfg = VioConfig(filter=FilterConfig(max_slam_features=0))
+    cfg = VioConfig()
+    if args.max_slam_features is not None:
+        cfg = VioConfig(filter=FilterConfig(max_slam_features=args.max_slam_features))
+    print(f"max_slam_features={cfg.filter.max_slam_features}, fleet={args.fleet}", flush=True)
     sim = Simulator(SimConfig(duration=8.0), cfg)
     data = sim.generate()
     imgs = render_sequence(cfg, sim, data["t_img"], device=dev)
