@@ -4,8 +4,9 @@
 
 Phases, each raising on failure (the script then exits non-zero):
 
-0. device: requires CUDA (no CPU fallback), turns TF32 off, prints the
-   card's name and power limit;
+0. device: requires CUDA (no CPU fallback), turns TF32 off
+   (``core/device.py::disable_tf32``), prints the card's name and power
+   limit;
 1. build: compiles the hand-written kernels (``larvio_tpu_torch/csrc``) with
    nvcc, or reuses an up-to-date build;
 2. kernels: K1 (pyramidal LK, also on a ragged 45-slot table) and the fused
@@ -21,6 +22,17 @@ Phases, each raising on failure (the script then exits non-zero):
    checks initialization, resets, finiteness, track counts, ATE, that SLAM
    features entered the state (``n_slam`` >= 3 at some frame) and that
    every frame launched K1 and the describe kernel once;
+3c. flexible moving start: 200 rendered frames (10 s, no static lead-in,
+   gyro bias) through ``run_image_sequence_flexible``; checks that the host
+   initializer injected a dynamic result, > 175 initialized frames, 0 resets,
+   finiteness, ATE < 0.15 m and one K1 and one describe launch per frame;
+3d. the dataset path: ``cli.main(["export-sim", ...])`` writes an 8 s EuRoC
+   tree from frames rendered on the card, ``cli.main(["run", ...])`` reads it
+   back (PNG decode, prefetch, the streaming loop with ``--budget``) and the
+   gates of phase 3 hold on its TUM and metrics files; then the first 80
+   frames with a checkpoint and the next 80 resumed from it, against the
+   uninterrupted cli run (within 1e-4 m); prints the per-frame budget, the
+   fps and the PNG decode time of one frame;
 4. fleet path: the same 160 frames for 8 instances at once (lanes 1-7 with
    their own image noise, lane 7 with 1 s of NaN accelerometer samples)
    through ``run_fleet_image_sequence``, default configuration; checks every
@@ -49,16 +61,25 @@ line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 from __future__ import annotations
 
 import json
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
+import larvio_tpu_torch.pipeline as pipeline_mod
+from larvio_tpu_torch import cli
 from larvio_tpu_torch.config import FilterConfig, VioConfig
+from larvio_tpu_torch.core.device import disable_tf32
+from larvio_tpu_torch.data import png
+from larvio_tpu_torch.data.euroc import EurocSequence
 from larvio_tpu_torch.data.evaluate import ate_rmse
 from larvio_tpu_torch.data.render import Renderer
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
@@ -70,7 +91,8 @@ from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
 from larvio_tpu_torch.ops.orb import _CIRC, N_BITS, _describe_plain, _r, describe
 from larvio_tpu_torch.parallel.fleet import fleet_metrics, init_fleet_pipeline_state, run_fleet_image_sequence
-from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
+from larvio_tpu_torch.data.trajectory import read_tum
+from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step, run_image_sequence_flexible
 
 PATCH, ITERS, PREC = 15, 12, 0.01
 F_MAIN = 200
@@ -573,6 +595,151 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path"):
     return launches, ate
 
 
+FLEX_ATE_GATE = 0.15  # m; the JAX package's moving-start image gate (tests/test_e2e_image.py:133)
+FLEX_INIT_GATE = 175  # initialized frames of 200 (the same test)
+RESUME_TOL = 1e-4  # m; resume against uninterrupted (tests/test_data_utils.py)
+
+
+def phase_flexible(dev, cfg, card):
+    """Phase 3c: a moving start (the platform moves from the first frame, so
+    the on-device static initializer never fires) through
+    ``run_image_sequence_flexible``."""
+    sim = Simulator(SimConfig(duration=10.0, static_lead_in=0.0, gyro_bias=(0.01, -0.02, 0.015)), cfg)
+    data = sim.generate()
+    rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
+    imgs = torch.stack([_render(dev, sim, rend, t) for t in data["t_img"]])
+    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
+    frames = FrameInput(image=imgs, imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]),
+                        t=g["t_img"])
+    T = imgs.shape[0]
+    injected = []
+    real = pipeline_mod.inject_init_result
+
+    def record(cfg_, vs, res):  # every result the host initializer injects
+        injected.append(res)
+        return real(cfg_, vs, res)
+
+    torch.cuda.synchronize()
+    pipeline_mod.inject_init_result = record
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        _, outs = run_image_sequence_flexible(cfg, init_pipeline_state(cfg, dev), frames)
+        torch.cuda.synchronize()
+    finally:
+        pipeline_mod.inject_init_result = real
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    for name in ("lk_track", "orb_describe"):
+        assert launches[name] == T, f"flexible: {name} {launches[name]} kernel launches in {T} frames"
+        assert launches[f"{name}_batched"] == 0, f"flexible: batched {name} launched"
+    o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
+    for k in ("p", "q", "v", "p_std"):
+        assert np.isfinite(o[k]).all(), f"flexible: non-finite {k}"
+    m = o["initialized"].astype(bool)
+    assert [r.mode for r in injected] == ["dynamic"], \
+        f"flexible: injected {[r.mode for r in injected]}, one dynamic result expected"
+    assert m.sum() > FLEX_INIT_GATE, f"flexible: only {m.sum()} of {T} frames initialized"
+    assert int(o["did_reset"].sum()) == 0, f"flexible: {int(o['did_reset'].sum())} online resets"
+    ate = ate_rmse(o["p"][m], data["gt_p"][m])
+    assert ate < FLEX_ATE_GATE, f"flexible: ATE {ate:.4f} m >= {FLEX_ATE_GATE}"
+    first = int(m.argmax())
+    print(f"flexible moving start: {T} frames, dynamic initialization at frame {first} "
+          f"(t={injected[0].time:.2f} s, |v|={np.linalg.norm(injected[0].v):.3f} m/s), {int(m.sum())} "
+          f"initialized, 0 resets, mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max "
+          f"{int(o['n_slam'].max())}, ATE {ate:.5f} m (gate {FLEX_ATE_GATE}); "
+          f"{1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
+
+
+def _paeth_png(img: np.ndarray) -> bytes:
+    """``img`` as a PNG whose every row is Paeth-filtered (the decoder's
+    wavefront path; files with adaptive filters take it)."""
+    x = img.astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    H, W = img.shape
+    raw = np.empty((H, W + 1), np.uint8)
+    raw[:, 0] = 4
+    raw[:, 1:] = (x - pred) & 0xFF
+    return (b"\x89PNG\r\n\x1a\n" + png._chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+            + png._chunk(b"IDAT", zlib.compress(raw.tobytes())) + png._chunk(b"IEND", b""))
+
+
+def _decode_ms(data: bytes, reps: int = 10) -> float:
+    """Median host time of one ``decode_png_gray`` call."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        png.decode_png_gray(data)
+        ts.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(ts))
+
+
+def phase_dataset(dev, cfg, card):
+    """Phase 3d: the user's entry point. ``export-sim`` renders an 8 s
+    sequence on the card into a EuRoC tree, ``run`` reads it back through the
+    PNG decoder, the prefetcher and the streaming loop; then the checkpoint /
+    resume round trip over the same frames."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "euroc")
+        t0 = time.perf_counter()
+        assert cli.main(["export-sim", root, "--duration", "8"]) == 0
+        export_s = time.perf_counter() - t0
+        traj, metrics = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "metrics.csv")
+        torch.cuda.synchronize()
+        _reset_counts()
+        assert cli.main(["run", "-", root, "--eval", "--budget", "--metrics", metrics, "--out", traj]) == 0
+        launches = _counts()
+        seq = EurocSequence(root)
+        T = len(seq.image_stamps)
+        for name in ("lk_track", "orb_describe"):
+            assert launches[name] == T, f"cli run: {name} {launches[name]} kernel launches in {T} frames"
+            assert launches[f"{name}_batched"] == 0, f"cli run: batched {name} launched"
+        rows = np.loadtxt(metrics, delimiter=",", skiprows=1, ndmin=2)
+        assert rows.shape == (T, 7), f"cli run: metrics CSV {rows.shape}, ({T}, 7) expected"
+        init = rows[:, 1].astype(bool)
+        t, p, q = read_tum(traj)
+        assert len(t) == int(init.sum()), f"cli run: {len(t)} TUM lines for {int(init.sum())} initialized frames"
+        assert init.sum() >= 100, f"cli run: only {int(init.sum())} initialized frames"
+        assert int(rows[:, 6].sum()) == 0, f"cli run: {int(rows[:, 6].sum())} online resets"
+        assert np.isfinite(p).all() and np.isfinite(q).all(), "cli run: non-finite trajectory"
+        mean_tracks = float(rows[init, 2].mean())
+        assert mean_tracks > TRACKS_GATE, f"cli run: mean n_tracks {mean_tracks:.1f} <= {TRACKS_GATE}"
+        ate = ate_rmse(p, seq.ground_truth_at(t))
+        assert ate < ATE_GATE, f"cli run: ATE {ate:.4f} m >= {ATE_GATE}"
+        print(f"cli export-sim: {T} frames in {export_s:.3f} s; cli run: {int(init.sum())} initialized, "
+              f"0 resets, mean n_tracks {mean_tracks:.2f}, ATE {ate:.5f} m (gate {ATE_GATE}); TUM and "
+              f"metrics files complete; one K1 and one describe launch per frame", flush=True)
+
+        # resume: one pass of the reader split in two (frames(skip_frames=K)
+        # would seed frame K's IMU interval from t = 0, as the JAX package's
+        # does), held against the cli run above, the uninterrupted run over
+        # the same frames (its TUM file has 1e-6 m digits)
+        K = T // 2
+        frames = list(seq.frames(cfg, lazy=True))
+        ck = os.path.join(tmp, "state")
+        a = cli._run_streaming(cfg, iter(frames[:K]), device=dev, checkpoint=ck)
+        b = cli._run_streaming(cfg, iter(frames[K:]), device=dev, resume=ck)
+        init_ab = np.concatenate([a[3], b[3]])
+        assert np.array_equal(init_ab, init), "resume: initialized frames differ from the uninterrupted run"
+        d_resume = float(np.abs(np.concatenate([a[1], b[1]])[init_ab] - p).max())
+        assert d_resume < RESUME_TOL, f"resume: {d_resume:.3e} m from the uninterrupted run"
+        print(f"resume: frames [0, {K}) with a checkpoint, [{K}, {T}) resumed from it: max |dp| "
+              f"{d_resume:.3e} m from the uninterrupted cli run's TUM file (1e-6 m digits; gate "
+              f"{RESUME_TOL}); streaming without the budget's synchronizations: {a[5]:.3f} fps "
+              f"(frames 1-{K - 1}), {b[5]:.3f} fps (frames {K + 1}-{T - 1}) on {card}", flush=True)
+
+        with open(os.path.join(seq.cam_dir, f"{seq.image_stamps[0]}.png"), "rb") as f:
+            own = f.read()
+        img = png.decode_png_gray(own)
+        paeth = _paeth_png(img)
+        assert np.array_equal(png.decode_png_gray(paeth), img), "the Paeth file decodes to another image"
+        print(f"PNG decode of one {img.shape[1]}x{img.shape[0]} frame on the host: {_decode_ms(own):.3f} ms "
+              f"(the export's Up rows), {_decode_ms(paeth):.3f} ms (Paeth rows)", flush=True)
+
+
 def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path"):
     """B instances through one batched image step per frame."""
     T = imgs.shape[0]
@@ -652,9 +819,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    disable_tf32()
     card = _card_line()
     print(card, flush=True)  # name, power limit (nvidia-smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
@@ -680,6 +845,8 @@ def main() -> int:
     print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} on the card in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     launches, ate = phase_main_path(dev, cfg, data, imgs, card)
+    phase_flexible(dev, cfg, card)
+    phase_dataset(dev, cfg, card)
     launches.update({k: v for k, v in phase_fleet(dev, cfg, data, imgs, ate, card).items()
                      if k.endswith("_batched")})
     pure = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM slots

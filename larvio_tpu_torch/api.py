@@ -1,0 +1,56 @@
+"""Top-level feature-level API (port of ``larvio_tpu/api.py``).
+
+  * ``step``: one filter step (streaming / online use).
+  * ``run_sequence``: the filter over a whole sequence, one step per frame
+    (a Python loop where the JAX package runs one ``lax.scan``).
+
+These take pre-extracted feature tracks (from the image front-end or the
+simulator); the image-level entry points (front-end + filter) are in
+``pipeline.py``. Tensors live on ``device``, the card unless the caller
+passes another one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from larvio_tpu_torch.config import VioConfig
+from larvio_tpu_torch.core.device import resolve_device
+from larvio_tpu_torch.core.tree import scan, tree_map
+from larvio_tpu_torch.models.msckf import FrameFeatures, VioState, filter_step, init_vio_state
+from larvio_tpu_torch.models.propagation import ImuBatch
+
+
+def make_frame_inputs(batch: dict, k=None, device="cuda"):
+    """(FrameFeatures, ImuBatch) on ``device`` from stacked sequence arrays
+    (frame ``k`` of them, or all frames with a leading time axis)."""
+    dev = resolve_device(device)
+
+    def sel(key):
+        a = batch[key] if k is None else batch[key][k]
+        return torch.as_tensor(a, device=dev)
+
+    feats = FrameFeatures(ids=sel("ids"), uv=sel("uv"), vel=sel("vel"), valid=sel("fvalid"),
+                          mean_motion=sel("mean_motion"), t=sel("t_img"))
+    imu = ImuBatch(t=sel("imu_t"), w=sel("imu_w"), a=sel("imu_a"), valid=sel("imu_valid"))
+    return feats, imu
+
+
+# One frame of the filter: (cfg, state, FrameFeatures, ImuBatch) -> (state,
+# StepOutput). The JAX package jits it; here it is the step itself.
+step = filter_step
+
+
+def run_sequence(cfg: VioConfig, vs: VioState, seq_feats: FrameFeatures, seq_imu: ImuBatch):
+    """The filter over inputs with a leading time axis. Returns (final state,
+    StepOutput with a leading time axis)."""
+    return scan(lambda s, x: filter_step(cfg, s, *x), vs, (seq_feats, seq_imu))
+
+
+def run_feature_sequence(cfg: VioConfig, batch: dict, device="cuda", dtype=torch.float32):
+    """Host convenience: numpy sequence dict -> (final VioState, StepOutput
+    of numpy arrays)."""
+    feats, imu = make_frame_inputs(batch, device=device)
+    vs = init_vio_state(cfg, feats.t.device, dtype)
+    vs, outs = run_sequence(cfg, vs, feats, imu)
+    return vs, tree_map(lambda a: a.cpu().numpy(), outs)

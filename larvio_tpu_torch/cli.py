@@ -1,0 +1,406 @@
+"""Command-line entry point of the port (port of ``larvio_tpu/cli.py``),
+mirroring the reference's non-ROS app ``larvio <config.yaml> <euroc_dir>``.
+
+    python -m larvio_tpu_torch.cli run <config.yaml|-> <euroc_dir> [--out traj.txt]
+        [--max-frames N] [--eval] [--profile DIR] [--checkpoint PATH]
+        [--resume PATH] [--init auto|static|dynamic] [--metrics CSV]
+        [--budget] [--device cuda|cpu]
+    python -m larvio_tpu_torch.cli sim [--duration S] [--out traj.txt] [--eval]
+        [--profile DIR] [--device cuda|cpu]
+        (no dataset: a simulated sequence rendered on the device)
+    python -m larvio_tpu_torch.cli export-sim <out_dir> [--duration S]
+        [--moving-start] [--seed N] [--device cuda|cpu]
+        (write a simulated sequence as a EuRoC ASL tree)
+
+The trajectory is written in the reference's TUM format
+``t x y z qx qy qz qw``. Every command runs on the card (``--device cuda``,
+the default) and raises where there is none, unless ``--device cpu`` asks for
+the CPU. PNGs are read and written by ``data/png.py``: the CLI needs neither
+cv2 nor matplotlib.
+
+Flags of the JAX package's CLI that the port rejects, each with its reason:
+``--plot``, ``--live`` and ``--live-every`` (matplotlib drew them),
+``--chunk`` (its counterpart here is CUDA-graph capture of the step, not
+done yet) and ``--debug-nans`` (PyTorch has no forward NaN sanitizer like
+``jax_debug_nans``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from larvio_tpu_torch.core.device import disable_tf32, resolve_device
+from larvio_tpu_torch.core.tree import tree_map
+from larvio_tpu_torch.init import FlexibleInitializer
+from larvio_tpu_torch.init.flexible import inject_init_result
+from larvio_tpu_torch.models.propagation import ImuBatch
+from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
+from larvio_tpu_torch.utils.checkpoint import restore_state, save_state
+
+
+def _prefetch(frame_iter, depth: int = 8, workers: int = 2, timers=None):
+    """Decode-ahead: run the frame iterator (PNG decode, IMU bucketing) in a
+    background thread so host I/O overlaps the device step. A frame whose
+    "image" value is a zero-arg callable (lazy decode, data/euroc.py
+    frames(lazy=True)) is resolved on a small thread pool (zlib's inflate
+    releases the GIL), ``depth`` frames ahead. Exceptions propagate to the
+    consumer. ``timers`` (optional dict) accumulates the consumer-visible
+    stall time under "decode"."""
+    import queue
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    END = object()
+    pool = ThreadPoolExecutor(max_workers=max(workers, 1)) if workers else None
+
+    def worker():
+        try:
+            for x in frame_iter:
+                if pool is not None and callable(x.get("image")):
+                    x = dict(x, image=pool.submit(x["image"]))
+                q.put(x)
+            q.put(END)
+        except BaseException as e:  # re-raised on the consuming side
+            q.put(("__prefetch_error__", e))
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            x = q.get()
+            if x is END:
+                return
+            if isinstance(x, tuple) and len(x) == 2 and x[0] == "__prefetch_error__":
+                raise x[1]
+            img = x.get("image")
+            if hasattr(img, "result"):  # future from the decode pool
+                x = dict(x, image=img.result())
+            elif callable(img):  # lazy but no pool
+                x = dict(x, image=img())
+            if timers is not None:
+                timers["decode"] += time.perf_counter() - t0
+            yield x
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=None,
+                   init_mode="auto", resume=None, budget: bool = False):
+    """Host loop: one ``pipeline_step`` per frame of a frame stream.
+
+    init_mode: "static" keeps only the on-device static initializer;
+    "auto"/"dynamic" also run the host FlexibleInitializer (window SfM +
+    visual-inertial alignment) and inject its result for in-motion starts.
+    resume: restore the whole PipelineState (tracker, previous pyramid,
+    filter, init accumulator) saved by ``checkpoint``, so the continued run
+    steps exactly as an uninterrupted one. budget: synchronize per frame and
+    print the per-frame split decode / stack / upload / dispatch / compute
+    (dispatch = host time of ``pipeline_step``, compute = the wait at
+    ``torch.cuda.synchronize()`` after it).
+
+    Returns (t, p, q, initialized, stats, fps, final PipelineState); fps and
+    the budget count the steady state, after the first frame.
+    """
+    dev = resolve_device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    timers = {"decode": 0.0, "stack": 0.0, "upload": 0.0, "dispatch": 0.0, "compute": 0.0}
+    frame_iter = _prefetch(frame_iter, timers=timers)
+
+    def host_frame(fr):
+        # uint8 images stay uint8 over the link; pipeline_step casts on the device
+        return FrameInput(
+            image=torch.as_tensor(fr["image"]),
+            imu=ImuBatch(t=torch.as_tensor(fr["imu_t"]), w=torch.as_tensor(fr["imu_w"]),
+                         a=torch.as_tensor(fr["imu_a"]), valid=torch.as_tensor(fr["imu_valid"])),
+            t=torch.as_tensor(fr["t_img"]),
+        )
+
+    ps = init_pipeline_state(cfg, dev)
+    initialized = False
+    if resume:
+        ps = restore_state(resume, ps)
+        initialized = bool(ps.vio.filter.initialized)
+        print(f"resumed from {resume} (t={float(ps.vio.filter.time):.2f}s, "
+              f"initialized={initialized})")
+    flex = None
+    if init_mode in ("auto", "dynamic") and not initialized:
+        flex = FlexibleInitializer(cfg, window=15, min_parallax=0.12)
+    outs_all = []
+    t_start = None
+    n = n_timed0 = 0
+    prof = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.__enter__()
+    try:
+        for fr in frame_iter:
+            t0 = time.perf_counter()
+            host = host_frame(fr)
+            t1 = time.perf_counter()
+            timers["stack"] += t1 - t0
+            frame = tree_map(lambda a: a.to(dev), host)
+            if budget:
+                sync()
+            t2 = time.perf_counter()
+            timers["upload"] += t2 - t1
+            ps, out = pipeline_step(cfg, ps, frame)
+            t3 = time.perf_counter()
+            timers["dispatch"] += t3 - t2
+            if budget:
+                sync()
+                timers["compute"] += time.perf_counter() - t3
+            outs_all.append(out)
+            n += 1
+            if flex is not None and not bool(out.initialized):
+                # feed the host initializer from the tracker's current table
+                tr = ps.tracker
+                flex.push(
+                    _host(fr["t_img"]), tr.ids.cpu().numpy(), tr.uv_norm.cpu().numpy(),
+                    tr.valid.cpu().numpy(), _host(fr["imu_t"]), _host(fr["imu_w"]),
+                    _host(fr["imu_a"]), _host(fr["imu_valid"]),
+                )
+                res = flex.try_init()
+                if res is not None and res.mode == "dynamic":
+                    ps = ps.replace(vio=inject_init_result(cfg, ps.vio, res))
+                    print(f"dynamic initialization at t={res.time:.2f}s "
+                          f"(|v|={np.linalg.norm(res.v):.2f} m/s)")
+                    flex = None
+            elif flex is not None:
+                flex = None  # on-device static init won the race
+            if not initialized:
+                # a host read per frame only while converging: the flag is
+                # monotone, so once set the loop stops waiting on the device
+                initialized = bool(out.initialized)
+            if t_start is None:
+                sync()
+                t_start = time.perf_counter()
+                n_timed0 = n
+                for k in timers:
+                    timers[k] = 0.0  # the budget reports the steady state
+        sync()
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    wall = time.perf_counter() - t_start if t_start else 0.0
+    fps = (n - n_timed0) / wall if wall > 0 else 0.0
+    if budget and wall > 0:
+        nf = max(n - n_timed0, 1)
+        parts = {k: 1e3 * v / nf for k, v in timers.items()}
+        acc = sum(parts.values())
+        # decode = stall waiting on the prefetch/decode pool; stack = host
+        # tensors of the frame; upload = host->device copies; dispatch = the
+        # host time of pipeline_step; compute = the wait for the device after
+        # it (budget mode synchronizes per frame, so these do not overlap)
+        print(
+            "budget ms/frame: "
+            + " ".join(f"{k}={parts[k]:.2f}" for k in ("decode", "stack", "upload", "dispatch", "compute"))
+            + f" | accounted={acc:.2f} wall={1e3 * wall / nf:.2f}"
+        )
+
+    outs = tree_map(lambda *xs: torch.stack(xs).cpu().numpy(), *outs_all)
+    t, p, q, init = outs.t, outs.p, outs.q, outs.initialized.astype(bool)
+    stats = {
+        "tracks": outs.n_tracks.astype(int),
+        "clones": outs.n_clones.astype(int),
+        "updated": outs.n_updated.astype(int),
+        "zupt": outs.stationary.astype(bool),
+        "resets": outs.did_reset.astype(bool),
+    }
+    if checkpoint:
+        save_state(checkpoint, ps)
+    return t, p, q, init, stats, fps, ps
+
+
+def cmd_run(args):
+    from larvio_tpu_torch.config import VioConfig, load_yaml
+    from larvio_tpu_torch.data.euroc import EurocSequence
+    from larvio_tpu_torch.data.trajectory import write_tum
+
+    dev = resolve_device(args.device)
+    cfg = VioConfig() if args.config == "-" else load_yaml(args.config)
+    seq = EurocSequence(args.dataset)
+    # lazy decode: the prefetcher resolves images on a thread pool
+    frames = seq.frames(cfg, max_frames=args.max_frames, lazy=True)
+    t, p, q, init, stats, fps, ps = _run_streaming(
+        cfg, frames, device=dev, profile_dir=args.profile, checkpoint=args.checkpoint,
+        init_mode=args.init, resume=args.resume, budget=args.budget,
+    )
+    m = init
+    write_tum(args.out, t[m], p[m], q[m])
+    if args.metrics:
+        # per-frame health counters (the reference only prints to stdout)
+        with open(args.metrics, "w") as f:
+            f.write("t,initialized,tracks,clones,updated,zupt,reset\n")
+            for i in range(len(t)):
+                f.write(
+                    f"{t[i]:.6f},{int(init[i])},{stats['tracks'][i]},"
+                    f"{stats['clones'][i]},{stats['updated'][i]},"
+                    f"{int(stats['zupt'][i])},{int(stats['resets'][i])}\n"
+                )
+        print(f"metrics -> {args.metrics}")
+    tracks = f"{stats['tracks'][m].mean():.0f}" if m.any() else "n/a"
+    print(f"frames={len(t)} fps={fps:.1f} tracks~{tracks} "
+          f"zupt={int(stats['zupt'].sum())} resets={int(stats['resets'].sum())}")
+    print(f"trajectory -> {args.out}")
+    if args.eval and seq.gt is not None and m.any():
+        from larvio_tpu_torch.data.evaluate import ate_rmse
+
+        gt = seq.ground_truth_at(t[m])
+        print(f"ATE RMSE vs ground truth: {ate_rmse(p[m], gt):.4f} m")
+    return 0
+
+
+def cmd_sim(args):
+    from larvio_tpu_torch.config import VioConfig
+    from larvio_tpu_torch.data.evaluate import ate_rmse
+    from larvio_tpu_torch.data.render import Renderer
+    from larvio_tpu_torch.data.sim import SimConfig, Simulator
+    from larvio_tpu_torch.data.trajectory import write_tum
+
+    dev = resolve_device(args.device)
+    cfg = VioConfig()
+    sim = Simulator(SimConfig(duration=args.duration), cfg)
+    data = sim.generate()
+    rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
+    R_ci, t_ci = np.asarray(sim.R_ci), np.asarray(sim.t_ci)
+
+    def frame_iter():
+        for k, t in enumerate(data["t_img"]):
+            p_w, R_wi = sim.pose(np.asarray(t))
+            img = rend(
+                torch.as_tensor((R_ci @ R_wi).T, dtype=torch.float32, device=dev),
+                torch.as_tensor(p_w + R_wi.T @ (-R_ci.T @ t_ci), dtype=torch.float32, device=dev),
+            )
+            yield {
+                "image": img,
+                "imu_t": data["imu_t"][k],
+                "imu_w": data["imu_w"][k],
+                "imu_a": data["imu_a"][k],
+                "imu_valid": data["imu_valid"][k],
+                "t_img": data["t_img"][k],
+            }
+
+    t, p, q, init, stats, fps, _ = _run_streaming(cfg, frame_iter(), device=dev,
+                                                  profile_dir=args.profile)
+    write_tum(args.out, t[init], p[init], q[init])
+    tracks = f"{stats['tracks'][init].mean():.0f}" if init.any() else "n/a"
+    print(f"frames={len(t)} fps={fps:.1f} tracks~{tracks}")
+    if args.eval and init.any():
+        print(f"ATE RMSE: {ate_rmse(p[init], data['gt_p'][init]):.4f} m")
+    return 0
+
+
+def cmd_export(args):
+    from larvio_tpu_torch.config import VioConfig
+    from larvio_tpu_torch.data.export_euroc import export_sim_euroc
+    from larvio_tpu_torch.data.sim import SimConfig
+
+    dev = resolve_device(args.device)
+    sc = SimConfig(
+        duration=args.duration,
+        static_lead_in=0.0 if args.moving_start else 2.0,
+        seed=args.seed,
+    )
+    n = export_sim_euroc(args.out_dir, VioConfig(), sc, device=dev)
+    print(f"{n} frames -> {args.out_dir} (EuRoC ASL layout)")
+    return 0
+
+
+class _Rejected(argparse.Action):
+    """A flag of the JAX package's CLI that the port does not offer: giving
+    it fails the parse with its reason."""
+
+    def __init__(self, option_strings, dest, reason: str, **kw):
+        self.reason = reason
+        super().__init__(option_strings, dest, **kw)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not available in larvio_tpu_torch: {self.reason}")
+
+
+_NO_MATPLOTLIB = "it draws with matplotlib, which the port does not use (the card's machine has none)"
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a GPU unless 'cpu' is given)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="larvio_tpu_torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--debug-nans", action=_Rejected, nargs=0,
+                    reason="PyTorch has no forward NaN sanitizer like jax_debug_nans; the "
+                           "filter's runtime containment (online reset) runs instead")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    rp = sub.add_parser("run", help="run a EuRoC-format sequence")
+    rp.add_argument("config", help="reference-style YAML config, or '-' for defaults")
+    rp.add_argument("dataset", help="EuRoC sequence dir (containing mav0/)")
+    rp.add_argument("--out", default="trajectory.txt")
+    rp.add_argument("--max-frames", type=int, default=None)
+    rp.add_argument("--eval", action="store_true", help="ATE vs ground truth")
+    rp.add_argument("--profile", default=None, help="write a torch.profiler trace (trace.json) here")
+    rp.add_argument("--checkpoint", default=None, help="save the final pipeline state (.npz)")
+    rp.add_argument("--resume", default=None,
+                    help="restore tracker+filter state saved by --checkpoint "
+                         "and continue (the run proceeds as if uninterrupted)")
+    rp.add_argument("--init", default="auto", choices=["auto", "static", "dynamic"],
+                    help="initialization: on-device static only, or host dynamic too")
+    rp.add_argument("--metrics", default=None,
+                    help="write per-frame metrics CSV (tracks, clones, updates, zupt, resets)")
+    rp.add_argument("--budget", action="store_true",
+                    help="report a per-frame budget breakdown (decode / stack / upload / "
+                         "dispatch / compute); synchronizes per frame, so fps in this mode "
+                         "is the un-overlapped worst case")
+    rp.add_argument("--plot", action=_Rejected, reason=_NO_MATPLOTLIB)
+    rp.add_argument("--live", action=_Rejected, reason=_NO_MATPLOTLIB)
+    rp.add_argument("--live-every", action=_Rejected, reason=_NO_MATPLOTLIB)
+    rp.add_argument("--chunk", action=_Rejected,
+                    reason="several frames per dispatch is a lax.scan in the JAX package; its "
+                           "counterpart here, CUDA-graph capture of the step, is not done yet")
+    _add_device(rp)
+    rp.set_defaults(fn=cmd_run)
+
+    sp = sub.add_parser("sim", help="synthetic rendered sequence (no dataset needed)")
+    sp.add_argument("--duration", type=float, default=20.0)
+    sp.add_argument("--out", default="trajectory.txt")
+    sp.add_argument("--eval", action="store_true")
+    sp.add_argument("--profile", default=None)
+    sp.add_argument("--plot", action=_Rejected, reason=_NO_MATPLOTLIB)
+    _add_device(sp)
+    sp.set_defaults(fn=cmd_sim)
+
+    ep = sub.add_parser("export-sim", help="write a simulated sequence as a EuRoC-format dataset")
+    ep.add_argument("out_dir")
+    ep.add_argument("--duration", type=float, default=20.0)
+    ep.add_argument("--moving-start", action="store_true",
+                    help="no static lead-in (exercises the dynamic initializer)")
+    ep.add_argument("--seed", type=int, default=0)
+    _add_device(ep)
+    ep.set_defaults(fn=cmd_export)
+
+    args = ap.parse_args(argv)
+    disable_tf32()
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

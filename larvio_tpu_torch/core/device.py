@@ -1,4 +1,10 @@
-"""Small constant tensors made once per device.
+"""Device selection, float32 matmul precision, and small constant tensors
+made once per device.
+
+``resolve_device`` refuses a CUDA device on a machine without one: nothing
+falls back to the CPU unless the caller asks for it. ``disable_tf32`` keeps
+every matmul in float32 on the card, as the JAX package pins float32 matmul
+precision.
 
 ``torch.tensor([...], device="cuda")`` copies from pageable host memory,
 which synchronizes the stream; the frame step gets its constant vectors and
@@ -35,3 +41,19 @@ def device_array(a: np.ndarray, device) -> torch.Tensor:
     if key not in _ARRAYS:
         _ARRAYS[key] = torch.as_tensor(a, device=device)
     return _ARRAYS[key]
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises if it names CUDA and there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but torch.cuda.is_available() is False "
+                           "(pass a CPU device to run on the CPU)")
+    return dev
+
+
+def disable_tf32() -> None:
+    """Full float32 matmuls and convolutions (no TF32) on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

@@ -48,7 +48,7 @@ def scan(step, carry, xs):
     """``jax.lax.scan`` as a Python loop: ``step(carry, x) -> (carry, out)``
     over the leading (time) axis of every leaf of ``xs``; the outputs are
     stacked on a new leading axis."""
-    n = next(iter(_leaves(xs))).shape[0]
+    n = next(iter(leaves(xs))).shape[0]
     outs = []
     for k in range(n):
         carry, out = step(carry, tree_map(lambda a: a[k], xs))
@@ -56,13 +56,15 @@ def scan(step, carry, xs):
     return carry, tree_map(lambda *o: torch.stack(o), *outs)
 
 
-def _leaves(tree):
+def leaves(tree):
+    """The leaves of a tree of dataclasses / tuples / lists, in field order
+    (the JAX package's flatten order for the same structure)."""
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
-            yield from _leaves(getattr(tree, f.name))
+            yield from leaves(getattr(tree, f.name))
     elif isinstance(tree, (tuple, list)):
         for x in tree:
-            yield from _leaves(x)
+            yield from leaves(x)
     else:
         yield tree
 

@@ -11,18 +11,19 @@ interact: every reduction runs over one instance's own axes and every select
 is per lane, so a reset or a NaN in one lane leaves the others bit-identical.
 
 Sequences are (T, B, ...): time first, instances second, as
-``run_fleet_sequence`` in the JAX package. The multi-card sharded fleet
-(``make_sharded_fleet``, ``make_sharded_fleet_run``) is not ported.
+``run_fleet_sequence`` in the JAX package. The JAX package's multi-card
+sharded fleet (``make_sharded_fleet``, ``make_sharded_fleet_run``) has no
+counterpart here yet: it needs several cards, and one card holds one rank.
 """
 
 from __future__ import annotations
 
 import torch
 
+from larvio_tpu_torch.api import run_sequence
 from larvio_tpu_torch.config import VioConfig
-from larvio_tpu_torch.core.tree import scan, tree_map
-from larvio_tpu_torch.models.msckf import FrameFeatures, StepOutput, VioState, filter_step, init_vio_state
-from larvio_tpu_torch.models.propagation import ImuBatch
+from larvio_tpu_torch.core.tree import tree_map
+from larvio_tpu_torch.models.msckf import StepOutput, VioState, filter_step, init_vio_state
 from larvio_tpu_torch.pipeline import PipelineState, init_pipeline_state, run_image_sequence
 
 
@@ -41,9 +42,9 @@ def init_fleet_state(cfg: VioConfig, n_instances: int, device, dtype=torch.float
 fleet_step = filter_step
 
 
-def run_fleet_sequence(cfg: VioConfig, vs: VioState, seq_feats: FrameFeatures, seq_imu: ImuBatch):
-    """``filter_step`` over (T, B, ...) inputs. Returns (final state, StepOutput (T, B, ...))."""
-    return scan(lambda s, x: filter_step(cfg, s, *x), vs, (seq_feats, seq_imu))
+# ``filter_step`` over (T, B, ...) inputs: ``api.run_sequence`` takes the
+# instance axis, so this is an alias. Returns (final state, StepOutput (T, B, ...)).
+run_fleet_sequence = run_sequence
 
 
 def init_fleet_pipeline_state(cfg: VioConfig, n_instances: int, device,

@@ -1,6 +1,7 @@
 """Image-level pipeline: front-end + filter, one frame per call (port of
 ``larvio_tpu/pipeline.py``). ``run_image_sequence`` is a Python frame loop
-in place of the JAX package's ``lax.scan``.
+in place of the JAX package's ``lax.scan``; ``run_image_sequence_flexible``
+adds the host's in-motion initializer (``init/flexible.py``) to it.
 
 Every leaf may carry a leading instance axis B: ``pipeline_step`` then steps
 a fleet of B independent instances at once (the JAX package's
@@ -15,7 +16,8 @@ from dataclasses import dataclass
 import torch
 
 from larvio_tpu_torch.config import VioConfig
-from larvio_tpu_torch.core.tree import Struct, scan
+from larvio_tpu_torch.core.tree import Struct, scan, tree_map
+from larvio_tpu_torch.init.flexible import FlexibleInitializer, inject_init_result
 from larvio_tpu_torch.models.frontend import TrackerState, init_tracker_state, track_frame
 from larvio_tpu_torch.models.msckf import VioState, filter_step, init_vio_state
 from larvio_tpu_torch.models.propagation import ImuBatch
@@ -58,3 +60,50 @@ def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput):
     state's instance axis if any). Returns (final state, StepOutput with a
     leading time axis)."""
     return scan(lambda p, frame: pipeline_step(cfg, p, frame), ps, frames)
+
+
+def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: FrameInput,
+                                max_init_frames: int = 128, init_chunk: int = 32):
+    """``run_image_sequence`` with FLEXIBLE initialization, for one instance.
+
+    The head steps frame by frame while feeding the host
+    ``FlexibleInitializer`` (window SfM + visual-inertial alignment) from the
+    tracker's table, until the filter is initialized: by the on-device static
+    initializer, or by injecting a dynamic result. Each head frame reads
+    ``initialized`` and the table back to the host (one sync per frame, only
+    while uninitialized). The tail runs ``run_image_sequence`` over the rest.
+
+    ``init_chunk`` is kept for the JAX package's signature: there it aligns
+    the handoff so that few tail lengths compile; here every frame is the
+    same call, so where the head ends changes no result.
+
+    Returns (final PipelineState, StepOutput over ALL frames).
+    """
+    T = int(frames.t.shape[0])
+    # min_parallax: the 15-frame (0.75 s) window at ~1 m/s over a 5-10 m
+    # scene accumulates ~0.08-0.13 median parallax; 0.06 (~28 px at EuRoC
+    # focal) still conditions the 5-pt solve well (the JAX package's value)
+    flex = FlexibleInitializer(cfg, window=15, min_parallax=0.06)
+    outs = []
+    k = 0
+    while k < min(max_init_frames, T):
+        frame = tree_map(lambda a: a[k], frames)
+        ps, out = pipeline_step(cfg, ps, frame)
+        outs.append(out)
+        k += 1
+        if bool(out.initialized):
+            break
+        tr = ps.tracker
+        imu = tree_map(lambda a: a.cpu().numpy(), frame.imu)
+        flex.push(float(frame.t), tr.ids.cpu().numpy(), tr.uv_norm.cpu().numpy(),
+                  tr.valid.cpu().numpy(), imu.t, imu.w, imu.a, imu.valid)
+        res = flex.try_init()
+        if res is not None and res.mode == "dynamic":
+            ps = ps.replace(vio=inject_init_result(cfg, ps.vio, res))
+            break
+    if k == T:
+        return ps, tree_map(lambda *o: torch.stack(o), *outs)
+    ps, tail = run_image_sequence(cfg, ps, tree_map(lambda a: a[k:], frames))
+    if not outs:
+        return ps, tail
+    return ps, tree_map(lambda t, *o: torch.cat([torch.stack(o), t]), tail, *outs)

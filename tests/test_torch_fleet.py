@@ -428,7 +428,9 @@ def test_image_fleet_matches_jax():
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "torch_profile_step.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "larvio_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -436,11 +438,16 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """An AST scan: no module of the port, nor chip_smoke.py, nor
-    tools/torch_profile_step.py, imports ``jax``/``jaxlib``/``flax`` or
-    ``larvio_tpu`` (at any depth of the file)."""
+    tools/torch_*.py, imports ``jax``/``jaxlib``/``flax`` or ``larvio_tpu``
+    (at any depth of the file)."""
     banned = {"jax", "jaxlib", "flax", "larvio_tpu"}
     files = _port_files()
     assert len(files) > 30
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for name in ("cli.py", "api.py", "init/flexible.py", "init/sfm.py", "init/alignment.py",
+                 "init/preintegration.py", "utils/checkpoint.py", "data/euroc.py",
+                 "data/export_euroc.py", "data/trajectory.py", "data/png.py"):
+        assert f"larvio_tpu_torch/{name}" in rel, name
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
@@ -454,10 +461,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 assert name.split(".")[0] not in banned, f"{os.path.relpath(path, REPO)} imports {name}"
 
 
-@pytest.mark.parametrize("what", ["config", "sim", "evaluate"])
+@pytest.mark.parametrize("what", ["config", "sim", "evaluate", "sfm", "alignment", "preintegration"])
 def test_host_module_copies_agree(what):
-    """The port's own config, simulator and ATE evaluation give what the JAX
-    package's numpy-only modules give."""
+    """The port's own config, simulator, ATE evaluation and host
+    initialization modules give what the JAX package's numpy-only modules
+    give, exactly."""
     if what == "config":
         assert dataclasses.asdict(tconfig.VioConfig()) == dataclasses.asdict(jconfig.VioConfig())
         assert config_from_dict(FLEET_CFG) == config_from_dict(dataclasses.asdict(config_from_dict(FLEET_CFG)))
@@ -470,8 +478,59 @@ def test_host_module_copies_agree(what):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(np.asarray(b[k]), np.asarray(a[k]), err_msg=k)
-    else:
+    elif what == "evaluate":
         rng = np.random.default_rng(2)
         gt = rng.normal(size=(50, 3))
         est = gt @ np.array([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]]) + 0.3 + rng.normal(0, 0.01, (50, 3))
         assert tevaluate.ate_rmse(est, gt) == jevaluate.ate_rmse(est, gt)
+    else:
+        for a, b in zip(_init_module_run(what, "larvio_tpu"), _init_module_run(what, "larvio_tpu_torch")):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+
+
+def _init_module_run(what: str, package: str) -> list:
+    """The outputs of one init module of ``package`` on seeded inputs: a
+    two-view window (relative pose, triangulation, PnP, new tracks, bundle
+    adjustment), the alignment of tests/test_dynamic_init.py's exact inputs,
+    or one preintegration."""
+    import importlib
+
+    mod = importlib.import_module(f"{package}.init.{what}")
+    rng = np.random.default_rng(9)
+    sim = jsim.Simulator(jsim.SimConfig(duration=3.0, static_lead_in=0.0), jconfig.VioConfig())
+    if what == "preintegration":
+        ts = np.linspace(1.0, 1.05, 11)
+        w, a = sim.imu_samples(ts)
+        pre = mod.Preintegration().integrate(ts, w, a, bg=np.array([0.01, -0.02, 0.005]))
+        return [pre.dR, pre.dv, pre.dp, pre.dt, pre.J_q_bg]
+    if what == "alignment":
+        pmod = importlib.import_module(f"{package}.init.preintegration")
+        tk = np.linspace(1.0, 2.0, 11)
+        R_cb = np.asarray(sim.R_ci)
+        p_bc = -R_cb.T @ np.asarray(sim.t_ci)
+        R_wb, p_cam = [], []
+        for t in tk:
+            p, R_wi = sim.pose(np.asarray(t))
+            R_wb.append(R_wi.T)
+            p_cam.append((p + R_wi.T @ p_bc) / 2.0)
+        preints = []
+        for k in range(len(tk) - 1):
+            ts = np.linspace(tk[k], tk[k + 1], 21)
+            w, a = sim.imu_samples(ts)
+            preints.append(pmod.Preintegration().integrate(ts, w, a))
+        ok, s, g, v = mod.linear_alignment(R_wb, p_cam, preints, p_bc, 9.81)
+        return [mod.solve_gyro_bias(R_wb, preints), ok, s, g, np.stack(v)]
+    pts = rng.uniform([-3, -3, 4], [3, 3, 10], (60, 3))
+    R2 = mod._exp(np.array([0.02, -0.03, 0.05]))
+    t2 = np.array([0.3, 0.05, 0.02])
+    p1 = pts[:, :2] / pts[:, 2:]
+    pc = pts @ R2.T + t2
+    p2 = pc[:, :2] / pc[:, 2:] + rng.normal(0, 1e-4, (60, 2))
+    R, t, inl = mod.relative_pose_ransac(p1, p2)
+    X = mod.triangulate(np.eye(3), np.zeros(3), R, t, p1[inl], p2[inl])
+    R_k, t_k, inl_k = mod.pnp(X, p2[inl])
+    obs = [(np.arange(60), p1), (np.arange(60), p2)]
+    pts3d = mod.triangulate_new_tracks([np.eye(3), R], [np.zeros(3), t], obs, {}, min_gap=1)
+    Rb, tb, Xb = mod.bundle_adjust([np.eye(3), R], [np.zeros(3), t], obs, pts3d)
+    return [R, t, inl, X, R_k, t_k, inl_k, np.stack(list(pts3d.values())), Rb[1], tb[1],
+            np.stack([Xb[i] for i in sorted(Xb)])]

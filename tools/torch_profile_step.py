@@ -48,9 +48,9 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    from larvio_tpu_torch.core.device import disable_tf32
+
+    disable_tf32()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
