@@ -32,7 +32,20 @@ Phases, each raising on failure (the script then exits non-zero):
    gates of phase 3 hold on its TUM and metrics files; then the first 80
    frames with a checkpoint and the next 80 resumed from it, against the
    uninterrupted cli run (within 1e-4 m); prints the per-frame budget, the
-   fps and the PNG decode time of one frame;
+   fps and the PNG decode time of one frame, and holds a Paeth-row frame
+   (unfiltered in C) under 10 ms;
+3e. ``bench.py``'s workload (``tools/torch_bench.py::bench_workload``: 400
+   frames, IMU noise and biases, 2 gray levels of image noise) once through
+   the single path: ATE < 0.13 m, 0 resets, finite, one K1 and one describe
+   launch per frame;
+3f. the fisheye configuration (``configs/uzh_fpv.yaml``: 640x480
+   equidistant, a 4x5 grid of 8 corners, 3 levels): K1 and describe against
+   their plain versions at its shapes, then 160 frames through the image
+   pipeline: 0 resets, mean tracks > 40, ATE < 0.2 m, one K1 and one
+   describe launch per frame (``tests/test_consistency.py``'s gates);
+3g. ``tests/test_consistency.py``'s feature-level workloads as two lanes of
+   one batched ``api.run_sequence`` (15 s each): position NEES < 12 per
+   axis; with 3% gross outliers 0 resets and ATE < 0.15 m;
 4. fleet path: the same 160 frames for 8 instances at once (lanes 1-7 with
    their own image noise, lane 7 with 1 s of NaN accelerometer samples)
    through ``run_fleet_image_sequence``, default configuration; checks every
@@ -42,7 +55,15 @@ Phases, each raising on failure (the script then exits non-zero):
    kernel once for all lanes, and no one-lane kernel;
 4b. the pure-MSCKF configuration (``max_slam_features=0``, D = 142): the
    single path of phase 3 and the 8-lane fleet of phase 4 with the same
-   gates, SLAM aside;
+   gates, SLAM aside, each run once (no warm-up run: the earlier phases
+   warmed the card; this keeps the command time under 600 s);
+4c. the sharded fleet (``parallel/fleet.py::make_sharded_fleet``,
+   ``make_sharded_fleet_run``; ranks spawned by ``parallel/multichip.py``)
+   on the JAX package's production-shape workload (the default
+   configuration, 8 lanes of 6 s): NCCL at world size 1 equal to the
+   one-process fleet bit for bit, 2 ``gloo`` ranks sharing the card within
+   the JAX test's bands of it (masks exact), the reduced metrics equal to
+   the host sums, then ``dryrun_multichip(2, backend="gloo")``;
 5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
    version at the same shapes (after phases 3 and 4: a process that has run
    ``torch.profiler`` launches every later kernel more slowly).
@@ -63,7 +84,6 @@ from __future__ import annotations
 import json
 import os
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -76,7 +96,8 @@ import torch
 
 import larvio_tpu_torch.pipeline as pipeline_mod
 from larvio_tpu_torch import cli
-from larvio_tpu_torch.config import FilterConfig, VioConfig
+from larvio_tpu_torch.api import make_frame_inputs, run_sequence
+from larvio_tpu_torch.config import FilterConfig, VioConfig, load_yaml
 from larvio_tpu_torch.core.device import disable_tf32
 from larvio_tpu_torch.data import png
 from larvio_tpu_torch.data.euroc import EurocSequence
@@ -90,11 +111,18 @@ from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
 from larvio_tpu_torch.ops.orb import _CIRC, N_BITS, _describe_plain, _r, describe
-from larvio_tpu_torch.parallel.fleet import fleet_metrics, init_fleet_pipeline_state, run_fleet_image_sequence
+from larvio_tpu_torch.parallel import multichip
+from larvio_tpu_torch.parallel.fleet import (fleet_metrics, fleet_step, init_fleet_pipeline_state,
+                                             init_fleet_state, run_fleet_image_sequence, run_fleet_sequence)
+from larvio_tpu_torch.parallel.multichip import lane_data
 from larvio_tpu_torch.data.trajectory import read_tum
-from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step, run_image_sequence_flexible
+from larvio_tpu_torch.pipeline import (FrameInput, init_pipeline_state, pipeline_step, run_image_sequence,
+                                       run_image_sequence_flexible)
+from tools.torch_bench import ATE_GATE as BENCH_ATE_GATE, bench_workload, card_line
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 PATCH, ITERS, PREC = 15, 12, 0.01
+PAETH_MS_GATE = 10.0  # ms per 752x480 Paeth-row frame on the card's host
 F_MAIN = 200
 B_FLEET = 8
 ATE_GATE = 0.05  # m; see PERF.md for the reference figures behind it
@@ -208,14 +236,6 @@ def _describe_gate(got, ref, mask):
     return same, bits, worst
 
 
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0] if out else "unknown"
-
-
 def _time_ms(fn, reps: int) -> float:
     """Time per call of fn() as a caller pays it, host work included: one
     CUDA-event window around ``reps`` calls, after warm-up."""
@@ -301,18 +321,19 @@ def _render(dev, sim, rend, t):
                 torch.as_tensor(p_cam, dtype=torch.float32, device=dev))
 
 
-def _lk_table(img0, dev):
-    """Up to F_MAIN - 16 corners of the port's own detector, padded with
-    invalid slots to F_MAIN. Returns (pos (F, 2), valid (F,), n)."""
-    scores, xy = grid_topk(nms(shi_tomasi_response(img0), radius=7), 4, 5, 16, border=25)
+def _lk_table(img0, dev, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2):
+    """Up to min(F - 16, 20 per_cell) corners (at least ``min_n``) of the
+    port's own detector (a 4x5 grid, ``per_cell`` per cell), padded with
+    invalid slots to F. Returns (pos (F, 2), valid (F,), n)."""
+    scores, xy = grid_topk(nms(shi_tomasi_response(img0), radius=7), 4, 5, per_cell, border=25)
     xy, scores = xy.reshape(-1, 2), scores.reshape(-1)
     order = torch.argsort(-scores, stable=True)
-    pts = xy[order[scores[order] > 15.0][: F_MAIN - 16]]
+    pts = xy[order[scores[order] > 15.0][: F - 16]]
     n = pts.shape[0]
-    assert n >= F_MAIN // 2, f"detector found only {n} corners"
-    pos = torch.zeros((F_MAIN, 2), dtype=torch.float32, device=dev)
+    assert n >= min_n, f"detector found only {n} corners"
+    pos = torch.zeros((F, 2), dtype=torch.float32, device=dev)
     pos[:n] = pts
-    valid = torch.zeros(F_MAIN, dtype=torch.bool, device=dev)
+    valid = torch.zeros(F, dtype=torch.bool, device=dev)
     valid[:n] = True
     return pos, valid, n
 
@@ -329,10 +350,12 @@ def _slab_positions(rng, H, W, F):
     return p
 
 
-def phase_kernels(dev, sim, rend):
+def phase_kernels(dev, sim, rend, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2, label=""):
+    """K1 and the one-lane describe against their plain versions on frames of
+    ``rend`` with an F-slot table (at most 20 ``per_cell`` live corners)."""
     img0, img1 = _render(dev, sim, rend, 6.0), _render(dev, sim, rend, 6.05)
     H, W = img0.shape
-    pos, valid, n = _lk_table(img0, dev)
+    pos, valid, n = _lk_table(img0, dev, F, per_cell, min_n)
 
     pyr0 = tuple(build_pyramid(img0, 3))
     pyr1 = tuple(build_pyramid(img1, 3))
@@ -360,7 +383,7 @@ def phase_kernels(dev, sim, rend):
     lk_track(list(pyr0), list(pyr1), grads, pos, pos, valid, patch=PATCH, iters=ITERS,
              precision=PREC, iters_run=iters_run)
     lk_bound, lk_by = _lk_bound([p.shape for p in pyr0], pos, valid, got.pos, iters_run)
-    print(f"K1 lk_track_cuda: {n} features / {F_MAIN} slots, valid agreement {agree:.4f}, "
+    print(f"K1 lk_track_cuda{label}: {W}x{H}, {n} features / {F} slots, valid agreement {agree:.4f}, "
           f"{frac:.4f} within 0.1 px, max |d| {lk_err:.4f} px (both valid); "
           f"bound {lk_bound:.6f} ms ({lk_by})", flush=True)
 
@@ -368,24 +391,24 @@ def phase_kernels(dev, sim, rend):
     part = lk_track_cuda(pyr0, pyr1, gx, gy, pos[:45], pos[:45], valid[:45], PATCH, ITERS, PREC)
     torch.cuda.synchronize()
     assert torch.equal(part.pos, got.pos[:45]) and torch.equal(part.valid, got.valid[:45]), \
-        "K1 on 45 slots differs from the first 45 of 200"
+        f"K1 on 45 slots differs from the first 45 of {F}"
 
     # describe at the JAX slab test's edge/clamp positions (NaN, inf
-    # included) and a random tenth of the slots invalid, F = 200
+    # included) and a random tenth of the slots invalid
     rng = np.random.default_rng(0)
     img = torch.as_tensor(rng.uniform(0.0, 255.0, (H, W)).astype(np.float32), device=dev)
-    pos2 = torch.as_tensor(_slab_positions(rng, H, W, F_MAIN), device=dev)
-    dvalid = torch.as_tensor(rng.uniform(size=F_MAIN) >= 0.1, device=dev)
+    pos2 = torch.as_tensor(_slab_positions(rng, H, W, F), device=dev)
+    dvalid = torch.as_tensor(rng.uniform(size=F) >= 0.1, device=dev)
     dvalid[:11] = True
     desc = describe(img, pos2, dvalid)
     torch.cuda.synchronize()
     plain = _describe_plain(img, pos2, dvalid)
-    assert desc.shape == (F_MAIN, 8) and desc.dtype == torch.int32
+    assert desc.shape == (F, 8) and desc.dtype == torch.int32
     assert not desc[~dvalid].any().item(), "describe: an invalid slot has a non-zero descriptor"
     same, bits, worst = _describe_gate(desc, plain, dvalid & torch.isfinite(pos2).all(dim=1))
     d_bound, d_by = _describe_bound(img, pos2, dvalid)
-    print(f"orb_describe: {int(dvalid.sum())} valid slots of {F_MAIN}; {same:.4f} of the valid "
-          f"finite ones bit-identical to the plain version, {bits:.6f} of their bits, max "
+    print(f"orb_describe{label}: {W}x{H}, {int(dvalid.sum())} valid slots of {F}; {same:.4f} of the "
+          f"valid finite ones bit-identical to the plain version, {bits:.6f} of their bits, max "
           f"Hamming {worst}; bound {d_bound:.6f} ms ({d_by})", flush=True)
     return [
         _Timing({"name": "lk_track", "route": "cuda", "source": "larvio_tpu_torch/csrc/lk.cu",
@@ -527,6 +550,13 @@ def _counts():
             "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched}
 
 
+def _one_launch_per_frame(T: int, label: str) -> None:
+    launches = _counts()
+    for name in ("lk_track", "orb_describe"):
+        assert launches[name] == T, f"{label}: {name} {launches[name]} kernel launches in {T} frames"
+        assert launches[f"{name}_batched"] == 0, f"{label}: batched {name} launched"
+
+
 def _health(o, gt_p, lane: str, resets_ok: bool = False):
     """Health gates of one run (arrays over frames); returns (ATE, mean tracks, n_init)."""
     m = o["initialized"].astype(bool)
@@ -553,7 +583,7 @@ def _slam_gate(o, lane: str) -> int:
     return n
 
 
-def phase_main_path(dev, cfg, data, imgs, card, label="main path"):
+def phase_main_path(dev, cfg, data, imgs, card, label="main path", warm_up=True):
     T = imgs.shape[0]
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
     frames = [
@@ -572,7 +602,8 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path"):
         return outs
 
     t0 = time.perf_counter()
-    run()  # warm-up (allocator, cuBLAS/cuSOLVER handles, kernel library load)
+    if warm_up:
+        run()  # warm-up (allocator, cuBLAS/cuSOLVER handles, kernel library load)
     warm_s = time.perf_counter() - t0
     _reset_counts()
     t0 = time.perf_counter()
@@ -629,10 +660,7 @@ def phase_flexible(dev, cfg, card):
     finally:
         pipeline_mod.inject_init_result = real
     wall = time.perf_counter() - t0
-    launches = _counts()
-    for name in ("lk_track", "orb_describe"):
-        assert launches[name] == T, f"flexible: {name} {launches[name]} kernel launches in {T} frames"
-        assert launches[f"{name}_batched"] == 0, f"flexible: batched {name} launched"
+    _one_launch_per_frame(T, "flexible")
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
         assert np.isfinite(o[k]).all(), f"flexible: non-finite {k}"
@@ -691,12 +719,9 @@ def phase_dataset(dev, cfg, card):
         torch.cuda.synchronize()
         _reset_counts()
         assert cli.main(["run", "-", root, "--eval", "--budget", "--metrics", metrics, "--out", traj]) == 0
-        launches = _counts()
         seq = EurocSequence(root)
         T = len(seq.image_stamps)
-        for name in ("lk_track", "orb_describe"):
-            assert launches[name] == T, f"cli run: {name} {launches[name]} kernel launches in {T} frames"
-            assert launches[f"{name}_batched"] == 0, f"cli run: batched {name} launched"
+        _one_launch_per_frame(T, "cli run")
         rows = np.loadtxt(metrics, delimiter=",", skiprows=1, ndmin=2)
         assert rows.shape == (T, 7), f"cli run: metrics CSV {rows.shape}, ({T}, 7) expected"
         init = rows[:, 1].astype(bool)
@@ -736,11 +761,19 @@ def phase_dataset(dev, cfg, card):
         img = png.decode_png_gray(own)
         paeth = _paeth_png(img)
         assert np.array_equal(png.decode_png_gray(paeth), img), "the Paeth file decodes to another image"
-        print(f"PNG decode of one {img.shape[1]}x{img.shape[0]} frame on the host: {_decode_ms(own):.3f} ms "
-              f"(the export's Up rows), {_decode_ms(paeth):.3f} ms (Paeth rows)", flush=True)
+        up_ms, paeth_ms = _decode_ms(own), _decode_ms(paeth)
+        idat = b"".join(body for kind, body in png._chunks(paeth) if kind == b"IDAT")
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(img.shape[0], -1)
+        t0 = time.perf_counter()
+        assert np.array_equal(png._unfilter_wavefront(rows[:, 1:], rows[:, 0]), img)
+        wave_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"PNG decode of one {img.shape[1]}x{img.shape[0]} frame on the host: {up_ms:.3f} ms "
+              f"(the export's Up rows), {paeth_ms:.3f} ms (Paeth rows, unfiltered in C; gate "
+              f"{PAETH_MS_GATE} ms); the numpy wavefront on the same rows {wave_ms:.3f} ms", flush=True)
+        assert paeth_ms < PAETH_MS_GATE, f"Paeth-row decode {paeth_ms:.3f} ms >= {PAETH_MS_GATE} ms"
 
 
-def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path"):
+def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path", warm_up=True):
     """B instances through one batched image step per frame."""
     T = imgs.shape[0]
     bimgs = torch.empty((T, B, *imgs.shape[1:]), dtype=torch.float32, device=dev)
@@ -769,7 +802,8 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
         return outs
 
     t0 = time.perf_counter()
-    run()  # warm-up
+    if warm_up:
+        run()
     warm_s = time.perf_counter() - t0
     _reset_counts()
     t0 = time.perf_counter()
@@ -816,11 +850,196 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
     return launches
 
 
+def _image_run(dev, cfg, frames, label: str):
+    """``frames`` through ``run_image_sequence`` once, from a fresh state;
+    checks one K1 and one describe launch per frame and finite outputs.
+    Returns (outputs as numpy arrays, wall seconds)."""
+    T = frames.t.shape[0]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, outs = run_image_sequence(cfg, init_pipeline_state(cfg, dev), frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _one_launch_per_frame(T, label)
+    o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
+    for k in ("p", "q", "v", "p_std"):
+        assert np.isfinite(o[k]).all(), f"{label}: non-finite {k}"
+    return o, wall
+
+
+BENCH_ATE_JAX = 0.1034  # m, the JAX package's bench.py on this workload (BENCH_r05.json)
+
+
+def phase_bench(dev, card):
+    """Phase 3e: ``bench.py``'s workload (``tools/torch_bench.py``'s
+    ``bench_workload``: 400 frames, IMU noise and biases, 2 gray levels of
+    image noise) once through the single path; ``bench.py``'s ATE gate."""
+    cfg = VioConfig()
+    data, frames = bench_workload(cfg, dev)
+    T = frames.t.shape[0]
+    o, wall = _image_run(dev, cfg, frames, "bench workload")
+    m = o["initialized"].astype(bool)
+    n_resets = int(o["did_reset"].sum())
+    assert n_resets == 0, f"bench workload: {n_resets} online resets"
+    ate = ate_rmse(o["p"][m], data["gt_p"][m])
+    assert ate < BENCH_ATE_GATE, f"bench workload: ATE {ate:.4f} m >= {BENCH_ATE_GATE}"
+    print(f"bench workload (bench.py's, {frames.image.shape[2]}x{frames.image.shape[1]}): {T} frames, {int(m.sum())} initialized, 0 resets, "
+          f"mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max {int(o['n_slam'].max())}, ATE "
+          f"{ate:.5f} m (gate {BENCH_ATE_GATE}; the JAX package: {BENCH_ATE_JAX}); one K1 and one "
+          f"describe launch per frame; {1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
+
+
+FISHEYE_TRACKS_GATE = 40  # mean tracks over initialized frames (tests/test_consistency.py:95)
+FISHEYE_ATE_GATE = 0.2  # m (tests/test_consistency.py:96)
+
+
+def phase_fisheye(dev, card):
+    """Phase 3f: the UZH-FPV configuration (640x480 equidistant fisheye, a
+    4x5 grid of 8 corners, 3 pyramid levels) through the image pipeline, the
+    JAX package's ``test_fisheye_image_pipeline_end_to_end``; first K1 and
+    the describe kernel against their plain versions at its shapes."""
+    cfg = load_yaml(os.path.join(REPO, "configs", "uzh_fpv.yaml"))
+    assert cfg.camera.distortion_model == "equidistant"
+    sim = Simulator(SimConfig(duration=8.0, landmark_z=(4.0, 10.0)), cfg)
+    rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
+    fc = cfg.frontend
+    phase_kernels(dev, sim, rend, F=fc.max_features, per_cell=fc.grid_max_feature_num,
+                  min_n=FISHEYE_TRACKS_GATE, label=" (fisheye)")
+    data = sim.generate()
+    imgs = torch.stack([_render(dev, sim, rend, t) for t in data["t_img"]])
+    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
+    frames = FrameInput(image=imgs, imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]),
+                        t=g["t_img"])
+    T = imgs.shape[0]
+    o, wall = _image_run(dev, cfg, frames, "fisheye")
+    m = o["initialized"].astype(bool)
+    n_resets = int(o["did_reset"].sum())
+    assert n_resets == 0, f"fisheye: {n_resets} online resets"
+    tracks = float(o["n_tracks"][m].mean())
+    assert tracks > FISHEYE_TRACKS_GATE, f"fisheye: mean n_tracks {tracks:.1f} <= {FISHEYE_TRACKS_GATE}"
+    ate = ate_rmse(o["p"][m], data["gt_p"][m])
+    assert ate < FISHEYE_ATE_GATE, f"fisheye: ATE {ate:.4f} m >= {FISHEYE_ATE_GATE}"
+    print(f"fisheye (uzh_fpv.yaml, {imgs.shape[2]}x{imgs.shape[1]}, {fc.max_features} slots): {T} frames, "
+          f"{int(m.sum())} initialized, 0 resets, mean n_tracks {tracks:.2f} (gate {FISHEYE_TRACKS_GATE}), "
+          f"ATE {ate:.5f} m (gate {FISHEYE_ATE_GATE}); one K1 and one describe launch per frame; "
+          f"{1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
+
+
+NEES_GATE = 12.0  # per axis (tests/test_consistency.py:35)
+OUTLIER_ATE_GATE = 0.15  # m (tests/test_consistency.py:56)
+
+
+def phase_consistency(dev, card):
+    """Phase 3g: ``tests/test_consistency.py``'s feature-level workloads
+    (the default configuration, 15 s) as two lanes of one batched
+    ``api.run_sequence``: lane 0 noisy IMU and pixels (position NEES), lane
+    1 clean IMU with 3% of the observations gross outliers."""
+    cfg = VioConfig()
+    a = Simulator(SimConfig(duration=15.0, pixel_noise=0.002, gyro_noise=0.005, acc_noise=0.05), cfg).generate()
+    b = Simulator(SimConfig(duration=15.0, pixel_noise=0.002), cfg).generate()
+    rng = np.random.default_rng(3)  # the test's outliers, drawn in its order
+    mask = b["fvalid"] & (rng.random(b["fvalid"].shape) < 0.03)
+    b["uv"] = b["uv"] + np.where(mask[..., None], rng.uniform(0.05, 0.2, b["uv"].shape)
+                                 * rng.choice([-1.0, 1.0], b["uv"].shape), 0.0).astype(np.float32)
+    lanes = {k: np.stack([a[k], b[k]], axis=1) for k in a}
+    feats, imu = make_frame_inputs(lanes, device=dev)
+    T = feats.t.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs = run_sequence(cfg, init_fleet_state(cfg, 2, dev), feats, imu)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
+    for k in ("p", "q", "v", "p_std"):
+        assert np.isfinite(o[k]).all(), f"consistency: non-finite {k}"
+    m = o["initialized"][:, 0].astype(bool)
+    err = o["p"][m, 0] - a["gt_p"][m]
+    std = o["p_std"][m, 0]
+    nees = (err ** 2 / np.maximum(std, 1e-6) ** 2).mean(axis=0)
+    assert np.all(nees < NEES_GATE), f"consistency: position NEES per axis {nees} (gate {NEES_GATE})"
+    assert np.all(std[-1] > 1e-4), f"consistency: final position std {std[-1]}"
+    m1 = o["initialized"][:, 1].astype(bool)
+    n_resets = int(o["did_reset"][:, 1].sum())
+    assert n_resets == 0, f"outliers: {n_resets} online resets"
+    ate = ate_rmse(o["p"][m1, 1], b["gt_p"][m1])
+    assert ate < OUTLIER_ATE_GATE, f"outliers: ATE {ate:.4f} m >= {OUTLIER_ATE_GATE}"
+    print(f"consistency (feature level, 2 lanes x {T} frames): lane 0 position NEES per axis "
+          f"{', '.join(f'{x:.3f}' for x in nees)} (gate {NEES_GATE}), final std "
+          f"{', '.join(f'{x:.2e}' for x in std[-1])} m, ATE {ate_rmse(o['p'][m, 0], a['gt_p'][m]):.5f} m; "
+          f"lane 1 ({int(mask.sum())} outlier observations): 0 resets, ATE {ate:.5f} m (gate "
+          f"{OUTLIER_ATE_GATE}); {1e3 * wall / T:.3f} ms per batched frame on {card}", flush=True)
+
+
+SHARD_BAND_HEAD, SHARD_BAND = 1.5e-2, 3e-2  # m, frames < 60 and all (tests/test_fleet.py:133-134)
+SHARD_GT_GATE = 0.25  # m from each lane's own ground truth (tests/test_fleet.py:143)
+
+
+def phase_sharded(dev, card):
+    """Phase 4c: the sharded fleet (``parallel/fleet.py``'s
+    ``make_sharded_fleet`` / ``make_sharded_fleet_run``, ranks started by
+    ``parallel/multichip.py``) on the JAX package's production-shape
+    workload (``tests/test_fleet.py:100-111``: the default configuration,
+    8 lanes of 6 s, pixel noise, seeds 100 + b), against one process."""
+    cfg = VioConfig()
+    B = 8
+    sims = [SimConfig(duration=6.0, pixel_noise=0.002, seed=100 + b) for b in range(B)]
+    data = lane_data(cfg, sims)
+    feats, imu = make_frame_inputs(data, device=dev)
+    T = feats.t.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vs, outs = run_fleet_sequence(cfg, init_fleet_state(cfg, B, dev), feats, imu)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, step = fleet_step(cfg, vs, *make_frame_inputs(data, k=T - 1, device=dev))
+    ref = {k: getattr(outs, k).cpu().numpy() for k in multichip.OUT_KEYS}
+    ref.update({f"step_{k}": getattr(step, k).cpu().numpy() for k in multichip.STEP_KEYS})
+
+    t0 = time.perf_counter()
+    one = multichip.run_sharded(cfg, sims, 1, device=dev, backend="nccl")
+    one_s = time.perf_counter() - t0
+    for k in ref:
+        assert np.array_equal(one[k], ref[k]), f"nccl, 1 rank: {k} differs from the one-process fleet"
+    sums = multichip.check_metrics(one)
+    print(f"sharded fleet, nccl, world size 1 on {one['devices'][0]}: {B} lanes x {T} frames equal the "
+          f"one-process run_fleet_sequence bit for bit (every output, and the final step's); reduced "
+          f"metrics {sums} = host sums; the rank's run {one['wall_s'][0]:.3f} s, the call {one_s:.3f} s "
+          f"(spawn included); one process {wall:.3f} s on {card}", flush=True)
+
+    t0 = time.perf_counter()
+    two = multichip.run_sharded(cfg, sims, 2, device=dev, backend="gloo")
+    two_s = time.perf_counter() - t0
+    for k in ("initialized", "did_reset"):
+        assert np.array_equal(two[k], ref[k]), f"gloo, 2 ranks: {k} differs from the one-process fleet"
+    d = np.abs(two["p"] - ref["p"])
+    head, worst = float(d[:60].max()), float(d.max())
+    assert head < SHARD_BAND_HEAD and worst < SHARD_BAND, \
+        f"gloo, 2 ranks: positions {head:.3e} m (first 60 frames) / {worst:.3e} m from one process"
+    gt = data["gt_p"]
+    for b in range(B):
+        m = two["initialized"][:, b].astype(bool)
+        e = float(np.linalg.norm(two["p"][m, b] - gt[m, b], axis=-1).max())
+        assert e < SHARD_GT_GATE, f"gloo, 2 ranks: lane {b} {e:.3f} m from its ground truth"
+    assert two["initialized"][-1].all() and not two["did_reset"].any()
+    sums = multichip.check_metrics(two)
+    print(f"sharded fleet, gloo, 2 ranks on {', '.join(two['devices'])} ({B // 2} lanes each): masks "
+          f"equal the one-process run's, max |dp| {worst:.3e} m ({head:.3e} over the first 60 frames; "
+          f"bands {SHARD_BAND_HEAD} / {SHARD_BAND}; lane independence predicts 0), every lane within "
+          f"{SHARD_GT_GATE} m of its ground truth; reduced metrics {sums} on both ranks; the ranks' runs "
+          f"{', '.join(f'{w:.3f}' for w in two['wall_s'])} s, the call {two_s:.3f} s on {card}", flush=True)
+
+    t0 = time.perf_counter()
+    multichip.dryrun_multichip(2, device=dev, backend="gloo")
+    print(f"dryrun_multichip(2, backend='gloo'): the call {time.perf_counter() - t0:.3f} s on {card}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False")
     disable_tf32()
-    card = _card_line()
+    card = card_line()
     print(card, flush=True)  # name, power limit (nvidia-smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda:0")
@@ -847,11 +1066,17 @@ def main() -> int:
     launches, ate = phase_main_path(dev, cfg, data, imgs, card)
     phase_flexible(dev, cfg, card)
     phase_dataset(dev, cfg, card)
+    phase_bench(dev, card)
+    phase_fisheye(dev, card)
+    phase_consistency(dev, card)
     launches.update({k: v for k, v in phase_fleet(dev, cfg, data, imgs, ate, card).items()
                      if k.endswith("_batched")})
     pure = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM slots
-    _, pure_ate = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path")
-    phase_fleet(dev, pure, data, imgs, pure_ate, card, label="pure-MSCKF fleet")
+    # no warm-up runs here: the default configuration's phases warmed every
+    # kernel, handle and allocator pool (keeps the command under 600 s)
+    _, pure_ate = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", warm_up=False)
+    phase_fleet(dev, pure, data, imgs, pure_ate, card, label="pure-MSCKF fleet", warm_up=False)
+    phase_sharded(dev, card)
     kernels = phase_timing(timings)
     for k in kernels:
         k["launches"] = launches[k["name"]]

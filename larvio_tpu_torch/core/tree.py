@@ -31,13 +31,15 @@ class Struct:
 
 
 def tree_map(fn, *trees):
-    """Map ``fn`` over matching leaves of dataclasses / tuples / lists."""
+    """Map ``fn`` over matching leaves of dataclasses / tuples / lists / dicts."""
     t0 = trees[0]
     if dataclasses.is_dataclass(t0) and not isinstance(t0, type):
         return type(t0)(**{
             f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
             for f in dataclasses.fields(t0)
         })
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (tuple, list)):
         out = [tree_map(fn, *xs) for xs in zip(*trees)]
         return type(t0)(*out) if hasattr(t0, "_fields") else type(t0)(out)

@@ -7,24 +7,74 @@ five row filters (None, Sub, Up, Average, Paeth). Any other file raises.
 
 Each filtered row adds a prediction to the stored bytes, modulo 256. Sub and
 Up predict from the pixel on the left or above, so a run of such rows is one
-cumulative sum. Average and Paeth predict from the left, upper and
-upper-left pixels together, so a pixel needs its left neighbour's final value.
-An image with such rows is decoded by an anti-diagonal wavefront: every pixel
-(r, c) with r + c = d depends only on diagonals d - 1 and d - 2, so each of
-the H + W - 1 steps decodes a whole diagonal with numpy.
+cumulative sum in numpy. Average and Paeth predict from the left, upper and
+upper-left pixels together, so a pixel needs its left neighbour's final value:
+an image with such rows (what adaptive writers, and so real EuRoC files,
+produce) is unfiltered by ``csrc/png_unfilter.c``, a serial pass in C built
+with the host's C compiler at first use into ``larvio_tpu_torch/_build/`` and
+called through ``ctypes`` (which releases the interpreter lock, so prefetch
+threads decode beside the dispatching one). A failed build raises.
+``_unfilter_wavefront`` is the numpy version the tests hold it to: every
+pixel (r, c) with r + c = d depends only on diagonals d - 1 and d - 2, so each
+of the H + W - 1 steps decodes a whole diagonal.
 
 The writer filters every row with Up (the row minus the row above).
 """
 
 from __future__ import annotations
 
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
 import struct
+import subprocess
 import zlib
+from pathlib import Path
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _NONE, _SUB, _UP, _AVERAGE, _PAETH = range(5)
+_PKG = Path(__file__).resolve().parent.parent
+_C_SRC = _PKG / "csrc" / "png_unfilter.c"
+_C_FLAGS = ["-O2", "-shared", "-fPIC"]
+_lib = None
+
+
+def _c_compiler() -> str:
+    for c in (os.environ.get("CC"), shutil.which("cc"), shutil.which("gcc")):
+        if c and shutil.which(c):
+            return c
+    raise RuntimeError("no C compiler (cc / gcc, or $CC) to build csrc/png_unfilter.c")
+
+
+def _unfilter_lib() -> ctypes.CDLL:
+    """The unfilter library, built on first call (reused while the source
+    and flags are unchanged)."""
+    global _lib
+    if _lib is None:
+        h = hashlib.sha256(" ".join(_C_FLAGS).encode() + _C_SRC.read_bytes()).hexdigest()[:16]
+        build = _PKG / "_build"
+        out = build / f"libpng_unfilter_{h}.so"
+        build.mkdir(parents=True, exist_ok=True)
+        with open(build / "png_build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # concurrent processes build once
+            if not out.exists():
+                tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+                cmd = [_c_compiler(), *_C_FLAGS, "-o", str(tmp), str(_C_SRC)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"C build failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                       f"{proc.stdout}\n{proc.stderr}")
+                os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.larvio_png_unfilter.argtypes = [vp, vp, i32, i32, vp]
+        lib.larvio_png_unfilter.restype = i32
+        _lib = lib
+    return _lib
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -75,8 +125,20 @@ def decode_png_gray(data: bytes) -> np.ndarray:
     if (ftype > _PAETH).any():
         raise ValueError(f"unknown PNG row filter {int(ftype.max())}")
     if (ftype >= _AVERAGE).any():
-        return _unfilter_wavefront(rows, ftype)
+        return _unfilter_c(rows, ftype)
     return _unfilter_runs(rows, ftype)
+
+
+def _unfilter_c(rows: np.ndarray, ftype: np.ndarray) -> np.ndarray:
+    """Any mix of the five filters, one serial pass in C."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    ftype = np.ascontiguousarray(ftype, dtype=np.uint8)
+    H, W = rows.shape
+    out = np.empty((H, W), np.uint8)
+    bad = _unfilter_lib().larvio_png_unfilter(rows.ctypes.data, ftype.ctypes.data, H, W, out.ctypes.data)
+    if bad:
+        raise ValueError(f"unknown PNG row filter {int(ftype[bad - 1])}")
+    return out
 
 
 def _unfilter_runs(rows: np.ndarray, ftype: np.ndarray) -> np.ndarray:

@@ -17,7 +17,8 @@ card: >= 97% of the valid finite slots bit-identical, >= 99.9% of their bits
 equal, none more than 8 bits apart (the blur is bit-exact; the moments are
 summed in another order than ``torch.sum``, so a rotated sample may round
 the other way); invalid slots are 0; each batched lane equals its one-lane
-launch bit for bit.
+launch bit for bit. The sharded fleet's dry run runs with two ``gloo`` ranks
+sharing the card.
 """
 
 import numpy as np
@@ -271,3 +272,13 @@ def test_main_path_on_card_launches_both_kernels(dev, seq):
     inited = torch.stack([o.initialized for o in outs]).cpu().numpy()
     assert np.isfinite(p).all() and inited.sum() >= 40
     assert int(torch.stack([o.did_reset for o in outs]).sum()) == 0
+
+
+def test_sharded_dryrun_on_card_with_gloo(dev):
+    """The sharded fleet's dry run with two gloo ranks sharing the card (nccl
+    needs a card per rank): its gates hold, every rank on a card."""
+    from larvio_tpu_torch.parallel import multichip
+
+    res = multichip.dryrun_multichip(2, device="cuda", backend="gloo")
+    assert res["backend"] == "gloo" and all(d.startswith("cuda:") for d in res["devices"])
+    assert res["slam_engaged"] >= 1 and res["p"].shape[1] == 4

@@ -153,6 +153,45 @@ def test_png_each_row_filter(ftypes):
     np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE), img)
 
 
+@pytest.mark.parametrize("case", ["adaptive", "adaptive_noisy", "random"])
+def test_png_c_unfilter_matches_the_wavefront(tmp_path, case):
+    """The C unfilter (the decoder's path for Average/Paeth rows) against
+    the numpy wavefront it replaced, on cv2-written adaptive-filter files at
+    752x480, and on random bytes under every filter: equal exactly."""
+    rng = np.random.default_rng(4)
+    if case == "random":
+        rows = rng.integers(0, 256, (61, 97), dtype=np.uint8)
+        ftype = rng.integers(0, 5, 61).astype(np.uint8)
+        want = tpng._unfilter_wavefront(rows, ftype)
+    else:
+        img = _texture(480, 752, seed=5)
+        if case == "adaptive_noisy":
+            img = np.clip(img + rng.normal(0, 3.0, img.shape), 0, 255).astype(np.uint8)
+        path = str(tmp_path / "cv.png")
+        cv2.imwrite(path, img, [cv2.IMWRITE_PNG_COMPRESSION, 3])
+        data = open(path, "rb").read()
+        idat = b"".join(body for kind, body in tpng._chunks(data) if kind == b"IDAT")
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(480, 753)
+        rows, ftype = raw[:, 1:], raw[:, 0]
+        assert {3, 4} & set(ftype.tolist())  # Average or Paeth rows: the C path
+        want = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(tpng._unfilter_wavefront(rows, ftype), want)
+        np.testing.assert_array_equal(tpng.decode_png_gray(data), want)
+    np.testing.assert_array_equal(tpng._unfilter_c(rows, ftype), want)
+
+
+def test_png_c_unfilter_refuses_and_never_falls_back(monkeypatch):
+    """An unknown filter raises; a failed build raises (no numpy path)."""
+    with pytest.raises(ValueError, match="row filter 5"):
+        tpng._unfilter_c(np.zeros((2, 3), np.uint8), np.array([0, 5], np.uint8))
+    monkeypatch.setattr(tpng, "_lib", None)
+    monkeypatch.setattr(tpng, "_C_FLAGS", tpng._C_FLAGS + ["-DLARVIO_UNBUILT"])
+    monkeypatch.setattr(tpng, "_c_compiler", lambda: "false")
+    data = _png_file(_filter_rows(_texture(5, 6), np.full(5, 4)), 6, 5)
+    with pytest.raises(RuntimeError, match="C build failed"):
+        tpng.decode_png_gray(data)
+
+
 @pytest.mark.parametrize("kind", ["rgb", "16bit", "bad_crc", "not_png"])
 def test_png_rejects_what_it_does_not_read(tmp_path, kind):
     img = _texture(12, 16)

@@ -446,8 +446,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     rel = {os.path.relpath(f, REPO) for f in files}
     for name in ("cli.py", "api.py", "init/flexible.py", "init/sfm.py", "init/alignment.py",
                  "init/preintegration.py", "utils/checkpoint.py", "data/euroc.py",
-                 "data/export_euroc.py", "data/trajectory.py", "data/png.py"):
+                 "data/export_euroc.py", "data/trajectory.py", "data/png.py",
+                 "parallel/fleet.py", "parallel/multichip.py"):
         assert f"larvio_tpu_torch/{name}" in rel, name
+    assert "tools/torch_bench.py" in rel
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
