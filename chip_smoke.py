@@ -680,8 +680,8 @@ def phase_flexible(dev, cfg, card):
 
 
 def _paeth_png(img: np.ndarray) -> bytes:
-    """``img`` as a PNG whose every row is Paeth-filtered (the decoder's
-    wavefront path; files with adaptive filters take it)."""
+    """``img`` as a PNG whose every row is Paeth-filtered (the costliest row
+    filter to undo; adaptive writers, and so real EuRoC files, use it)."""
     x = img.astype(np.int16)
     a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
     a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
@@ -768,7 +768,7 @@ def phase_dataset(dev, cfg, card):
         assert np.array_equal(png._unfilter_wavefront(rows[:, 1:], rows[:, 0]), img)
         wave_ms = 1e3 * (time.perf_counter() - t0)
         print(f"PNG decode of one {img.shape[1]}x{img.shape[0]} frame on the host: {up_ms:.3f} ms "
-              f"(the export's Up rows), {paeth_ms:.3f} ms (Paeth rows, unfiltered in C; gate "
+              f"(the export's Up rows), {paeth_ms:.3f} ms (Paeth rows; both unfiltered in C; gate "
               f"{PAETH_MS_GATE} ms); the numpy wavefront on the same rows {wave_ms:.3f} ms", flush=True)
         assert paeth_ms < PAETH_MS_GATE, f"Paeth-row decode {paeth_ms:.3f} ms >= {PAETH_MS_GATE} ms"
 

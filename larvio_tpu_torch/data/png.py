@@ -5,18 +5,17 @@ reads them here, so the dataset path needs no OpenCV. Only what EuRoC
 sequences hold is read: 8-bit grayscale (colour type 0), not interlaced, all
 five row filters (None, Sub, Up, Average, Paeth). Any other file raises.
 
-Each filtered row adds a prediction to the stored bytes, modulo 256. Sub and
-Up predict from the pixel on the left or above, so a run of such rows is one
-cumulative sum in numpy. Average and Paeth predict from the left, upper and
-upper-left pixels together, so a pixel needs its left neighbour's final value:
-an image with such rows (what adaptive writers, and so real EuRoC files,
-produce) is unfiltered by ``csrc/png_unfilter.c``, a serial pass in C built
-with the host's C compiler at first use into ``larvio_tpu_torch/_build/`` and
-called through ``ctypes`` (which releases the interpreter lock, so prefetch
-threads decode beside the dispatching one). A failed build raises.
-``_unfilter_wavefront`` is the numpy version the tests hold it to: every
-pixel (r, c) with r + c = d depends only on diagonals d - 1 and d - 2, so each
-of the H + W - 1 steps decodes a whole diagonal.
+Each filtered row adds a prediction to the stored bytes, modulo 256, from
+the pixel on the left, the one above or the upper-left one. Average and Paeth
+rows (what adaptive writers, and so real EuRoC files, produce) need each
+pixel's left neighbour's final value, a serial chain: every file is
+unfiltered by ``csrc/png_unfilter.c``, one pass in C built with the host's C
+compiler at first use into ``larvio_tpu_torch/_build/`` and called through
+``ctypes`` (which releases the interpreter lock, so prefetch threads decode
+beside the dispatching one). A failed build raises, and so does an unknown
+row filter. ``_unfilter_wavefront`` is the numpy version the tests hold it
+to: every pixel (r, c) with r + c = d depends only on diagonals d - 1 and
+d - 2, so each of the H + W - 1 steps decodes a whole diagonal.
 
 The writer filters every row with Up (the row minus the row above).
 """
@@ -121,16 +120,11 @@ def decode_png_gray(data: bytes) -> np.ndarray:
     if raw.size != H * (W + 1):
         raise ValueError(f"PNG data holds {raw.size} bytes, {H * (W + 1)} expected")
     raw = raw.reshape(H, W + 1)
-    ftype, rows = raw[:, 0], raw[:, 1:]
-    if (ftype > _PAETH).any():
-        raise ValueError(f"unknown PNG row filter {int(ftype.max())}")
-    if (ftype >= _AVERAGE).any():
-        return _unfilter_c(rows, ftype)
-    return _unfilter_runs(rows, ftype)
+    return _unfilter_c(raw[:, 1:], raw[:, 0])
 
 
 def _unfilter_c(rows: np.ndarray, ftype: np.ndarray) -> np.ndarray:
-    """Any mix of the five filters, one serial pass in C."""
+    """Any mix of the five filters, one serial pass in C; an unknown filter raises."""
     rows = np.ascontiguousarray(rows, dtype=np.uint8)
     ftype = np.ascontiguousarray(ftype, dtype=np.uint8)
     H, W = rows.shape
@@ -138,25 +132,6 @@ def _unfilter_c(rows: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     bad = _unfilter_lib().larvio_png_unfilter(rows.ctypes.data, ftype.ctypes.data, H, W, out.ctypes.data)
     if bad:
         raise ValueError(f"unknown PNG row filter {int(ftype[bad - 1])}")
-    return out
-
-
-def _unfilter_runs(rows: np.ndarray, ftype: np.ndarray) -> np.ndarray:
-    """None / Sub / Up rows, one cumulative sum per run of equal filters
-    (uint8 sums wrap modulo 256)."""
-    H, W = rows.shape
-    out = np.empty((H, W), np.uint8)
-    prev = np.zeros(W, np.uint8)
-    starts = np.flatnonzero(np.r_[True, ftype[1:] != ftype[:-1]])
-    for r0, r1 in zip(starts, np.r_[starts[1:], H]):
-        run = rows[r0:r1]
-        if ftype[r0] == _SUB:
-            out[r0:r1] = np.cumsum(run, axis=1, dtype=np.uint8)
-        elif ftype[r0] == _UP:
-            out[r0:r1] = np.cumsum(run, axis=0, dtype=np.uint8) + prev
-        else:
-            out[r0:r1] = run
-        prev = out[r1 - 1]
     return out
 
 

@@ -27,6 +27,8 @@ own lanes only: ``shard_lanes`` cuts a rank's block from a (B, ...) or
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.distributed as dist
 
@@ -143,13 +145,8 @@ def make_sharded_fleet(cfg: VioConfig, group=None, device="cuda"):
 
 
 def make_sharded_fleet_run(cfg: VioConfig, group=None):
-    """``run_fn(vs, seq_feats, seq_imu) -> (vs, outs)``: this rank's lanes
-    ((B/n, ...) state, (T, B/n, ...) inputs) through every frame, with no
-    communication (the JAX package's scan inside ``shard_map``). ``group``
-    is kept for the JAX package's signature: nothing here talks to it."""
-    del group
-
-    def run_fn(vs: VioState, seq_feats, seq_imu):
-        return run_fleet_sequence(cfg, vs, seq_feats, seq_imu)
-
-    return run_fn
+    """The JAX package's name for ``run_fleet_sequence`` on this rank's lanes:
+    ``run_fn(vs, seq_feats, seq_imu) -> (vs, outs)`` with (B/n, ...) state
+    and (T, B/n, ...) inputs. A sequence needs no communication, so
+    ``group`` is unused."""
+    return functools.partial(run_fleet_sequence, cfg)

@@ -7,8 +7,9 @@ of ``__graft_entry__.py``'s ``dryrun_multichip`` / ``_dryrun_multichip_impl``).
 ``run_sharded`` starts ``n_ranks`` processes with ``torch.multiprocessing``'s
 spawn start method (CUDA forbids fork). They meet through a ``file://``
 store in a temporary directory (no TCP port to collide with another test
-worker). Rank r generates the simulator runs of its own lanes, runs them
-through ``make_sharded_fleet_run`` (a whole sequence, no communication),
+worker). Rank r generates every lane's simulator run (the JAX package's
+global arrays), cuts its own block with ``shard_lanes``, runs it through
+``make_sharded_fleet_run`` (a whole sequence, no communication),
 then one ``step_fn`` on the last frame (one ``all_reduce`` of the health
 sums), and writes its outputs into the temporary directory; the caller reads
 them back there, so gathering adds no collective. A rank that raises fails
@@ -43,7 +44,8 @@ from larvio_tpu_torch.api import make_frame_inputs
 from larvio_tpu_torch.config import FilterConfig, FrontendConfig, VioConfig
 from larvio_tpu_torch.core.device import disable_tf32, resolve_device
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
-from larvio_tpu_torch.parallel.fleet import METRIC_KEYS, lane_block, make_sharded_fleet, make_sharded_fleet_run
+from larvio_tpu_torch.parallel.fleet import (METRIC_KEYS, lane_block, make_sharded_fleet, make_sharded_fleet_run,
+                                             shard_lanes)
 
 # the JAX dry run's configuration (__graft_entry__.py): the default clone
 # window and SLAM block, the feature table, IMU slots and update batches cut
@@ -101,8 +103,7 @@ def _rank_main(rank: int, n_ranks: int, backend: str, device_type: str, cfg: Vio
                             world_size=n_ranks, rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
-        blk = lane_block(len(sims), n_ranks, rank)
-        data = lane_data(cfg, sims[blk])
+        data = shard_lanes(lane_data(cfg, sims), axis=1)
         feats, imu = make_frame_inputs(data, device=dev)
         init_fn, step_fn = make_sharded_fleet(cfg, device=dev)
         run_fn = make_sharded_fleet_run(cfg)

@@ -155,7 +155,7 @@ def test_png_each_row_filter(ftypes):
 
 @pytest.mark.parametrize("case", ["adaptive", "adaptive_noisy", "random"])
 def test_png_c_unfilter_matches_the_wavefront(tmp_path, case):
-    """The C unfilter (the decoder's path for Average/Paeth rows) against
+    """The C unfilter (the decoder's path for every file) against
     the numpy wavefront it replaced, on cv2-written adaptive-filter files at
     752x480, and on random bytes under every filter: equal exactly."""
     rng = np.random.default_rng(4)
@@ -173,7 +173,7 @@ def test_png_c_unfilter_matches_the_wavefront(tmp_path, case):
         idat = b"".join(body for kind, body in tpng._chunks(data) if kind == b"IDAT")
         raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(480, 753)
         rows, ftype = raw[:, 1:], raw[:, 0]
-        assert {3, 4} & set(ftype.tolist())  # Average or Paeth rows: the C path
+        assert {3, 4} & set(ftype.tolist())  # Average or Paeth rows
         want = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
         np.testing.assert_array_equal(tpng._unfilter_wavefront(rows, ftype), want)
         np.testing.assert_array_equal(tpng.decode_png_gray(data), want)
@@ -192,7 +192,7 @@ def test_png_c_unfilter_refuses_and_never_falls_back(monkeypatch):
         tpng.decode_png_gray(data)
 
 
-@pytest.mark.parametrize("kind", ["rgb", "16bit", "bad_crc", "not_png"])
+@pytest.mark.parametrize("kind", ["rgb", "16bit", "bad_crc", "not_png", "bad_filter"])
 def test_png_rejects_what_it_does_not_read(tmp_path, kind):
     img = _texture(12, 16)
     path = str(tmp_path / "x.png")
@@ -201,10 +201,13 @@ def test_png_rejects_what_it_does_not_read(tmp_path, kind):
     elif kind == "16bit":
         cv2.imwrite(path, img.astype(np.uint16) * 257)
     else:
-        data = bytearray(_png_file(_filter_rows(img, np.zeros(12, int)), 16, 12))
+        raw = _filter_rows(img, np.zeros(12, int))
+        if kind == "bad_filter":
+            raw[7, 0] = 5  # no such row filter
+        data = bytearray(_png_file(raw, 16, 12))
         if kind == "bad_crc":
             data[29] ^= 1  # last CRC byte of IHDR
-        else:
+        elif kind == "not_png":
             data[1] = ord("Q")
         open(path, "wb").write(bytes(data))
     with pytest.raises(ValueError):

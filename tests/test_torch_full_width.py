@@ -2,16 +2,18 @@
 width (752x480, the default ``VioConfig()``: 200 feature slots, 20 clones,
 6 SLAM slots), on the CPU.
 
-The first 40 frames of the clean 8 s simulator workload (``chip_smoke.py``'s
-main path: 2 s at rest, so the static initializer fires mid-window), rendered
-once by the JAX package, go through the JAX package's jitted
-``pipeline_step`` and the port's ``run_image_sequence``. Gates: the
+The whole clean 8 s simulator workload (``chip_smoke.py``'s main path: 160
+frames, 2 s at rest, so the static initializer fires at about frame 20 and
+the last 120 frames move), rendered once by the JAX package, goes through
+the JAX package's jitted ``pipeline_step`` and the port's
+``run_image_sequence``. A window that ends inside the rest compares
+positions that barely move, so the test runs the whole sequence. Gates: the
 initialized masks are equal and positions within 1 cm, the bar the 320x240
 parity tests use (``tests/test_torch_pipeline.py``). The test prints the
 largest position difference.
 
-Marked slow: a full-width image pipeline in both packages takes minutes and
-gigabytes of host memory on the CPU, so it stays out of the fast tier.
+Marked slow: about a minute and a bit over 1 GiB of host memory, more than
+the fast tier's budget for one test.
 """
 
 import dataclasses
@@ -31,7 +33,7 @@ from larvio_tpu_torch.convert import config_from_dict
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, run_image_sequence
 
-N_FRAMES = 40
+N_FRAMES = 160
 POS_TOL = 0.01  # m
 
 
@@ -70,7 +72,7 @@ def test_full_width_trajectory_matches_jax():
     t_p, t_init = outs.p.numpy(), outs.initialized.numpy()
 
     np.testing.assert_array_equal(t_init, j_init)
-    assert t_init.sum() >= 10
+    assert t_init.sum() >= 100
     d = float(np.abs(t_p - j_p).max())
     print(f"752x480, {N_FRAMES} frames, {int(t_init.sum())} initialized: max |dp| {d:.3e} m "
           f"from the JAX package (gate {POS_TOL})")
