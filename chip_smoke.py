@@ -4,9 +4,9 @@
 
 Phases, each raising on failure (the script then exits non-zero):
 
-0. device: requires CUDA (no CPU fallback), turns TF32 off
-   (``core/device.py::disable_tf32``), prints the card's name and power
-   limit;
+0. device: requires CUDA (no CPU fallback), keeps matmuls in float32 and
+   every factorization in cuSOLVER (``core/device.py::card_numerics``),
+   prints the card's name and power limit;
 1. build: compiles the hand-written kernels (``larvio_tpu_torch/csrc``) with
    nvcc, or reuses an up-to-date build;
 2. kernels: K1 (pyramidal LK, also on a ragged 45-slot table) and the fused
@@ -17,56 +17,80 @@ Phases, each raising on failure (the script then exits non-zero):
    batched describe launch against the plain version per lane and against
    the one-lane launch;
 3. main path: 160 rendered frames of the clean 8 s simulator workload through
-   ``pipeline_step`` at full EuRoC width in the default configuration
-   (``VioConfig()``: 6 SLAM slots, D = 160, the hybrid SLAM/MSCKF update);
-   checks initialization, resets, finiteness, track counts, ATE, that SLAM
-   features entered the state (``n_slam`` >= 3 at some frame) and that
-   every frame launched K1 and the describe kernel once;
+   ``run_image_sequence`` at full EuRoC width in the default configuration
+   (``VioConfig()``: 6 SLAM slots, D = 160, the hybrid SLAM/MSCKF update),
+   eager and captured as a CUDA graph in turns (eager, captured, captured,
+   eager), every run equal to the first bit for bit (outputs and final
+   state), with eager and captured ms/frame; checks initialization,
+   resets, finiteness, track counts, ATE, that SLAM features entered the
+   state (``n_slam`` >= 3 at some frame) and that every frame launched K1
+   and the describe kernel once (eager: the wrappers' counts; captured: the
+   graph's replays times what its capture counted, no wrapper running);
 3c. flexible moving start: 200 rendered frames (10 s, no static lead-in,
-   gyro bias) through ``run_image_sequence_flexible``; checks that the host
-   initializer injected a dynamic result, > 175 initialized frames, 0 resets,
-   finiteness, ATE < 0.15 m and one K1 and one describe launch per frame;
+   gyro bias) through ``run_image_sequence_flexible`` (eager head, captured
+   tail); checks that the host initializer injected a dynamic result, > 175
+   initialized frames, 0 resets, finiteness, ATE < 0.15 m and one K1 and one
+   describe launch per frame;
 3d. the dataset path: ``cli.main(["export-sim", ...])`` writes an 8 s EuRoC
    tree from frames rendered on the card, ``cli.main(["run", ...])`` reads it
-   back (PNG decode, prefetch, the streaming loop with ``--budget``) and the
-   gates of phase 3 hold on its TUM and metrics files; then the first 80
-   frames with a checkpoint and the next 80 resumed from it, against the
+   back (PNG decode, prefetch, the streaming loop replaying the step it
+   captured at its first frame, with ``--budget``) and the gates of phase 3
+   hold on its TUM and metrics files; ``run --chunk 8`` writes the same TUM
+   file byte for byte; then the first 80 frames with a checkpoint and the
+   next 80 resumed from it, with ``--chunk 1`` and ``--chunk 8``, against the
    uninterrupted cli run (within 1e-4 m); prints the per-frame budget, the
    fps and the PNG decode time of one frame, and holds a Paeth-row frame
    (unfiltered in C) under 10 ms;
 3e. ``bench.py``'s workload (``tools/torch_bench.py::bench_workload``: 400
    frames, IMU noise and biases, 2 gray levels of image noise) once through
-   the single path: ATE < 0.13 m, 0 resets, finite, one K1 and one describe
-   launch per frame;
+   the captured single path: ATE < 0.13 m, 0 resets, finite, one K1 and one
+   describe launch per frame;
 3f. the fisheye configuration (``configs/uzh_fpv.yaml``: 640x480
    equidistant, a 4x5 grid of 8 corners, 3 levels): K1 and describe against
-   their plain versions at its shapes, then 160 frames through the image
-   pipeline: 0 resets, mean tracks > 40, ATE < 0.2 m, one K1 and one
+   their plain versions at its shapes, then 160 frames through the captured
+   image pipeline: 0 resets, mean tracks > 40, ATE < 0.2 m, one K1 and one
    describe launch per frame (``tests/test_consistency.py``'s gates);
 3g. ``tests/test_consistency.py``'s feature-level workloads as two lanes of
-   one batched ``api.run_sequence`` (15 s each): position NEES < 12 per
-   axis; with 3% gross outliers 0 resets and ATE < 0.15 m;
+   one batched ``api.run_sequence`` (15 s each), eager and captured in
+   turns, equal bit for bit: position NEES < 12 per axis; with 3% gross
+   outliers 0 resets and ATE < 0.15 m;
+3h. the reference's remaining feature-level gates (``tests/test_e2e_sim.py``
+   and the verify skill's drives): seven 15 s workloads (clean, noisy with
+   biases, time offsets -0.02 and +0.02, vision dropout, IMU gap, ZUPT at
+   standstill) as lanes of one captured ``api.run_sequence``, each held to
+   its test's gates, then the noisy 20 s drive as one instance (ATE < 0.10
+   m, 0 resets); each workload's figures beside the JAX package's on the CPU
+   (``tools/f2_figures.py``);
 4. fleet path: the same 160 frames for 8 instances at once (lanes 1-7 with
    their own image noise, lane 7 with 1 s of NaN accelerometer samples)
-   through ``run_fleet_image_sequence``, default configuration; checks every
-   lane's health, lane 0's SLAM engagement and its ATE against the single
-   path's, that the NaN lane holds no SLAM slot on its reset frames, the
-   fleet metrics and that every frame launched K3 and the batched describe
-   kernel once for all lanes, and no one-lane kernel;
+   through ``run_fleet_image_sequence``, default configuration, eager and
+   captured in turns, equal bit for bit (the NaN lane included); checks
+   every lane's health, lane 0's SLAM engagement and its ATE against the
+   single path's, that the NaN lane holds no SLAM slot on its reset frames,
+   the fleet metrics and that every frame launched K3 and the batched
+   describe kernel once for all lanes, and no one-lane kernel;
 4b. the pure-MSCKF configuration (``max_slam_features=0``, D = 142): the
    single path of phase 3 and the 8-lane fleet of phase 4 with the same
-   gates, SLAM aside, each run once (no warm-up run: the earlier phases
-   warmed the card; this keeps the command time under 600 s);
+   gates, SLAM aside, one captured run each;
 4c. the sharded fleet (``parallel/fleet.py::make_sharded_fleet``,
    ``make_sharded_fleet_run``; ranks spawned by ``parallel/multichip.py``)
    on the JAX package's production-shape workload (the default
-   configuration, 8 lanes of 6 s): NCCL at world size 1 equal to the
-   one-process fleet bit for bit, 2 ``gloo`` ranks sharing the card within
-   the JAX test's bands of it (masks exact), the reduced metrics equal to
-   the host sums, then ``dryrun_multichip(2, backend="gloo")``;
+   configuration, 8 lanes of 6 s): NCCL at world size 1 and 2 ``gloo`` ranks
+   sharing the card (4 lanes each) equal to the one-process fleet bit for
+   bit (a lane's arithmetic does not depend on the lanes beside it), the
+   reduced metrics equal to the host sums, then
+   ``dryrun_multichip(2, backend="gloo")``;
 5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
-   version at the same shapes (after phases 3 and 4: a process that has run
+   version at the same shapes; then host launch calls per frame, device
+   busy time and idle share of the eager and the captured main path and
+   fleet under ``torch.profiler`` (last: a process that has run
    ``torch.profiler`` launches every later kernel more slowly).
+
+On the card every path but the eager runs of phases 3, 3g and 4 replays a
+captured step, so a kernel's wrapper runs only while a step is captured
+(and in the capture's eager warm-up steps); ``launches`` in the kernels line
+is the main path's (phase 3's, phase 4's for the batched kernels) captured
+run: its replays times the launches its capture recorded.
 
 Each kernel's line carries its own device time per launch (``ms``, from
 ``torch.profiler``'s device events of its ``__global__`` over 100-200
@@ -98,7 +122,9 @@ import larvio_tpu_torch.pipeline as pipeline_mod
 from larvio_tpu_torch import cli
 from larvio_tpu_torch.api import make_frame_inputs, run_sequence
 from larvio_tpu_torch.config import FilterConfig, VioConfig, load_yaml
-from larvio_tpu_torch.core.device import disable_tf32
+from larvio_tpu_torch.core.device import card_numerics
+from larvio_tpu_torch.core.graph import WARMUP_STEPS
+from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.data import png
 from larvio_tpu_torch.data.euroc import EurocSequence
 from larvio_tpu_torch.data.evaluate import ate_rmse
@@ -106,18 +132,20 @@ from larvio_tpu_torch.data.render import Renderer
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.ops import cuda_lib
+from larvio_tpu_torch.ops.cuda_lib import kernel_launches
 from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
 from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
 from larvio_tpu_torch.ops.orb import _CIRC, N_BITS, _describe_plain, _r, describe
 from larvio_tpu_torch.parallel import multichip
+from larvio_tpu_torch.models.msckf import init_vio_state
 from larvio_tpu_torch.parallel.fleet import (fleet_metrics, fleet_step, init_fleet_pipeline_state,
                                              init_fleet_state, run_fleet_image_sequence, run_fleet_sequence)
 from larvio_tpu_torch.parallel.multichip import lane_data
 from larvio_tpu_torch.data.trajectory import read_tum
-from larvio_tpu_torch.pipeline import (FrameInput, init_pipeline_state, pipeline_step, run_image_sequence,
-                                       run_image_sequence_flexible)
+from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state, pipeline_step,
+                                       run_image_sequence, run_image_sequence_flexible)
 from tools.torch_bench import ATE_GATE as BENCH_ATE_GATE, bench_workload, card_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -545,16 +573,83 @@ def _reset_counts():
     describe.launches = describe.launches_batched = 0
 
 
-def _counts():
-    return {"lk_track": lk_track_cuda.launches, "lk_track_batched": lk_track_cuda.launches_batched,
-            "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched}
+def _launch_gate(launches: dict, T: int, label: str, batched: bool = False) -> None:
+    """One launch per frame of the path's two kernels, none of the other two."""
+    names = ("lk_track_batched", "orb_describe_batched") if batched else ("lk_track", "orb_describe")
+    for name, n in launches.items():
+        want = T if name in names else 0
+        assert n == want, f"{label}: {name} {n} kernel launches in {T} frames ({want} expected)"
 
 
-def _one_launch_per_frame(T: int, label: str) -> None:
-    launches = _counts()
-    for name in ("lk_track", "orb_describe"):
-        assert launches[name] == T, f"{label}: {name} {launches[name]} kernel launches in {T} frames"
-        assert launches[f"{name}_batched"] == 0, f"{label}: batched {name} launched"
+def _capture(cfg, ps, frames):
+    """``capture_pipeline_step`` for (T, ...) ``frames``, its eager warm-up
+    steps and its capture outside any counting window."""
+    graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
+    torch.cuda.synchronize()
+    return graph
+
+
+def _replayed(graph, fn):
+    """``fn()``, which replays ``graph``, with the wrapper counts reset first:
+    returns (its result, wall s, the launches its replays made: replays times
+    what the capture counted). No wrapper may run meanwhile (every launch goes
+    through the graph)."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    r0 = graph.replays
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert not any(kernel_launches().values()), f"a kernel wrapper ran during the replays: {kernel_launches()}"
+    return res, wall, {k: v * (graph.replays - r0) for k, v in graph.launches_per_replay.items()}
+
+
+def _bits_equal(a, b) -> bool:
+    """Every leaf of two trees has the same dtype, shape and bits (NaN included)."""
+    la, lb = list(leaves(a)), list(leaves(b))
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype != torch.bool:
+            x, y = x.contiguous().reshape(-1).view(torch.uint8), y.contiguous().reshape(-1).view(torch.uint8)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _eager_vs_captured(cfg, ps, frames, label: str, batched: bool = False):
+    """``run_image_sequence`` over ``frames`` eagerly and captured, in turns
+    (eager, captured, captured, eager: the host drifts within a call); each
+    run holds its launch gate (eager: the wrappers' counts; captured:
+    replays times the capture's counts, no wrapper running) and equals the
+    first eager run bit for bit, outputs and final state. Returns (captured
+    outputs, launches of a captured run, {mode: [ms/frame]})."""
+    T = frames.t.shape[0]
+    graph = _capture(cfg, ps, frames)
+    ref, ms = None, {"eager": [], "captured": []}
+    for mode in ("eager", "captured", "captured", "eager"):
+        if mode == "eager":
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = run_image_sequence(cfg, ps, frames, graph=False)
+            torch.cuda.synchronize()
+            wall, launches = time.perf_counter() - t0, kernel_launches()
+        else:
+            res, wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames, graph=graph))
+            captured = launches
+        _launch_gate(launches, T, f"{label} ({mode})", batched)
+        ref = res if ref is None else ref
+        assert _bits_equal(res, ref), f"{label}: a {mode} run differs from the first eager run"
+        ms[mode].append(1e3 * wall / T)
+    return res[1], captured, ms
+
+
+def _ms_line(ms: dict) -> str:
+    return "; ".join(f"{m} " + ", ".join(f"{x:.3f}" for x in v) + " ms/frame" for m, v in ms.items())
 
 
 def _health(o, gt_p, lane: str, resets_ok: bool = False):
@@ -583,47 +678,32 @@ def _slam_gate(o, lane: str) -> int:
     return n
 
 
-def phase_main_path(dev, cfg, data, imgs, card, label="main path", warm_up=True):
+def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True):
+    """The single path over the rendered frames. ``compare``: eager and
+    captured runs in turns, equal bit for bit (``_eager_vs_captured``);
+    else one captured run. The health gates read the captured run."""
     T = imgs.shape[0]
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
-    frames = [
-        FrameInput(image=imgs[k], imu=ImuBatch(t=g["imu_t"][k], w=g["imu_w"][k], a=g["imu_a"][k],
-                                                valid=g["imu_valid"][k]), t=g["t_img"][k])
-        for k in range(T)
-    ]
-
-    def run():
-        ps = init_pipeline_state(cfg, dev)
-        outs = []
-        for fr in frames:
-            ps, out = pipeline_step(cfg, ps, fr)
-            outs.append(out)
-        torch.cuda.synchronize()
-        return outs
-
-    t0 = time.perf_counter()
-    if warm_up:
-        run()  # warm-up (allocator, cuBLAS/cuSOLVER handles, kernel library load)
-    warm_s = time.perf_counter() - t0
-    _reset_counts()
-    t0 = time.perf_counter()
-    outs = run()
-    wall = time.perf_counter() - t0
-    launches = _counts()
-    for name in ("lk_track", "orb_describe"):
-        assert launches[name] == T, f"{name}: {launches[name]} kernel launches in {T} frames"
-    for name in ("lk_track_batched", "orb_describe_batched"):
-        assert launches[name] == 0, f"{name}: {launches[name]} launches on the single-instance path"
-
-    o = {k: torch.stack([getattr(x, k) for x in outs]).cpu().numpy() for k in _OUT_KEYS}
+    frames = FrameInput(image=imgs, imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]),
+                        t=g["t_img"])
+    ps = init_pipeline_state(cfg, dev)
+    if compare:
+        outs, launches, ms = _eager_vs_captured(cfg, ps, frames, label)
+        how = f"eager and captured runs equal bit for bit (outputs and final state); {_ms_line(ms)}"
+    else:
+        graph = _capture(cfg, ps, frames)
+        (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames, graph=graph))
+        _launch_gate(launches, T, label)
+        how = f"captured {1e3 * wall / T:.3f} ms/frame"
+    o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     ate, mean_tracks, n_init = _health(o, data["gt_p"], label)
     slam = ""
     if cfg.filter.max_slam_features:
         slam = f", n_slam max {_slam_gate(o, label)} mean {o['n_slam'][o['initialized']].mean():.2f}"
     print(f"{label}: {T} frames, {n_init} initialized, 0 resets, mean n_tracks "
-          f"{mean_tracks:.2f}{slam}, ATE {ate:.5f} m (gate {ATE_GATE}); {T / wall:.3f} fps, "
-          f"{1e3 * wall / T:.3f} ms/frame (warm-up run {warm_s:.3f} s) on {card}", flush=True)
-    return launches, ate
+          f"{mean_tracks:.2f}{slam}, ATE {ate:.5f} m (gate {ATE_GATE}); one K1 and one describe launch "
+          f"per frame; {how} on {card}", flush=True)
+    return launches, ate, frames
 
 
 FLEX_ATE_GATE = 0.15  # m; the JAX package's moving-start image gate (tests/test_e2e_image.py:133)
@@ -650,17 +730,20 @@ def phase_flexible(dev, cfg, card):
         injected.append(res)
         return real(cfg_, vs, res)
 
-    torch.cuda.synchronize()
+    graph = _capture(cfg, init_pipeline_state(cfg, dev), frames)  # the tail replays it
     pipeline_mod.inject_init_result = record
     _reset_counts()
+    r0 = graph.replays
     t0 = time.perf_counter()
     try:
-        _, outs = run_image_sequence_flexible(cfg, init_pipeline_state(cfg, dev), frames)
+        _, outs = run_image_sequence_flexible(cfg, init_pipeline_state(cfg, dev), frames, graph=graph)
         torch.cuda.synchronize()
     finally:
         pipeline_mod.inject_init_result = real
     wall = time.perf_counter() - t0
-    _one_launch_per_frame(T, "flexible")
+    head, n_tail = kernel_launches(), graph.replays - r0  # eager head frames, replayed tail frames
+    _launch_gate({k: head[k] + v * n_tail for k, v in graph.launches_per_replay.items()}, T, "flexible")
+    assert n_tail > 0 and head["lk_track"] == T - n_tail, f"flexible: {head} eager, {n_tail} replayed"
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
         assert np.isfinite(o[k]).all(), f"flexible: non-finite {k}"
@@ -675,7 +758,8 @@ def phase_flexible(dev, cfg, card):
     print(f"flexible moving start: {T} frames, dynamic initialization at frame {first} "
           f"(t={injected[0].time:.2f} s, |v|={np.linalg.norm(injected[0].v):.3f} m/s), {int(m.sum())} "
           f"initialized, 0 resets, mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max "
-          f"{int(o['n_slam'].max())}, ATE {ate:.5f} m (gate {FLEX_ATE_GATE}); "
+          f"{int(o['n_slam'].max())}, ATE {ate:.5f} m (gate {FLEX_ATE_GATE}); {T - n_tail} eager head "
+          f"frames and {n_tail} replays, one K1 and one describe launch per frame; "
           f"{1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
 
 
@@ -705,6 +789,32 @@ def _decode_ms(data: bytes, reps: int = 10) -> float:
     return 1e3 * float(np.median(ts))
 
 
+def _cli_run(argv) -> dict:
+    """``cli.main(argv)`` on the card; returns the launches of its frames
+    (the replays of the step it captured at its first frame, times what the
+    capture counted). The wrappers ran only in the capture's eager warm-up
+    steps and the capture itself."""
+    graphs = []
+    real = cli.capture_pipeline_step
+
+    def spy(*a):
+        graphs.append(real(*a))
+        return graphs[-1]
+
+    torch.cuda.synchronize()
+    cli.capture_pipeline_step = spy
+    _reset_counts()
+    try:
+        assert cli.main(argv) == 0
+    finally:
+        cli.capture_pipeline_step = real
+    assert len(graphs) == 1, f"cli {argv[0]}: {len(graphs)} captures"
+    per = graphs[0].launches_per_replay
+    assert kernel_launches() == {k: (WARMUP_STEPS + 1) * v for k, v in per.items()}, \
+        f"cli {argv[0]}: wrapper launches {kernel_launches()} beyond the capture's"
+    return {k: v * graphs[0].replays for k, v in per.items()}
+
+
 def phase_dataset(dev, cfg, card):
     """Phase 3d: the user's entry point. ``export-sim`` renders an 8 s
     sequence on the card into a EuRoC tree, ``run`` reads it back through the
@@ -716,12 +826,10 @@ def phase_dataset(dev, cfg, card):
         assert cli.main(["export-sim", root, "--duration", "8"]) == 0
         export_s = time.perf_counter() - t0
         traj, metrics = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "metrics.csv")
-        torch.cuda.synchronize()
-        _reset_counts()
-        assert cli.main(["run", "-", root, "--eval", "--budget", "--metrics", metrics, "--out", traj]) == 0
+        launches = _cli_run(["run", "-", root, "--eval", "--budget", "--metrics", metrics, "--out", traj])
         seq = EurocSequence(root)
         T = len(seq.image_stamps)
-        _one_launch_per_frame(T, "cli run")
+        _launch_gate(launches, T, "cli run")
         rows = np.loadtxt(metrics, delimiter=",", skiprows=1, ndmin=2)
         assert rows.shape == (T, 7), f"cli run: metrics CSV {rows.shape}, ({T}, 7) expected"
         init = rows[:, 1].astype(bool)
@@ -736,7 +844,16 @@ def phase_dataset(dev, cfg, card):
         assert ate < ATE_GATE, f"cli run: ATE {ate:.4f} m >= {ATE_GATE}"
         print(f"cli export-sim: {T} frames in {export_s:.3f} s; cli run: {int(init.sum())} initialized, "
               f"0 resets, mean n_tracks {mean_tracks:.2f}, ATE {ate:.5f} m (gate {ATE_GATE}); TUM and "
-              f"metrics files complete; one K1 and one describe launch per frame", flush=True)
+              f"metrics files complete; one K1 and one describe launch per frame (replays)", flush=True)
+
+        # --chunk 8: the same frames staged 8 per upload once initialized
+        traj8 = os.path.join(tmp, "traj8.txt")
+        _launch_gate(_cli_run(["run", "-", root, "--budget", "--chunk", "8", "--out", traj8]), T,
+                     "cli run --chunk 8")
+        with open(traj, "rb") as f1, open(traj8, "rb") as f8:
+            assert f1.read() == f8.read(), "cli run --chunk 8: the TUM file differs from --chunk 1's"
+        print(f"cli run --chunk 8: TUM file byte-identical to --chunk 1's ({T - len(t)} frames before "
+              f"the first pose one at a time); one K1 and one describe launch per frame", flush=True)
 
         # resume: one pass of the reader split in two (frames(skip_frames=K)
         # would seed frame K's IMU interval from t = 0, as the JAX package's
@@ -745,16 +862,18 @@ def phase_dataset(dev, cfg, card):
         K = T // 2
         frames = list(seq.frames(cfg, lazy=True))
         ck = os.path.join(tmp, "state")
-        a = cli._run_streaming(cfg, iter(frames[:K]), device=dev, checkpoint=ck)
-        b = cli._run_streaming(cfg, iter(frames[K:]), device=dev, resume=ck)
-        init_ab = np.concatenate([a[3], b[3]])
-        assert np.array_equal(init_ab, init), "resume: initialized frames differ from the uninterrupted run"
-        d_resume = float(np.abs(np.concatenate([a[1], b[1]])[init_ab] - p).max())
-        assert d_resume < RESUME_TOL, f"resume: {d_resume:.3e} m from the uninterrupted run"
-        print(f"resume: frames [0, {K}) with a checkpoint, [{K}, {T}) resumed from it: max |dp| "
-              f"{d_resume:.3e} m from the uninterrupted cli run's TUM file (1e-6 m digits; gate "
-              f"{RESUME_TOL}); streaming without the budget's synchronizations: {a[5]:.3f} fps "
-              f"(frames 1-{K - 1}), {b[5]:.3f} fps (frames {K + 1}-{T - 1}) on {card}", flush=True)
+        for chunk in (1, 8):
+            a = cli._run_streaming(cfg, iter(frames[:K]), device=dev, checkpoint=ck, chunk=chunk)
+            b = cli._run_streaming(cfg, iter(frames[K:]), device=dev, resume=ck, chunk=chunk)
+            init_ab = np.concatenate([a[3], b[3]])
+            assert np.array_equal(init_ab, init), \
+                f"resume (--chunk {chunk}): initialized frames differ from the uninterrupted run"
+            d_resume = float(np.abs(np.concatenate([a[1], b[1]])[init_ab] - p).max())
+            assert d_resume < RESUME_TOL, f"resume (--chunk {chunk}): {d_resume:.3e} m from the uninterrupted run"
+            print(f"resume (--chunk {chunk}): frames [0, {K}) with a checkpoint, [{K}, {T}) resumed from it: "
+                  f"max |dp| {d_resume:.3e} m from the uninterrupted cli run's TUM file (1e-6 m digits; gate "
+                  f"{RESUME_TOL}); streaming without the budget's synchronizations: {a[5]:.3f} fps "
+                  f"(frames 1-{K - 1}), {b[5]:.3f} fps (frames {K + 1}-{T - 1}) on {card}", flush=True)
 
         with open(os.path.join(seq.cam_dir, f"{seq.image_stamps[0]}.png"), "rb") as f:
             own = f.read()
@@ -773,8 +892,10 @@ def phase_dataset(dev, cfg, card):
         assert paeth_ms < PAETH_MS_GATE, f"Paeth-row decode {paeth_ms:.3f} ms >= {PAETH_MS_GATE} ms"
 
 
-def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path", warm_up=True):
-    """B instances through one batched image step per frame."""
+def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path", compare=True):
+    """B instances through one batched image step per frame. ``compare``:
+    eager and captured runs in turns, equal bit for bit (the NaN lane
+    included); else one captured run."""
     T = imgs.shape[0]
     bimgs = torch.empty((T, B, *imgs.shape[1:]), dtype=torch.float32, device=dev)
     bimgs[:, 0] = imgs  # lane 0: the main path's frames unchanged
@@ -795,25 +916,17 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
                      valid=lanes(data["imu_valid"])),
         t=lanes(data["t_img"]),
     )
-
-    def run():
-        _, outs = run_fleet_image_sequence(cfg, init_fleet_pipeline_state(cfg, B, dev), frames)
-        torch.cuda.synchronize()
-        return outs
-
-    t0 = time.perf_counter()
-    if warm_up:
-        run()
-    warm_s = time.perf_counter() - t0
-    _reset_counts()
-    t0 = time.perf_counter()
-    outs = run()
-    wall = time.perf_counter() - t0
-    launches = _counts()
-    for name in ("lk_track_batched", "orb_describe_batched"):
-        assert launches[name] == T, f"{name}: {launches[name]} launches in {T} fleet frames"
-    for name in ("lk_track", "orb_describe"):
-        assert launches[name] == 0, f"{name}: {launches[name]} single-instance launches in the fleet"
+    ps = init_fleet_pipeline_state(cfg, B, dev)
+    if compare:
+        outs, launches, ms = _eager_vs_captured(cfg, ps, frames, label, batched=True)
+        how = f"eager and captured runs equal bit for bit (NaN lane included); {_ms_line(ms)} per batched frame"
+        wall = 1e-3 * T * min(ms["captured"])
+    else:
+        graph = _capture(cfg, ps, frames)
+        (_, outs), wall, launches = _replayed(graph, lambda: run_fleet_image_sequence(cfg, ps, frames,
+                                                                                      graph=graph))
+        _launch_gate(launches, T, label, batched=True)
+        how = f"captured {1e3 * wall / T:.3f} ms per batched frame"
 
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}  # (T, B, ...)
     gt_p = data["gt_p"]
@@ -844,24 +957,20 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
           f"{abs(ates[0] - single_ate):.6f} m; lane {B - 1} (NaN accel): {n_resets_bad} resets, "
           f"no SLAM slot on them, {n_init_bad} initialized frames, finite; fleet metrics match",
           flush=True)
-    print(f"{label} throughput: {B * T / wall:.3f} instance-frames/s aggregate, "
-          f"{1e3 * wall / T:.3f} ms per batched frame (warm-up run {warm_s:.3f} s) on {card}",
-          flush=True)
-    return launches
+    print(f"{label} throughput: {B * T / wall:.3f} instance-frames/s aggregate (captured); {how}; one "
+          f"K3 and one batched describe launch per frame, no one-lane launch; on {card}", flush=True)
+    return launches, frames
 
 
 def _image_run(dev, cfg, frames, label: str):
-    """``frames`` through ``run_image_sequence`` once, from a fresh state;
-    checks one K1 and one describe launch per frame and finite outputs.
-    Returns (outputs as numpy arrays, wall seconds)."""
+    """``frames`` through the captured ``run_image_sequence`` once, from a
+    fresh state; checks one K1 and one describe launch per frame (replays)
+    and finite outputs. Returns (outputs as numpy arrays, wall seconds)."""
     T = frames.t.shape[0]
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.perf_counter()
-    _, outs = run_image_sequence(cfg, init_pipeline_state(cfg, dev), frames)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    _one_launch_per_frame(T, label)
+    ps = init_pipeline_state(cfg, dev)
+    graph = _capture(cfg, ps, frames)
+    (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames, graph=graph))
+    _launch_gate(launches, T, label)
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
         assert np.isfinite(o[k]).all(), f"{label}: non-finite {k}"
@@ -945,11 +1054,17 @@ def phase_consistency(dev, card):
     lanes = {k: np.stack([a[k], b[k]], axis=1) for k in a}
     feats, imu = make_frame_inputs(lanes, device=dev)
     T = feats.t.shape[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, outs = run_sequence(cfg, init_fleet_state(cfg, 2, dev), feats, imu)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    vs0 = init_fleet_state(cfg, 2, dev)
+    ms, ref = {}, None
+    for graph in (False, None, None, False):  # eager, captured (captured for each call), eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_sequence(cfg, vs0, feats, imu, graph=graph)
+        torch.cuda.synchronize()
+        ms.setdefault("eager" if graph is False else "captured", []).append(1e3 * (time.perf_counter() - t0) / T)
+        ref = res if ref is None else ref
+        assert _bits_equal(res, ref), "consistency: a captured run differs from the eager run"
+    outs = res[1]
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
         assert np.isfinite(o[k]).all(), f"consistency: non-finite {k}"
@@ -968,7 +1083,141 @@ def phase_consistency(dev, card):
           f"{', '.join(f'{x:.3f}' for x in nees)} (gate {NEES_GATE}), final std "
           f"{', '.join(f'{x:.2e}' for x in std[-1])} m, ATE {ate_rmse(o['p'][m, 0], a['gt_p'][m]):.5f} m; "
           f"lane 1 ({int(mask.sum())} outlier observations): 0 resets, ATE {ate:.5f} m (gate "
-          f"{OUTLIER_ATE_GATE}); {1e3 * wall / T:.3f} ms per batched frame on {card}", flush=True)
+          f"{OUTLIER_ATE_GATE}); eager and captured runs equal bit for bit (outputs and final state); "
+          f"{_ms_line(ms)} per batched frame (captured: the capture included) on {card}", flush=True)
+
+
+# Phase 3h: the reference's feature-level health gates (tests/test_e2e_sim.py:30-100
+# and the verify skill's drives), every workload the default VioConfig() on 15 s
+# of simulated data. tools/f2_figures.py runs the same workloads through
+# the JAX package on the CPU (F2_JAX below) and, with --port, through the port.
+F2_NOISY = dict(pixel_noise=0.002, gyro_noise=0.005, acc_noise=0.05,
+                gyro_bias=(0.01, -0.02, 0.015), acc_bias=(0.05, -0.03, 0.08))
+F2_LANES = (
+    ("clean", {}),
+    ("noisy", F2_NOISY),
+    ("td-0.02", dict(time_offset=-0.02, pixel_noise=0.001)),
+    ("td+0.02", dict(time_offset=0.02, pixel_noise=0.001)),
+    ("dropout", dict(pixel_noise=0.002)),
+    ("imu_gap", dict(pixel_noise=0.002)),
+    ("zupt", dict(static_lead_in=3.0)),
+)
+F2_DRIVE = ("noisy 20 s", dict(duration=20.0, **F2_NOISY))  # the verify skill's standard drive
+# The JAX package on these workloads, on the CPU (tools/f2_figures.py)
+F2_JAX = {
+    "clean": dict(ate=0.0082769, resets=0, td=5.2004e-05, bg_err=7.4135e-06),
+    "noisy": dict(ate=0.031015, resets=0, td=0.0001864, bg_err=0.00010262),
+    "td-0.02": dict(ate=0.018175, resets=0, td=-0.016479, bg_err=9.5667e-05),
+    "td+0.02": dict(ate=0.0097247, resets=0, td=0.016788, bg_err=9.2523e-05),
+    "dropout": dict(ate=0.016242, resets=0, td=0.00027446, bg_err=0.00012032),
+    "imu_gap": dict(ate=0.023109, resets=0, td=0.00034196, bg_err=5.356e-05),
+    "zupt": dict(ate=0.0064084, resets=0, td=0.00011946, bg_err=9.0682e-06, n_stationary=42,
+                 last_stationary=62, lead_drift=6.0269e-09),
+    "noisy 20 s": dict(ate=0.034679, resets=0, td=-8.7389e-05, bg_err=0.00017388),
+}
+
+
+def f2_data(sim_cls, cfg_cls, vio_cfg, name: str, kw: dict) -> dict:
+    """One F2 workload's sequence from ``sim_cls(cfg_cls(...), vio_cfg)`` (either
+    package's simulator), with the test's mutation applied."""
+    data = sim_cls(cfg_cls(**{"duration": 15.0, **kw}), vio_cfg).generate()
+    if name == "dropout":  # tests/test_e2e_sim.py:59-62
+        data["fvalid"][150:190] = False
+        data["ids"][150:190] = -1
+        data["mean_motion"][150:190] = 1.0
+    elif name == "imu_gap":  # tests/test_e2e_sim.py:72-73
+        data["imu_valid"][200:203] = False
+    return data
+
+
+def f2_figures(name: str, kw: dict, data: dict, o: dict, td: float, bg, P_finite: bool) -> dict:
+    """The figures an F2 workload is gated on, from one lane's outputs ``o``
+    (numpy, over frames) and its final state's td, bg and covariance."""
+    m = o["initialized"].astype(bool)
+    fig = {"ate": ate_rmse(o["p"][m], data["gt_p"][m]), "resets": int(o["did_reset"].sum()),
+           "finite": bool(np.isfinite(o["p"]).all()), "td": td,
+           "bg_err": float(np.abs(np.asarray(bg) - np.asarray(kw.get("gyro_bias", (0, 0, 0)))).max()),
+           "P_finite": P_finite}
+    if name == "zupt":
+        st = np.flatnonzero(o["stationary"])
+        lead = o["p"][m & (data["t_img"] < 3.0)]
+        fig.update(n_stationary=len(st), last_stationary=int(st.max()) if len(st) else -1,
+                   lead_drift=float(np.abs(lead).max()) if len(lead) else float("nan"))
+    return fig
+
+
+def f2_check(name: str, kw: dict, fig: dict) -> None:
+    """tests/test_e2e_sim.py's gates for workload ``name`` (the skill's for the drive)."""
+    ate = fig["ate"]
+    if name in ("clean", "noisy", "noisy 20 s"):
+        assert fig["resets"] == 0, f"{name}: {fig['resets']} online resets"
+    if name == "clean":
+        assert ate < 0.02, f"clean: ATE {ate:.4f} m >= 0.02"
+    elif name == "noisy":
+        assert ate < 0.10, f"noisy: ATE {ate:.4f} m >= 0.10"
+        assert fig["bg_err"] < 2e-3, f"noisy: bg {fig['bg_err']:.2e} from the truth (gate 2e-3)"
+    elif name.startswith("td"):
+        assert abs(fig["td"] - kw["time_offset"]) < 0.01, f"{name}: td {fig['td']:.4f}"
+        assert ate < 0.05, f"{name}: ATE {ate:.4f} m >= 0.05"
+    elif name == "dropout":
+        assert fig["finite"] and ate < 0.15, f"dropout: finite {fig['finite']}, ATE {ate:.4f} m"
+    elif name == "imu_gap":
+        assert fig["P_finite"] and ate < 0.15, f"imu_gap: P finite {fig['P_finite']}, ATE {ate:.4f} m"
+    elif name == "zupt":
+        assert fig["n_stationary"] > 10, f"zupt: {fig['n_stationary']} stationary frames"
+        assert fig["last_stationary"] <= 3.2 * 20, f"zupt: stationary at frame {fig['last_stationary']}"
+        assert fig["lead_drift"] < 0.02, f"zupt: lead-in drift {fig['lead_drift']:.4f} m"
+    else:
+        assert name == "noisy 20 s" and fig["finite"] and ate < 0.10, f"{name}: ATE {ate:.4f} m"
+
+
+def _f2_line(name: str, fig: dict) -> str:
+    keys = ("ate", "resets", "td", "bg_err") + (("n_stationary", "last_stationary", "lead_drift")
+                                                 if name == "zupt" else ())
+    return ", ".join(f"{k} {fig[k]:.5g}" if isinstance(fig[k], float) else f"{k} {fig[k]}" for k in keys)
+
+
+def run_f2(dev, graph=None):
+    """The seven 15 s workloads as lanes of one batched ``api.run_sequence``,
+    then the 20 s drive as one instance; returns {name: figures}."""
+    cfg = VioConfig()
+    datas = [f2_data(Simulator, SimConfig, cfg, name, kw) for name, kw in F2_LANES]
+    feats, imu = make_frame_inputs({k: np.stack([d[k] for d in datas], axis=1) for k in datas[0]},
+                                   device=dev)
+    vs, outs = run_sequence(cfg, init_fleet_state(cfg, len(datas), dev), feats, imu, graph=graph)
+    o = {k: getattr(outs, k).cpu().numpy() for k in ("p", "initialized", "did_reset", "stationary")}
+    td, bg = vs.filter.td.cpu().numpy(), vs.filter.bg.cpu().numpy()
+    P_ok = torch.isfinite(vs.filter.P).flatten(1).all(dim=1).cpu().numpy()
+    figs = {name: f2_figures(name, kw, d, {k: v[:, b] for k, v in o.items()}, float(td[b]), bg[b],
+                             bool(P_ok[b]))
+            for b, ((name, kw), d) in enumerate(zip(F2_LANES, datas))}
+    name, kw = F2_DRIVE
+    d = Simulator(SimConfig(**kw), cfg).generate()
+    fi, im = make_frame_inputs(d, device=dev)
+    vs, outs = run_sequence(cfg, init_vio_state(cfg, dev), fi, im, graph=graph)
+    o = {k: getattr(outs, k).cpu().numpy() for k in ("p", "initialized", "did_reset", "stationary")}
+    figs[name] = f2_figures(name, kw, d, o, float(vs.filter.td), vs.filter.bg.cpu().numpy(),
+                            bool(torch.isfinite(vs.filter.P).all()))
+    return figs
+
+
+def phase_f2(dev, card):
+    """Phase 3h: F2_LANES through one batched captured ``api.run_sequence``
+    (15 s each) and the skill's noisy 20 s drive as one instance, each held
+    to its gates in ``tests/test_e2e_sim.py`` / the verify skill; prints each
+    workload's figures beside the JAX package's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    figs = run_f2(dev)
+    wall = time.perf_counter() - t0
+    for name, kw in F2_LANES + (F2_DRIVE,):
+        f2_check(name, kw, figs[name])
+        jax = F2_JAX.get(name)
+        print(f"  F2 {name}: {_f2_line(name, figs[name])}; the JAX package on the CPU: "
+              f"{_f2_line(name, jax) if jax else 'not measured'}", flush=True)
+    print(f"reference gates (feature level, tests/test_e2e_sim.py and the verify skill's drive): "
+          f"{len(F2_LANES)} lanes x 300 frames in one captured run_sequence, and the 20 s drive, "
+          f"all gates held; {wall:.3f} s on {card}", flush=True)
 
 
 SHARD_BAND_HEAD, SHARD_BAND = 1.5e-2, 3e-2  # m, frames < 60 and all (tests/test_fleet.py:133-134)
@@ -1022,10 +1271,15 @@ def phase_sharded(dev, card):
         e = float(np.linalg.norm(two["p"][m, b] - gt[m, b], axis=-1).max())
         assert e < SHARD_GT_GATE, f"gloo, 2 ranks: lane {b} {e:.3f} m from its ground truth"
     assert two["initialized"][-1].all() and not two["did_reset"].any()
+    # ROADMAP F4: a lane's products do not depend on the lanes beside it
+    # (core/linalg.py::matvec, mm_lanes), so 4 lanes per rank give 8 lanes' bits
+    for k in ref:
+        assert np.array_equal(two[k], ref[k]), \
+            f"gloo, 2 ranks: {k} differs from the one-process fleet (max |dp| {worst:.3e} m)"
     sums = multichip.check_metrics(two)
-    print(f"sharded fleet, gloo, 2 ranks on {', '.join(two['devices'])} ({B // 2} lanes each): masks "
-          f"equal the one-process run's, max |dp| {worst:.3e} m ({head:.3e} over the first 60 frames; "
-          f"bands {SHARD_BAND_HEAD} / {SHARD_BAND}; lane independence predicts 0), every lane within "
+    print(f"sharded fleet, gloo, 2 ranks on {', '.join(two['devices'])} ({B // 2} lanes each): every "
+          f"output and the final step's equal the one-process run's bit for bit, max |dp| {worst:.3e} m "
+          f"(bands {SHARD_BAND_HEAD} / {SHARD_BAND} hold too), every lane within "
           f"{SHARD_GT_GATE} m of its ground truth; reduced metrics {sums} on both ranks; the ranks' runs "
           f"{', '.join(f'{w:.3f}' for w in two['wall_s'])} s, the call {two_s:.3f} s on {card}", flush=True)
 
@@ -1035,10 +1289,70 @@ def phase_sharded(dev, card):
           flush=True)
 
 
+_HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                      "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+PROFILE_WINDOW = (60, 70)  # frames profiled, after the filter initialized
+
+
+def _profile_window(step, lo: int, hi: int):
+    """``step(k)`` runs frame k; frames [lo, hi) under ``torch.profiler``.
+    Returns per frame: the host's launch calls (kernels, graphs, copies and
+    fills it enqueued), the device's operations, its busy ms, and the idle
+    share of the device's span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for k in range(hi):
+        if k == lo:
+            torch.cuda.synchronize()
+            prof.start()
+        step(k)
+    torch.cuda.synchronize()
+    prof.stop()
+    evs = prof.events()
+    host = [e for e in evs if e.device_type == torch.autograd.DeviceType.CPU and e.name in _HOST_LAUNCH_CALLS]
+    ops = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = hi - lo
+    if not ops:
+        return len(host) / n, 0.0, None, None
+    busy = sum(e.time_range.elapsed_us() for e in ops)
+    span = max(e.time_range.end for e in ops) - min(e.time_range.start for e in ops)
+    return len(host) / n, len(ops) / n, busy / 1e3 / n, 1.0 - busy / max(span, 1e-9)
+
+
+def phase_profile(cfg, frames, ps0, label: str, card: str):
+    """Host launches per frame, device busy time and idle share of the eager
+    and the captured step over ``PROFILE_WINDOW`` of (T, ...) ``frames``
+    (last: a process that has run ``torch.profiler`` launches later kernels
+    more slowly)."""
+    lo, hi = PROFILE_WINDOW
+    state = [ps0]
+
+    def eager(k):
+        state[0], _ = pipeline_step(cfg, state[0], tree_map(lambda a: a[k], frames))
+
+    graph = _capture(cfg, ps0, frames)
+    bufs = []
+
+    def captured(k):  # what run_image_sequence does per frame
+        out = list(leaves(graph.replay(tree_map(lambda a: a[k], frames))))
+        if not bufs:
+            bufs.extend(o.new_empty((hi, *o.shape)) for o in out)
+        for b, o in zip(bufs, out):
+            b[k].copy_(o)
+
+    for mode, step in (("eager", eager), ("captured", captured)):
+        host, ops, busy, idle = _profile_window(step, lo, hi)
+        dev_part = (f"{ops:.1f} device operations, device busy {busy:.3f} ms, idle share {idle:.4f}"
+                    if busy is not None else "no device events recorded (device time not measured)")
+        print(f"profile {label} ({mode}, frames {lo}-{hi - 1}): {host:.1f} host launch calls per frame, "
+              f"{dev_part} per frame on {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False")
-    disable_tf32()
+    card_numerics()
     card = card_line()
     print(card, flush=True)  # name, power limit (nvidia-smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
@@ -1063,21 +1377,24 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} on the card in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    launches, ate = phase_main_path(dev, cfg, data, imgs, card)
+    launches, ate, main_frames = phase_main_path(dev, cfg, data, imgs, card)
     phase_flexible(dev, cfg, card)
     phase_dataset(dev, cfg, card)
     phase_bench(dev, card)
     phase_fisheye(dev, card)
     phase_consistency(dev, card)
-    launches.update({k: v for k, v in phase_fleet(dev, cfg, data, imgs, ate, card).items()
-                     if k.endswith("_batched")})
+    phase_f2(dev, card)
+    fleet_launches, fleet_frames = phase_fleet(dev, cfg, data, imgs, ate, card)
+    launches.update({k: v for k, v in fleet_launches.items() if k.endswith("_batched")})
     pure = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM slots
-    # no warm-up runs here: the default configuration's phases warmed every
-    # kernel, handle and allocator pool (keeps the command under 600 s)
-    _, pure_ate = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", warm_up=False)
-    phase_fleet(dev, pure, data, imgs, pure_ate, card, label="pure-MSCKF fleet", warm_up=False)
+    # one captured run each: the default configuration's phases compared
+    # eager and captured runs (keeps the command under 600 s)
+    _, pure_ate, _ = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", compare=False)
+    phase_fleet(dev, pure, data, imgs, pure_ate, card, label="pure-MSCKF fleet", compare=False)
     phase_sharded(dev, card)
     kernels = phase_timing(timings)
+    phase_profile(cfg, main_frames, init_pipeline_state(cfg, dev), "main path", card)
+    phase_profile(cfg, fleet_frames, init_fleet_pipeline_state(cfg, B_FLEET, dev), "fleet path", card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"command time {time.perf_counter() - t_start:.1f} s after the kernel build", flush=True)

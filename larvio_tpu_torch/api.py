@@ -1,8 +1,10 @@
 """Top-level feature-level API (port of ``larvio_tpu/api.py``).
 
   * ``step``: one filter step (streaming / online use).
-  * ``run_sequence``: the filter over a whole sequence, one step per frame
-    (a Python loop where the JAX package runs one ``lax.scan``).
+  * ``run_sequence``: the filter over a whole sequence, one step per frame:
+    on the card one replay per frame of the step captured as a CUDA graph
+    (``core/graph.py``), where the JAX package runs one compiled
+    ``lax.scan``; the eager loop on the CPU.
 
 These take pre-extracted feature tracks (from the image front-end or the
 simulator); the image-level entry points (front-end + filter) are in
@@ -16,7 +18,8 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import resolve_device
-from larvio_tpu_torch.core.tree import scan, tree_map
+from larvio_tpu_torch.core.graph import scan
+from larvio_tpu_torch.core.tree import tree_map
 from larvio_tpu_torch.models.msckf import FrameFeatures, VioState, filter_step, init_vio_state
 from larvio_tpu_torch.models.propagation import ImuBatch
 
@@ -37,14 +40,19 @@ def make_frame_inputs(batch: dict, k=None, device="cuda"):
 
 
 # One frame of the filter: (cfg, state, FrameFeatures, ImuBatch) -> (state,
-# StepOutput). The JAX package jits it; here it is the step itself.
+# StepOutput). The JAX package jits it; here it is the eager step itself
+# (one call per frame gains nothing from a capture).
 step = filter_step
 
 
-def run_sequence(cfg: VioConfig, vs: VioState, seq_feats: FrameFeatures, seq_imu: ImuBatch):
+def run_sequence(cfg: VioConfig, vs: VioState, seq_feats: FrameFeatures, seq_imu: ImuBatch,
+                 graph=None):
     """The filter over inputs with a leading time axis. Returns (final state,
-    StepOutput with a leading time axis)."""
-    return scan(lambda s, x: filter_step(cfg, s, *x), vs, (seq_feats, seq_imu))
+    StepOutput with a leading time axis). ``graph`` as in
+    ``core/graph.py::scan``: None replays a step captured for this call on
+    the card and runs the eager loop on the CPU; False forces the eager loop;
+    True forces capture (raises on the CPU)."""
+    return scan(lambda s, x: filter_step(cfg, s, *x), vs, (seq_feats, seq_imu), graph=graph)
 
 
 def run_feature_sequence(cfg: VioConfig, batch: dict, device="cuda", dtype=torch.float32):

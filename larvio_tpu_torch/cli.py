@@ -4,7 +4,7 @@ mirroring the reference's non-ROS app ``larvio <config.yaml> <euroc_dir>``.
     python -m larvio_tpu_torch.cli run <config.yaml|-> <euroc_dir> [--out traj.txt]
         [--max-frames N] [--eval] [--profile DIR] [--checkpoint PATH]
         [--resume PATH] [--init auto|static|dynamic] [--metrics CSV]
-        [--budget] [--device cuda|cpu]
+        [--budget] [--chunk K] [--device cuda|cpu]
     python -m larvio_tpu_torch.cli sim [--duration S] [--out traj.txt] [--eval]
         [--profile DIR] [--device cuda|cpu]
         (no dataset: a simulated sequence rendered on the device)
@@ -15,13 +15,15 @@ mirroring the reference's non-ROS app ``larvio <config.yaml> <euroc_dir>``.
 The trajectory is written in the reference's TUM format
 ``t x y z qx qy qz qw``. Every command runs on the card (``--device cuda``,
 the default) and raises where there is none, unless ``--device cpu`` asks for
-the CPU. PNGs are read and written by ``data/png.py``: the CLI needs neither
-cv2 nor matplotlib.
+the CPU. On the card the step is captured as a CUDA graph at the first frame
+and replayed for every frame (the JAX CLI's jitted step); ``--chunk K``
+stages K frames per upload, as the JAX CLI's compiled scan per chunk does.
+PNGs are read and written by ``data/png.py``: the CLI needs neither cv2 nor
+matplotlib.
 
 Flags of the JAX package's CLI that the port rejects, each with its reason:
-``--plot``, ``--live`` and ``--live-every`` (matplotlib drew them),
-``--chunk`` (its counterpart here is CUDA-graph capture of the step, not
-done yet) and ``--debug-nans`` (PyTorch has no forward NaN sanitizer like
+``--plot``, ``--live`` and ``--live-every`` (matplotlib drew them) and
+``--debug-nans`` (PyTorch has no forward NaN sanitizer like
 ``jax_debug_nans``).
 """
 
@@ -35,12 +37,13 @@ import time
 import numpy as np
 import torch
 
-from larvio_tpu_torch.core.device import disable_tf32, resolve_device
-from larvio_tpu_torch.core.tree import tree_map
+from larvio_tpu_torch.core.device import card_numerics, resolve_device
+from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.init import FlexibleInitializer
 from larvio_tpu_torch.init.flexible import inject_init_result
 from larvio_tpu_torch.models.propagation import ImuBatch
-from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
+from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state,
+                                       pipeline_step)
 from larvio_tpu_torch.utils.checkpoint import restore_state, save_state
 
 
@@ -96,23 +99,69 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+class _ChunkStager:
+    """``--chunk K``: K frames stacked into host buffers and uploaded with one
+    copy per leaf. On the card the host buffers are pinned and two of them
+    take turns, so stacking chunk k+1 overlaps the upload and the replays
+    of chunk k (an event marks when each buffer's upload has been read)."""
+
+    def __init__(self, first: FrameInput, K: int, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.host = [tree_map(lambda a: torch.empty((K, *a.shape), dtype=a.dtype, pin_memory=self.cuda),
+                              first) for _ in range(2)]
+        self.dev = tree_map(lambda a: torch.empty((K, *a.shape), dtype=a.dtype, device=dev), first)
+        self.uploaded = [None, None]
+        self.turn = 0
+
+    def upload(self, frames) -> FrameInput:
+        """Host FrameInputs (at most K) -> the device buffer (K, ...)."""
+        turn, self.turn = self.turn, 1 - self.turn
+        if self.uploaded[turn] is not None:
+            self.uploaded[turn].synchronize()  # the upload from this buffer two chunks ago
+        host = list(leaves(self.host[turn]))
+        for k, fr in enumerate(frames):
+            for h, x in zip(host, leaves(fr)):
+                h[k].copy_(x)
+        for d, h in zip(leaves(self.dev), host):
+            d.copy_(h, non_blocking=True)
+        if not self.cuda:  # an eager state may keep an input leaf: give each chunk its own
+            return tree_map(torch.clone, self.dev)
+        self.uploaded[turn] = torch.cuda.Event()
+        self.uploaded[turn].record()
+        return self.dev
+
+
 def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=None,
-                   init_mode="auto", resume=None, budget: bool = False):
-    """Host loop: one ``pipeline_step`` per frame of a frame stream.
+                   init_mode="auto", resume=None, budget: bool = False, chunk: int = 1):
+    """Host loop: one ``pipeline_step`` per frame of a frame stream. On the
+    card the step is captured as a CUDA graph at the first frame
+    (``pipeline.capture_pipeline_step``) and every frame is one replay; on
+    the CPU every frame is an eager step.
 
     init_mode: "static" keeps only the on-device static initializer;
     "auto"/"dynamic" also run the host FlexibleInitializer (window SfM +
-    visual-inertial alignment) and inject its result for in-motion starts.
+    visual-inertial alignment) and inject its result for in-motion starts
+    (through ``CapturedStep.load`` on the card).
     resume: restore the whole PipelineState (tracker, previous pyramid,
     filter, init accumulator) saved by ``checkpoint``, so the continued run
-    steps exactly as an uninterrupted one. budget: synchronize per frame and
-    print the per-frame split decode / stack / upload / dispatch / compute
-    (dispatch = host time of ``pipeline_step``, compute = the wait at
-    ``torch.cuda.synchronize()`` after it).
+    steps exactly as an uninterrupted one.
+    chunk: frames per upload, the JAX CLI's ``--chunk``. K > 1, once the
+    filter is initialized, stacks K frames into host buffers (pinned on the
+    card) allocated at the first frame, uploads each leaf once per chunk
+    without blocking the host, and runs the K steps back to back; a partial
+    tail chunk is drained frame by frame. The results equal K = 1's bit for
+    bit. Outputs stay on the device until the stream ends, then are read
+    back once.
+    budget: synchronize per frame (per chunk with K > 1) and print the
+    per-frame split decode / stack / upload / dispatch / compute (dispatch =
+    host time of the steps, replays on the card; compute = the wait at
+    ``torch.cuda.synchronize()`` after them).
 
     Returns (t, p, q, initialized, stats, fps, final PipelineState); fps and
     the budget count the steady state, after the first frame.
     """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     timers = {"decode": 0.0, "stack": 0.0, "upload": 0.0, "dispatch": 0.0, "compute": 0.0}
@@ -137,9 +186,42 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
     flex = None
     if init_mode in ("auto", "dynamic") and not initialized:
         flex = FlexibleInitializer(cfg, window=15, min_parallax=0.12)
+    graph = stager = None
+
+    def step(frame):
+        """One frame through the step; returns its outputs (kept)."""
+        nonlocal ps
+        if graph is None:
+            ps, out = pipeline_step(cfg, ps, frame)
+            return out
+        return tree_map(torch.clone, graph.replay(frame))
+
+    def state():
+        return ps if graph is None else graph.state()
+
+    def timed_steps(frames):
+        t0 = time.perf_counter()
+        outs = [step(f) for f in frames]
+        t1 = time.perf_counter()
+        timers["dispatch"] += t1 - t0
+        if budget:
+            sync()
+            timers["compute"] += time.perf_counter() - t1
+        return outs
+
     outs_all = []
+    pending = []
     t_start = None
     n = n_timed0 = 0
+
+    def start_clock():  # after the first step or chunk: fps and the budget count the steady state
+        nonlocal t_start, n_timed0
+        if t_start is None:
+            sync()
+            t_start = time.perf_counter()
+            n_timed0 = n
+            for k in timers:
+                timers[k] = 0.0
     prof = None
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -151,24 +233,37 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         for fr in frame_iter:
             t0 = time.perf_counter()
             host = host_frame(fr)
+            if stager is None and chunk > 1:
+                stager = _ChunkStager(host, chunk, dev)  # pinned before the capture
+            if graph is None and dev.type == "cuda":
+                graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host))
+            if initialized and chunk > 1:
+                pending.append(host)
+                timers["stack"] += time.perf_counter() - t0
+                if len(pending) < chunk:
+                    continue
+                t1 = time.perf_counter()
+                frames = stager.upload(pending)
+                if budget:
+                    sync()
+                timers["upload"] += time.perf_counter() - t1
+                outs_all += timed_steps([tree_map(lambda a: a[k], frames) for k in range(chunk)])
+                n += chunk
+                pending = []
+                start_clock()
+                continue
             t1 = time.perf_counter()
             timers["stack"] += t1 - t0
             frame = tree_map(lambda a: a.to(dev), host)
             if budget:
                 sync()
-            t2 = time.perf_counter()
-            timers["upload"] += t2 - t1
-            ps, out = pipeline_step(cfg, ps, frame)
-            t3 = time.perf_counter()
-            timers["dispatch"] += t3 - t2
-            if budget:
-                sync()
-                timers["compute"] += time.perf_counter() - t3
+            timers["upload"] += time.perf_counter() - t1
+            out = timed_steps([frame])[0]
             outs_all.append(out)
             n += 1
             if flex is not None and not bool(out.initialized):
                 # feed the host initializer from the tracker's current table
-                tr = ps.tracker
+                tr = state().tracker
                 flex.push(
                     _host(fr["t_img"]), tr.ids.cpu().numpy(), tr.uv_norm.cpu().numpy(),
                     tr.valid.cpu().numpy(), _host(fr["imu_t"]), _host(fr["imu_w"]),
@@ -176,7 +271,10 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
                 )
                 res = flex.try_init()
                 if res is not None and res.mode == "dynamic":
+                    ps = state()
                     ps = ps.replace(vio=inject_init_result(cfg, ps.vio, res))
+                    if graph is not None:
+                        graph.load(ps)
                     print(f"dynamic initialization at t={res.time:.2f}s "
                           f"(|v|={np.linalg.norm(res.v):.2f} m/s)")
                     flex = None
@@ -186,12 +284,11 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
                 # a host read per frame only while converging: the flag is
                 # monotone, so once set the loop stops waiting on the device
                 initialized = bool(out.initialized)
-            if t_start is None:
-                sync()
-                t_start = time.perf_counter()
-                n_timed0 = n
-                for k in timers:
-                    timers[k] = 0.0  # the budget reports the steady state
+            start_clock()
+        # the partial tail chunk, frame by frame (as the JAX CLI drains it)
+        for host in pending:
+            outs_all += timed_steps([tree_map(lambda a: a.to(dev), host)])
+            n += 1
         sync()
     finally:
         if prof is not None:
@@ -205,9 +302,11 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         parts = {k: 1e3 * v / nf for k, v in timers.items()}
         acc = sum(parts.values())
         # decode = stall waiting on the prefetch/decode pool; stack = host
-        # tensors of the frame; upload = host->device copies; dispatch = the
-        # host time of pipeline_step; compute = the wait for the device after
-        # it (budget mode synchronizes per frame, so these do not overlap)
+        # tensors of the frame (and the chunk's staging); upload =
+        # host->device copies; dispatch = the host time of the steps (graph
+        # replays on the card); compute = the wait for the device after
+        # them (budget mode synchronizes per frame or chunk, so these do not
+        # overlap)
         print(
             "budget ms/frame: "
             + " ".join(f"{k}={parts[k]:.2f}" for k in ("decode", "stack", "upload", "dispatch", "compute"))
@@ -223,6 +322,7 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         "zupt": outs.stationary.astype(bool),
         "resets": outs.did_reset.astype(bool),
     }
+    ps = state()
     if checkpoint:
         save_state(checkpoint, ps)
     return t, p, q, init, stats, fps, ps
@@ -240,7 +340,7 @@ def cmd_run(args):
     frames = seq.frames(cfg, max_frames=args.max_frames, lazy=True)
     t, p, q, init, stats, fps, ps = _run_streaming(
         cfg, frames, device=dev, profile_dir=args.profile, checkpoint=args.checkpoint,
-        init_mode=args.init, resume=args.resume, budget=args.budget,
+        init_mode=args.init, resume=args.resume, budget=args.budget, chunk=args.chunk,
     )
     m = init
     write_tum(args.out, t[m], p[m], q[m])
@@ -373,9 +473,10 @@ def main(argv=None):
     rp.add_argument("--plot", action=_Rejected, reason=_NO_MATPLOTLIB)
     rp.add_argument("--live", action=_Rejected, reason=_NO_MATPLOTLIB)
     rp.add_argument("--live-every", action=_Rejected, reason=_NO_MATPLOTLIB)
-    rp.add_argument("--chunk", action=_Rejected,
-                    reason="several frames per dispatch is a lax.scan in the JAX package; its "
-                           "counterpart here, CUDA-graph capture of the step, is not done yet")
+    rp.add_argument("--chunk", type=int, default=1,
+                    help="frames per upload once initialized (default 1): K frames are stacked "
+                         "in pinned host memory and uploaded once, then stepped back to back; "
+                         "the result equals --chunk 1's")
     _add_device(rp)
     rp.set_defaults(fn=cmd_run)
 
@@ -398,7 +499,7 @@ def main(argv=None):
     ep.set_defaults(fn=cmd_export)
 
     args = ap.parse_args(argv)
-    disable_tf32()
+    card_numerics()
     return args.fn(args)
 
 

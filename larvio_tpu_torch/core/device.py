@@ -2,9 +2,9 @@
 made once per device.
 
 ``resolve_device`` refuses a CUDA device on a machine without one: nothing
-falls back to the CPU unless the caller asks for it. ``disable_tf32`` keeps
+falls back to the CPU unless the caller asks for it. ``card_numerics`` keeps
 every matmul in float32 on the card, as the JAX package pins float32 matmul
-precision.
+precision, and every factorization in cuSOLVER.
 
 ``torch.tensor([...], device="cuda")`` copies from pageable host memory,
 which synchronizes the stream; the frame step gets its constant vectors and
@@ -52,8 +52,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def disable_tf32() -> None:
-    """Full float32 matmuls and convolutions (no TF32) on the card."""
+def card_numerics() -> None:
+    """Full float32 matmuls and convolutions (no TF32), and every
+    factorization (``cholesky_ex``, ``cholesky_solve``) in cuSOLVER, on the
+    card. PyTorch's default sends a batched ``cholesky_solve`` to MAGMA,
+    which synchronizes the host and so cannot be captured in a CUDA graph
+    (``core/graph.py``); pinning one library keeps eager and captured steps
+    on the same arithmetic. A build without CUDA keeps its default."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if torch.cuda.is_available():
+        torch.backends.cuda.preferred_linalg_library("cusolver")

@@ -21,6 +21,38 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (..., n, k) times x (..., k) -> (..., n), as k elementwise products
+    summed in order. ``torch.matmul`` folds the leading (lane and slot) axes
+    into one GEMM whose kernel the library picks by its size, so a lane's
+    rounding could change with the number of lanes beside it; here every
+    element is the same chain of f32 operations whatever the leading axes."""
+    y = A[..., 0] * x[..., 0, None]
+    for j in range(1, A.shape[-1]):
+        y = y + A[..., j] * x[..., j, None]
+    return y
+
+
+def mm_lanes(a: torch.Tensor, b: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``mm`` as one product per index of the first ``lanes`` axes (a
+    fleet's lane axis; 0 for one instance, which is one ``mm``). Both
+    operands carry those axes; the other leading axes broadcast as in
+    ``mm``. cuBLAS picks a batched product's kernel, and how it splits a
+    long sum, by the batch count, and ``mm`` folds the lanes into the batch:
+    a lane's bits would change with the number of lanes beside it (a fleet
+    of 8 against two ranks of 4). Per lane, every call has one instance's
+    shape, so every lane gets the bits of a single instance."""
+    if lanes == 0:
+        return mm(a, b)
+    lane_shape = a.shape[:lanes]
+    if b.shape[:lanes] != lane_shape:
+        raise ValueError(f"mm_lanes: lane axes {tuple(lane_shape)} and {tuple(b.shape[:lanes])}")
+    a = a.reshape(-1, *a.shape[lanes:])
+    b = b.reshape(-1, *b.shape[lanes:])
+    out = torch.stack([mm(x, y) for x, y in zip(a.unbind(0), b.unbind(0))])
+    return out.reshape(*lane_shape, *out.shape[1:])
+
+
 def symmetrize(P: torch.Tensor) -> torch.Tensor:
     return 0.5 * (P + P.transpose(-1, -2))
 
@@ -39,12 +71,14 @@ def _chol_or_eye(A: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(L), eye, L)
 
 
-def householder_eliminate(A: torch.Tensor, B: torch.Tensor, r: torch.Tensor, ncols: int):
+def householder_eliminate(A: torch.Tensor, B: torch.Tensor, r: torch.Tensor, ncols: int,
+                          lanes: int = 0):
     """Eliminate the first ``ncols`` columns of A from the system [A B | r].
 
     A: (..., m, ncols), B: (..., m, n), r: (..., m). Applies ``ncols``
     Householder reflections; rows of A that are exactly zero are fixed points
-    (padding exact) provided the first ``ncols`` rows are valid.
+    (padding exact) provided the first ``ncols`` rows are valid. ``lanes``:
+    the fleet's lane axes among the leading ones (``mm_lanes``).
     Returns (B', r', row_keep, (A_top, B_top, r_top)).
     """
     m = A.shape[-2]
@@ -57,8 +91,8 @@ def householder_eliminate(A: torch.Tensor, B: torch.Tensor, r: torch.Tensor, nco
         alpha = -torch.sign(torch.where(x_k == 0, 1.0, x_k)) * normx
         v = x - alpha[..., None] * (rows == k).to(x.dtype)
         c = (2.0 / (torch.sum(v * v, dim=-1) + 1e-30))[..., None]
-        vA = torch.matmul(v[..., None, :], A_)  # (..., 1, ncols)
-        vB = torch.matmul(v[..., None, :], B_)
+        vA = mm_lanes(v[..., None, :], A_, lanes)  # (..., 1, ncols)
+        vB = mm_lanes(v[..., None, :], B_, lanes)
         A_ = A_ - c[..., None] * v[..., :, None] * vA
         B_ = B_ - c[..., None] * v[..., :, None] * vB
         r_ = r_ - c * v * torch.sum(v * r_, dim=-1, keepdim=True)
@@ -100,12 +134,13 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
     return torch.stack([solve3(A, eye[..., i, :]) for i in range(3)], dim=-1)
 
 
-def inv_quadform(S: torch.Tensor, r: torch.Tensor, iters: int = 24) -> torch.Tensor:
+def inv_quadform(S: torch.Tensor, r: torch.Tensor, iters: int = 24, lanes: int = 0) -> torch.Tensor:
     """gamma = r^T S^{-1} r for SPD S by Jacobi-preconditioned Newton-Schulz.
 
     Guarded like the JAX version: if the iteration left its convergence
     radius (indefinite S, conditioning far beyond 1e5, NaNs) gamma is +inf,
-    so the chi-square gate rejects the measurement. S: (..., n, n), r: (..., n).
+    so the chi-square gate rejects the measurement. S: (..., n, n), r: (..., n);
+    ``lanes`` as in ``mm_lanes``.
     """
     n = S.shape[-1]
     d = torch.diagonal(S, dim1=-2, dim2=-1)
@@ -119,7 +154,7 @@ def inv_quadform(S: torch.Tensor, r: torch.Tensor, iters: int = 24) -> torch.Ten
     for _ in range(iters):
         X = mm(X, eye2 - mm(A, X))
     X = symmetrize(X)
-    gamma = torch.sum(rs * mm(X, rs[..., :, None])[..., 0], dim=-1)
+    gamma = torch.sum(rs * mm_lanes(X, rs[..., :, None], lanes)[..., 0], dim=-1)
     resid = torch.amax(torch.abs(eye - mm(A, X)), dim=(-2, -1))
     ok = torch.isfinite(gamma) & (gamma >= 0.0) & (resid < 0.25)
     return torch.where(ok, gamma, torch.inf)

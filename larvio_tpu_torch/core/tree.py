@@ -59,11 +59,14 @@ def scan(step, carry, xs):
 
 
 def leaves(tree):
-    """The leaves of a tree of dataclasses / tuples / lists, in field order
-    (the JAX package's flatten order for the same structure)."""
+    """The leaves of a tree of dataclasses / tuples / lists / dicts, in field
+    order (the JAX package's flatten order for the same structure)."""
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
             yield from leaves(getattr(tree, f.name))
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from leaves(x)
     elif isinstance(tree, (tuple, list)):
         for x in tree:
             yield from leaves(x)

@@ -17,7 +17,7 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import const
-from larvio_tpu_torch.core.linalg import mm, psd_chol
+from larvio_tpu_torch.core.linalg import matvec, mm, psd_chol
 from larvio_tpu_torch.core.quaternion import omega, quat_normalize, quat_to_rotation
 from larvio_tpu_torch.core.scan import associative_scan, cumsum
 from larvio_tpu_torch.core.so3 import skew
@@ -78,17 +78,17 @@ def _phi_and_Q(cfg: VioConfig, q_new, v_new, p_new, q_null, v_null, p_null, w_ha
     if cfg.filter.use_fej:
         # observability-constrained fix-up (Li & Mourikis; MSCKF FEJ form)
         Phi[..., IDX_THETA:IDX_THETA + 3, IDX_THETA:IDX_THETA + 3] = quat_to_rotation(q_new) @ RnT
-        u = (R_null @ g_w[:, None])[..., 0]  # gravity in the old linearized body frame
+        u = matvec(R_null, g_w)  # gravity in the old linearized body frame
         s = u / torch.clamp(torch.sum(u * u, dim=-1, keepdim=True), min=1e-12)
         A1 = Phi[..., IDX_V:IDX_V + 3, IDX_THETA:IDX_THETA + 3]
-        w1 = (skew(v_null - v_new) @ g_w[:, None])[..., 0]
+        w1 = matvec(skew(v_null - v_new), g_w)
         Phi[..., IDX_V:IDX_V + 3, IDX_THETA:IDX_THETA + 3] = (
-            A1 - ((A1 @ u[..., None])[..., 0] - w1)[..., :, None] * s[..., None, :]
+            A1 - (matvec(A1, u) - w1)[..., :, None] * s[..., None, :]
         )
         A2 = Phi[..., IDX_P:IDX_P + 3, IDX_THETA:IDX_THETA + 3]
-        w2 = (skew(dt[..., None] * v_null + p_null - p_new) @ g_w[:, None])[..., 0]
+        w2 = matvec(skew(dt[..., None] * v_null + p_null - p_new), g_w)
         Phi[..., IDX_P:IDX_P + 3, IDX_THETA:IDX_THETA + 3] = (
-            A2 - ((A2 @ u[..., None])[..., 0] - w2)[..., :, None] * s[..., None, :]
+            A2 - (matvec(A2, u) - w2)[..., :, None] * s[..., None, :]
         )
 
     qc = [nz.gyro_noise**2] * 3 + [nz.gyro_bias_noise**2] * 3 + [nz.acc_noise**2] * 3 + [
@@ -145,7 +145,7 @@ def propagate(cfg: VioConfig, fs: FilterState, imu: ImuBatch, t_target_img: torc
     M = eye4 + (dte / 6.0) * (K1 + 2 * K2 + 2 * K3 + K4)
     M = torch.where((dt <= 0.0)[..., None, None], eye4, M)
     Pq = associative_scan(_later_times_earlier, M, dim=-3)  # P_i = M_i ... M_1
-    q_chain = (Pq @ fs.q[..., None, :, None])[..., 0]
+    q_chain = matvec(Pq, fs.q[..., None, :])
     q_chain = q_chain / torch.linalg.norm(q_chain, dim=-1, keepdim=True)
     q_prev_chain = first_then(fs.q, q_chain)
     q_mid = q_prev_chain + q_chain
@@ -157,7 +157,7 @@ def propagate(cfg: VioConfig, fs: FilterState, imu: ImuBatch, t_target_img: torc
     R_new = quat_to_rotation(q_chain)
 
     def rot_t(R, x):  # R^T x per slot
-        return (R.transpose(-1, -2) @ x[..., None])[..., 0]
+        return matvec(R.transpose(-1, -2), x)
 
     acc_w = (rot_t(R_prev, a0) + 4.0 * rot_t(R_mid, am) + rot_t(R_new, a1)) / 6.0 + g_w
     dv = dt[..., None] * acc_w

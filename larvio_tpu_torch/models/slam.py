@@ -36,7 +36,7 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.chi2 import chi2_inv
-from larvio_tpu_torch.core.linalg import inv3, mm
+from larvio_tpu_torch.core.linalg import inv3, mm, mm_lanes
 from larvio_tpu_torch.core.quaternion import quat_to_rotation
 from larvio_tpu_torch.core.so3 import skew
 from larvio_tpu_torch.core.tree import all_finite, take, take1
@@ -224,7 +224,7 @@ def slam_measurement_blocks(cfg: VioConfig, fs: FilterState, feats, newest_slot)
     H = torch.where(use[..., None, None], H, 0.0)
 
     # chi2 gate (2 dof) per feature: H P H^T = (H S)(H S)^T
-    HS = H @ fs.P[..., None, :, :]
+    HS = mm_lanes(H, fs.P[..., None, :, :], len(lead))
     Svar = HS @ HS.transpose(-1, -2) + sigma2 * torch.eye(2, dtype=dtype, device=dev)
     det = Svar[..., 0, 0] * Svar[..., 1, 1] - Svar[..., 0, 1] * Svar[..., 1, 0]
     det = torch.where(torch.abs(det) < 1e-20, 1e-20, det)
@@ -298,7 +298,7 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
 
     # per-candidate conditional init, batched over the K candidates
     Rf = blocks.Rf + 1e-9 * eye3
-    rhs = blocks.r3 - mm(blocks.H3, dx[..., None, :, None])[..., 0]
+    rhs = blocks.r3 - mm_lanes(blocks.H3, dx[..., None, :, None], len(lead))[..., 0]
     df = torch.linalg.solve_triangular(Rf, rhs[..., None], upper=True)[..., 0]
     E = torch.linalg.solve_triangular(Rf, blocks.H3, upper=True)  # (..., K, 3, D)
     P_fx = -mm(E, P[..., None, :, :])  # the feature's factor rows in world coordinates

@@ -16,7 +16,8 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.chi2 import chi2_inv
-from larvio_tpu_torch.core.linalg import householder_eliminate, inv_quadform, mm, psd_factor, symmetrize
+from larvio_tpu_torch.core.linalg import (householder_eliminate, inv_quadform, mm, mm_lanes, psd_factor,
+                                         symmetrize)
 from larvio_tpu_torch.core.quaternion import quat_multiply, quat_to_rotation, small_angle_quat
 from larvio_tpu_torch.core.so3 import skew
 from larvio_tpu_torch.core.tree import all_finite, take, where
@@ -151,7 +152,7 @@ def feature_block(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask, tri_valid)
     H_f = take(H_f, row_perm, -2)
     r = torch.gather(r, -1, row_perm)
 
-    H_o, r_o, _, (Rf, H3, r3) = householder_eliminate(H_f, H_x, r, 3)
+    H_o, r_o, _, (Rf, H3, r3) = householder_eliminate(H_f, H_x, r, 3, lanes=fs.time.dim())
 
     if cfg.filter.huber_k > 0:
         n_inf = torch.clamp(torch.sum(torch.abs(r_o) > 0, dim=-1), min=1)
@@ -165,7 +166,7 @@ def feature_block(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask, tri_valid)
 
     T = mm(H_o, fs.P[..., None, :, :])  # H in the factor basis
     S = mm(T, T.transpose(-1, -2)) + sigma2 * torch.eye(2 * C, dtype=T.dtype, device=dev)
-    gamma = inv_quadform(S, r_o)
+    gamma = inv_quadform(S, r_o, lanes=fs.time.dim())
     n_obs = torch.sum(mask_s, dim=-1)
     dof = torch.clamp(2 * n_obs - 3, min=1)
     gate_ok = gamma < chi2_inv(dof, cfg.filter.chi2_confidence)
@@ -202,7 +203,7 @@ def prune_feature_block(cfg: VioConfig, fs: FilterState, p_w, uv2, slots, row_ok
     rows = rows.reshape(*lead_k, 4, D)
     H_f4 = torch.where(row_ok[..., None, None], H_f, 0.0).reshape(*lead_k, 4, 3)
 
-    H_o, r_o, _, _ = householder_eliminate(H_f4, rows, r, 3)
+    H_o, r_o, _, _ = householder_eliminate(H_f4, rows, r, 3, lanes=fs.time.dim())
     H_row, r_row = H_o[..., 3, :], r_o[..., 3]
 
     Sh = mm(H_row, fs.P)  # (K2, W) in the factor basis
@@ -232,7 +233,7 @@ def sqrt_update(S, H, r):
     chol = _chol_nan(symmetrize(Sy))
     PHt = mm(S, Tt)  # (D, n)
     K = torch.cholesky_solve(PHt.transpose(-1, -2), chol).transpose(-1, -2)  # (D, n)
-    dx = mm(K, r[..., None])[..., 0]
+    dx = mm_lanes(K, r[..., None], K.dim() - 2)[..., 0]
     M = torch.cat([S - mm(K, T), K], dim=-1)
     return dx, psd_factor(M)
 
@@ -245,10 +246,10 @@ def sqrt_update_gram(S, Hw, rw, refactor: bool):
     Tt = T.transpose(-1, -2)
     A = symmetrize(mm(Tt, T)) + torch.eye(W, dtype=S.dtype, device=S.device)
     L = _chol_nan(A)
-    g = mm(Tt, rw[..., None])  # (W, 1)
+    g = mm_lanes(Tt, rw[..., None], Tt.dim() - 2)  # (W, 1)
     Y = torch.linalg.solve_triangular(L, torch.cat([S.transpose(-1, -2), g], dim=-1), upper=False)
     Sn = Y[..., :D].transpose(-1, -2)
-    dx = mm(Sn, Y[..., D:])[..., 0]
+    dx = mm_lanes(Sn, Y[..., D:], Sn.dim() - 2)[..., 0]
     if refactor:
         Sn = psd_factor(Sn)
     return dx, Sn

@@ -95,6 +95,15 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
+    from larvio_tpu_torch.ops.orb import describe
+
+    return {"lk_track": lk_track_cuda.launches, "lk_track_batched": lk_track_cuda.launches_batched,
+            "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched}
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")

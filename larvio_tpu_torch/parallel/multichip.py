@@ -42,7 +42,7 @@ import torch.multiprocessing as mp
 
 from larvio_tpu_torch.api import make_frame_inputs
 from larvio_tpu_torch.config import FilterConfig, FrontendConfig, VioConfig
-from larvio_tpu_torch.core.device import disable_tf32, resolve_device
+from larvio_tpu_torch.core.device import card_numerics, resolve_device
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.parallel.fleet import (METRIC_KEYS, lane_block, make_sharded_fleet, make_sharded_fleet_run,
                                              shard_lanes)
@@ -98,7 +98,7 @@ def _rank_main(rank: int, n_ranks: int, backend: str, device_type: str, cfg: Vio
     else:
         dev = torch.device("cpu")
         torch.set_num_threads(1)
-    disable_tf32()
+    card_numerics()
     dist.init_process_group(backend, init_method=f"file://{os.path.join(tmp, 'store')}",
                             world_size=n_ranks, rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))

@@ -1,7 +1,10 @@
 """Image-level pipeline: front-end + filter, one frame per call (port of
-``larvio_tpu/pipeline.py``). ``run_image_sequence`` is a Python frame loop
-in place of the JAX package's ``lax.scan``; ``run_image_sequence_flexible``
-adds the host's in-motion initializer (``init/flexible.py``) to it.
+``larvio_tpu/pipeline.py``). On the card ``capture_pipeline_step`` (the JAX
+package's ``jit_pipeline_step``) captures the step as a CUDA graph
+(``core/graph.py``) and ``run_image_sequence`` replays it once per frame,
+in place of the JAX package's compiled ``lax.scan``; on the CPU it runs the
+eager loop. ``run_image_sequence_flexible`` adds the host's in-motion
+initializer (``init/flexible.py``) in front of it.
 
 Every leaf may carry a leading instance axis B: ``pipeline_step`` then steps
 a fleet of B independent instances at once (the JAX package's
@@ -16,7 +19,8 @@ from dataclasses import dataclass
 import torch
 
 from larvio_tpu_torch.config import VioConfig
-from larvio_tpu_torch.core.tree import Struct, scan, tree_map
+from larvio_tpu_torch.core.graph import CapturedStep, scan
+from larvio_tpu_torch.core.tree import Struct, tree_map
 from larvio_tpu_torch.init.flexible import FlexibleInitializer, inject_init_result
 from larvio_tpu_torch.models.frontend import TrackerState, init_tracker_state, track_frame
 from larvio_tpu_torch.models.msckf import VioState, filter_step, init_vio_state
@@ -55,15 +59,29 @@ def pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput):
     return PipelineState(tracker=tracker, vio=vio), out
 
 
-def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput):
+def capture_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput) -> CapturedStep:
+    """``pipeline_step`` captured as a CUDA graph for states like ``ps`` and
+    frames like ``frame`` (one frame: no time axis; its image dtype is
+    captured too, so a uint8 and a float32 stream need one capture each).
+    The counterpart of the JAX package's ``jit_pipeline_step``; raises for
+    tensors on the CPU."""
+    return CapturedStep(lambda p, f: pipeline_step(cfg, p, f), ps, frame)
+
+
+def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput, graph=None):
     """Run ``pipeline_step`` over stacked frames (leading time axis, then the
     state's instance axis if any). Returns (final state, StepOutput with a
-    leading time axis)."""
-    return scan(lambda p, frame: pipeline_step(cfg, p, frame), ps, frames)
+    leading time axis).
+
+    ``graph`` (``core/graph.py::scan``): None replays a step captured for
+    this call on the card and runs the eager loop on the CPU; False forces
+    the eager loop; True forces capture (raises on the CPU); a
+    ``capture_pipeline_step`` result is loaded with ``ps`` and replayed."""
+    return scan(lambda p, frame: pipeline_step(cfg, p, frame), ps, frames, graph=graph)
 
 
 def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: FrameInput,
-                                max_init_frames: int = 128, init_chunk: int = 32):
+                                max_init_frames: int = 128, init_chunk: int = 32, graph=None):
     """``run_image_sequence`` with FLEXIBLE initialization, for one instance.
 
     The head steps frame by frame while feeding the host
@@ -71,7 +89,9 @@ def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: Frame
     tracker's table, until the filter is initialized: by the on-device static
     initializer, or by injecting a dynamic result. Each head frame reads
     ``initialized`` and the table back to the host (one sync per frame, only
-    while uninitialized). The tail runs ``run_image_sequence`` over the rest.
+    while uninitialized). The tail runs ``run_image_sequence`` over the rest
+    (with ``graph``: on the card, replays of a step captured on the head's
+    final state).
 
     ``init_chunk`` is kept for the JAX package's signature: there it aligns
     the handoff so that few tail lengths compile; here every frame is the
@@ -103,7 +123,7 @@ def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: Frame
             break
     if k == T:
         return ps, tree_map(lambda *o: torch.stack(o), *outs)
-    ps, tail = run_image_sequence(cfg, ps, tree_map(lambda a: a[k:], frames))
+    ps, tail = run_image_sequence(cfg, ps, tree_map(lambda a: a[k:], frames), graph=graph)
     if not outs:
         return ps, tail
     return ps, tree_map(lambda t, *o: torch.cat([torch.stack(o), t]), tail, *outs)

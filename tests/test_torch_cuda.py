@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from larvio_tpu_torch.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
+from larvio_tpu_torch.core.device import card_numerics
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.data.render import render_sequence
 from larvio_tpu_torch.models.propagation import ImuBatch
@@ -35,7 +36,9 @@ from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
 from larvio_tpu_torch.parallel.fleet import init_fleet_pipeline_state, run_fleet_image_sequence
-from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
+from larvio_tpu_torch.ops.cuda_lib import kernel_launches
+from larvio_tpu_torch.core.tree import tree_map
+from larvio_tpu_torch.pipeline import FrameInput, capture_pipeline_step, init_pipeline_state, pipeline_step
 
 pytestmark = pytest.mark.cuda
 
@@ -53,8 +56,7 @@ CFG = VioConfig(
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("requires an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    card_numerics()
     return torch.device("cuda")
 
 
@@ -234,8 +236,9 @@ def test_wrappers_reject_bad_inputs(dev):
 
 
 def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
-    """Two lanes (the second with seeded image noise) through the fleet step:
-    one K3 and one batched describe launch per frame, no one-lane launch."""
+    """Two lanes (the second with seeded image noise) through the fleet step,
+    captured and replayed per frame: one K3 and one batched describe launch
+    per frame (replays times what the capture counted), no one-lane launch."""
     data, imgs = seq
     B, T = 2, imgs.shape[0]
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -244,12 +247,14 @@ def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
         np.broadcast_to(data[k][:, None], (T, B, *data[k].shape[1:]))), device=dev)
     frames = FrameInput(image=bimgs, t=lanes("t_img"),
                         imu=ImuBatch(t=lanes("imu_t"), w=lanes("imu_w"), a=lanes("imu_a"), valid=lanes("imu_valid")))
-    counts = (lk_track_cuda.launches, lk_track_cuda.launches_batched,
-              orb.describe.launches, orb.describe.launches_batched)
-    _, outs = run_fleet_image_sequence(CFG, init_fleet_pipeline_state(CFG, B, dev), frames)
+    ps = init_fleet_pipeline_state(CFG, B, dev)
+    graph = capture_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
+    counts = kernel_launches()
+    _, outs = run_fleet_image_sequence(CFG, ps, frames, graph=graph)
     torch.cuda.synchronize()
-    assert (lk_track_cuda.launches, lk_track_cuda.launches_batched, orb.describe.launches,
-            orb.describe.launches_batched) == (counts[0], counts[1] + T, counts[2], counts[3] + T)
+    assert kernel_launches() == counts  # the replays run no wrapper
+    launches = {k: v * graph.replays for k, v in graph.launches_per_replay.items()}
+    assert launches == {"lk_track": 0, "lk_track_batched": T, "orb_describe": 0, "orb_describe_batched": T}
     assert outs.p.shape == (T, B, 3) and torch.isfinite(outs.p).all().item()
     assert (outs.initialized.sum(0) >= 40).all().item() and int(outs.did_reset.sum()) == 0
 

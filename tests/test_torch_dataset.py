@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import larvio_tpu.api as japi
+import larvio_tpu.cli as jcli
 import larvio_tpu.data.euroc as jeuroc
 import larvio_tpu.data.export_euroc as jexport
 import larvio_tpu.data.trajectory as jtraj
@@ -46,11 +47,13 @@ from larvio_tpu_torch.data import export_euroc as texport
 from larvio_tpu_torch.data import png as tpng
 from larvio_tpu_torch.data import sim as tsim
 from larvio_tpu_torch.data import trajectory as ttraj
+from larvio_tpu_torch.config import load_yaml as tcfg_load
 from larvio_tpu_torch.pipeline import init_pipeline_state
 from larvio_tpu_torch.utils import checkpoint as tckpt
 
 cv2 = pytest.importorskip("cv2")
 torch.set_num_threads(1)
+K_CHUNK = 4
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _INTR = (458.654, 457.296, 367.215, 248.375)
@@ -480,13 +483,65 @@ def test_cli_runs_on_the_card_unless_told_otherwise(exports):
 
 
 @pytest.mark.parametrize("flag", [["--plot", "x.png"], ["--live", "x.png"], ["--live-every", "5"],
-                                  ["--chunk", "20"], ["--debug-nans"]])
+                                  ["--debug-nans"]])
 def test_cli_rejects_flags_it_does_not_offer(flag, capsys):
     argv = flag + ["run", "-", "d"] if flag == ["--debug-nans"] else ["run", "-", "d"] + flag
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert e.value.code == 2
     assert f"{flag[0]} is not available in larvio_tpu_torch" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def chunk_trees(tmp_path_factory):
+    """1.6 s (32 frames) at 64x48 exported by each package, and the CLI's cut
+    YAML: the static initializer fires at frame 21, so ``--chunk 4`` steps
+    frames 22-29 in two chunks and drains the last two one at a time."""
+    root = tmp_path_factory.mktemp("chunk")
+    sc = dict(duration=1.6, seed=0)
+    jexport.export_sim_euroc(str(root / "jax"), SMALL, SimConfig(**sc))
+    texport.export_sim_euroc(str(root / "port"), config_from_dict(dataclasses.asdict(SMALL)),
+                             tsim.SimConfig(**sc), device="cpu")
+    (root / "cut.yaml").write_text(CUT_YAML)
+    return root
+
+
+def test_cli_chunk_equals_one_frame_at_a_time_and_matches_jax(chunk_trees):
+    """``run --chunk 4`` writes ``--chunk 1``'s TUM file byte for byte, and
+    matches the JAX CLI's ``--chunk 4`` (one compiled scan per chunk) on the
+    JAX package's export: the same initialized frames, stamps within 1e-5 s,
+    positions within 1 cm (``tests/test_torch_init.py``'s CLI bound)."""
+    yml = str(chunk_trees / "cut.yaml")
+    tum = {}
+    for k in (1, 4):
+        out = chunk_trees / f"port_chunk{k}.txt"
+        assert tcli.main(["run", yml, str(chunk_trees / "port"), "--device", "cpu", "--chunk", str(k),
+                          "--out", str(out)]) == 0
+        tum[k] = out.read_bytes()
+    assert tum[4] == tum[1]
+    jout = chunk_trees / "jax_chunk4.txt"
+    assert jcli.main(["run", yml, str(chunk_trees / "jax"), "--chunk", "4", "--out", str(jout)]) == 0
+    tt, pt, _ = ttraj.read_tum(str(chunk_trees / "port_chunk4.txt"))
+    tj, pj, _ = jtraj.read_tum(str(jout))
+    assert 8 <= len(tt) == len(tj)
+    np.testing.assert_allclose(tt, tj, rtol=0, atol=1e-5)
+    assert np.abs(pt - pj).max() < 0.01
+
+
+def test_cli_chunk_resume_equals_uninterrupted(chunk_trees, tmp_path):
+    """``--chunk 4`` with a checkpoint after frame 25 (initialized), then the
+    rest resumed with ``--chunk 4``: the stitched run equals the
+    uninterrupted chunked run exactly (one pass of the reader, split)."""
+    cfg = tcfg_load(str(chunk_trees / "cut.yaml"))
+    frames = list(teuroc.EurocSequence(str(chunk_trees / "port")).frames(cfg, lazy=True))
+    full = tcli._run_streaming(cfg, iter(frames), device="cpu", chunk=K_CHUNK)
+    ck = str(tmp_path / "ck")
+    a = tcli._run_streaming(cfg, iter(frames[:25]), device="cpu", chunk=K_CHUNK, checkpoint=ck)
+    assert a[3].any()  # initialized before the checkpoint
+    b = tcli._run_streaming(cfg, iter(frames[25:]), device="cpu", chunk=K_CHUNK, resume=ck)
+    for i in range(4):  # t, p, q, initialized
+        np.testing.assert_array_equal(np.concatenate([a[i], b[i]]), full[i])
+    assert torch.equal(b[6].vio.filter.P, full[6].vio.filter.P)
 
 
 def test_cli_needs_no_cv2_matplotlib_or_jax(tmp_path):

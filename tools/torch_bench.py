@@ -17,10 +17,16 @@ The noise comes from a seeded ``torch.Generator``: the same distribution as
 
 Single path: ``run_image_sequence`` over the 400 frames. ``--fleet B``: B
 instances through the batched step, every lane on the same frames, the
-gate on lane 0; fps counts every lane's frames. One warm-up run, then the
-best wall time of 3 (host clock around work that ends in a synchronize).
-The accuracy gate is ``bench.py``'s: ATE < 0.13 m, or the tool raises and
-prints no result. Needs a CUDA GPU unless ``--device cpu`` is asked for.
+gate on lane 0; fps counts every lane's frames. On the card the step is
+captured once (``capture_pipeline_step``) and the captured and the eager
+runs take turns (captured, eager, eager, captured, captured, eager: the
+host drifts within a call); ``value`` is the captured path's best fps (the
+default on the card), ``detail.eager_fps`` the eager path's, and the two
+runs' outputs must be equal bit for bit. On the CPU only the eager loop
+runs. One warm-up run first; best wall time of 3 per path (host clock
+around work that ends in a synchronize). The accuracy gate is
+``bench.py``'s: ATE < 0.13 m, or the tool raises and prints no result.
+Needs a CUDA GPU unless ``--device cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -38,14 +44,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from larvio_tpu_torch.config import VioConfig  # noqa: E402
-from larvio_tpu_torch.core.device import disable_tf32, resolve_device  # noqa: E402
-from larvio_tpu_torch.core.tree import tree_map  # noqa: E402
+from larvio_tpu_torch.core.device import card_numerics, resolve_device  # noqa: E402
+from larvio_tpu_torch.core.tree import leaves, tree_map  # noqa: E402
 from larvio_tpu_torch.data.evaluate import ate_rmse  # noqa: E402
 from larvio_tpu_torch.data.render import render_sequence  # noqa: E402
 from larvio_tpu_torch.data.sim import SimConfig, Simulator  # noqa: E402
 from larvio_tpu_torch.models.propagation import ImuBatch  # noqa: E402
 from larvio_tpu_torch.parallel.fleet import init_fleet_pipeline_state  # noqa: E402
-from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, run_image_sequence  # noqa: E402
+from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state,  # noqa: E402
+                                       run_image_sequence)
 
 N_FRAMES = 400  # 20 s at 20 Hz
 ATE_GATE = 0.13  # m (bench.py:143)
@@ -89,26 +96,33 @@ def _sync(dev: torch.device) -> None:
 def run_bench(fleet: int = 0, device="cuda") -> dict:
     """The benchmark; returns ``bench.py``'s JSON object."""
     dev = resolve_device(device)
-    disable_tf32()
+    card_numerics()
     cfg = VioConfig()
     data, frames = bench_workload(cfg, dev)
     T = frames.t.shape[0]
     if fleet:
         frames = tree_map(lambda a: a[:, None].expand(a.shape[0], fleet, *a.shape[1:]).contiguous(), frames)
 
-    def run():
-        ps = init_fleet_pipeline_state(cfg, fleet, dev) if fleet else init_pipeline_state(cfg, dev)
+    ps0 = init_fleet_pipeline_state(cfg, fleet, dev) if fleet else init_pipeline_state(cfg, dev)
+
+    def run(graph):
         _sync(dev)
         t0 = time.perf_counter()
-        _, outs = run_image_sequence(cfg, ps, frames)
+        _, outs = run_image_sequence(cfg, ps0, frames, graph=graph)
         _sync(dev)
         return time.perf_counter() - t0, outs
 
-    run()  # warm-up
-    best, outs = np.inf, None
-    for _ in range(3):
-        wall, outs = run()
-        best = min(best, wall)
+    _, ref = run(False)  # warm-up
+    graph = capture_pipeline_step(cfg, ps0, tree_map(lambda a: a[0], frames)) if dev.type == "cuda" else None
+    best = {"captured": np.inf, "eager": np.inf}
+    order = ("captured", "eager", "eager", "captured", "captured", "eager") if graph else ("eager",) * 3
+    for mode in order:
+        wall, outs = run(graph if mode == "captured" else False)
+        best[mode] = min(best[mode], wall)
+        if not all(torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                   if a.dtype != torch.bool else torch.equal(a, b)
+                   for a, b in zip(leaves(outs), leaves(ref))):
+            raise AssertionError(f"a {mode} run's outputs differ from the eager run's")
     if fleet:
         outs = tree_map(lambda a: a[:, 0], outs)  # lane 0 for the gate
     m = outs.initialized.cpu().numpy().astype(bool)
@@ -116,12 +130,14 @@ def run_bench(fleet: int = 0, device="cuda") -> dict:
     ate = ate_rmse(p[m], data["gt_p"][m])
     if not (np.isfinite(ate) and ate < ATE_GATE):
         raise AssertionError(f"accuracy gate failed: ATE {ate}")
-    fps = (fleet or 1) * T / best
+    wall = best["captured"] if graph else best["eager"]
+    fps = (fleet or 1) * T / wall
     metric = (f"synthetic_euroc_fleet_b{fleet}_aggregate_fps_per_chip" if fleet
               else "synthetic_euroc_image_pipeline_fps_per_chip")
     return {"metric": metric, "value": round(fps, 2), "unit": "fps", "vs_baseline": round(fps / 200.0, 3),
-            "detail": {"frames": int(T), "wall_s": round(best, 3), "ate_m": round(float(ate), 4),
-                       "noise": NOISE, "realtime_factor": round(fps / 20.0, 2),
+            "detail": {"frames": int(T), "wall_s": round(wall, 3), "ate_m": round(float(ate), 4),
+                       "noise": NOISE, "realtime_factor": round(fps / 20.0, 2), "captured": graph is not None,
+                       "eager_fps": round((fleet or 1) * T / best["eager"], 2),
                        "device": card_line() if dev.type == "cuda" else str(dev)}}
 
 

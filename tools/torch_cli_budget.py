@@ -39,13 +39,13 @@ def main() -> int:
         raise RuntimeError("needs a CUDA GPU")
     from larvio_tpu_torch import cli
     from larvio_tpu_torch.config import VioConfig
-    from larvio_tpu_torch.core.device import disable_tf32
+    from larvio_tpu_torch.core.device import card_numerics
     from larvio_tpu_torch.core.tree import tree_map
     from larvio_tpu_torch.data.euroc import EurocSequence
     from larvio_tpu_torch.models.propagation import ImuBatch
     from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, pipeline_step
 
-    disable_tf32()
+    card_numerics()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)

@@ -1,18 +1,24 @@
-"""Where a frame's time goes in the PyTorch port on one NVIDIA GPU.
+"""Where a frame's time goes in the PyTorch port on one NVIDIA GPU, eager and
+captured.
 
     python3 tools/torch_profile_step.py [--frames 160] [--fleet B] [--max-slam-features S]
                                         [--out profile_step.txt]
 
 Runs the main path (the default ``VioConfig``: 6 SLAM slots, D = 160; or
 ``--max-slam-features 0`` for the pure-MSCKF configuration, D = 142; 752x480,
-the clean 8 s simulator workload rendered on the card) and reports, after a
-warm-up run:
+the clean 8 s simulator workload rendered on the card) two ways: the eager
+step (``pipeline_step`` per frame) and the step captured as a CUDA graph and
+replayed per frame (``pipeline.run_image_sequence``'s default on the card).
+It reports:
 
-* end-to-end ms/frame (host clock around work that ends in a synchronize);
-* the two halves, ``track_frame`` and ``filter_step``, each timed with a
-  synchronize on both sides (so their sum exceeds the pipelined frame time);
-* a ``torch.profiler`` window over 20 steady frames: device busy time per
-  frame, the device's idle share, kernel launches per frame, and the top
+* end-to-end ms/frame of each, in turns (eager, captured, captured, eager:
+  the host drifts within a call), after one warm-up run and the capture;
+* the eager step's two halves, ``track_frame`` and ``filter_step``, each
+  timed with a synchronize on both sides (so their sum exceeds the
+  pipelined frame time);
+* for each, a ``torch.profiler`` window over 20 steady frames: the host's
+  launch calls per frame (kernels, graph launches, copies), the device's
+  operations and busy time per frame, its idle share, and (eager) the top
   kernels by device time (the full table goes to ``--out``);
 * the descriptor pass alone: one steady frame's ``describe`` call replayed
   50 times under the profiler, its device time and kernel launches per call.
@@ -48,9 +54,9 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA GPU")
-    from larvio_tpu_torch.core.device import disable_tf32
+    from larvio_tpu_torch.core.device import card_numerics
 
-    disable_tf32()
+    card_numerics()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
@@ -112,44 +118,84 @@ def main() -> int:
         return fe_s, fi_s
 
     run(False)  # warm-up
-    t0 = time.perf_counter()
-    run(False)
-    wall = time.perf_counter() - t0
+    from larvio_tpu_torch.core.tree import leaves, tree_map
+    from larvio_tpu_torch.pipeline import capture_pipeline_step, run_image_sequence
+
+    stacked = tree_map(lambda *xs: torch.stack(xs), *frames)
+    ps0 = init_fleet_pipeline_state(cfg, B, dev) if B else init_pipeline_state(cfg, dev)
+    graph = capture_pipeline_step(cfg, ps0, frames[0])
+    walls = {"eager": [], "captured": []}
+    for mode in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_image_sequence(cfg, ps0, stacked, graph=graph if mode == "captured" else False)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
     fe_s, fi_s = run(True)
     what = f"batched frame of {B} instances" if B else "frame"
-    print(f"end to end: {1e3 * wall / T:.3f} ms per {what} ({T / wall:.3f} per s"
-          f"{f', {B * T / wall:.3f} instance-frames/s' if B else ''}) over {T} frames", flush=True)
-    print(f"split (synchronized): track_frame {1e3 * fe_s / T:.3f} ms/frame, "
+    for mode, ws in walls.items():
+        print(f"end to end, {mode}: " + ", ".join(f"{1e3 * w / T:.3f}" for w in ws) + f" ms per {what} "
+              f"({T / min(ws):.3f} per s{f', {B * T / min(ws):.3f} instance-frames/s' if B else ''}, best) "
+              f"over {T} frames", flush=True)
+    print(f"split (eager, synchronized): track_frame {1e3 * fe_s / T:.3f} ms/frame, "
           f"filter_step {1e3 * fi_s / T:.3f} ms/frame", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
     window = (100, 120) if T >= 120 else (T // 2, T // 2 + min(20, T // 2))
     n_win = window[1] - window[0]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    run(False, prof, window)
-    ka = prof.key_averages()
-    dev_attr = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = float(np.sum([e.time_range.elapsed_us() for e in kernels])) if kernels else 0.0
-    if kernels:
-        span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
-        print(f"profiler window {n_win} frames: device busy {busy_us / 1e3 / n_win:.3f} ms/frame, "
-              f"device span {span_us / 1e3 / n_win:.3f} ms/frame, idle share "
-              f"{1 - busy_us / max(span_us, 1e-9):.4f}, {len(kernels) / n_win:.1f} kernel launches/frame",
-              flush=True)
-    else:
-        print("profiler recorded no device events; use the CUDA-event timings above", flush=True)
-    table = ka.table(sort_by=dev_attr, row_limit=60)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
-        f.write(f"{card}\n{table}\n")
-    by_name: dict = {}
-    for e in kernels:
-        tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"  {tot / 1e3 / n_win:9.4f} ms/frame  {cnt / n_win:7.1f} launches/frame  {name[:100]}")
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                    "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+    def captured(prof):
+        graph.load(ps0)
+        bufs = []
+        for k, fr in enumerate(frames):
+            if k == window[0]:
+                torch.cuda.synchronize()
+                prof.start()
+            out = list(leaves(graph.replay(fr)))
+            if not bufs:
+                bufs.extend(o.new_empty((T, *o.shape)) for o in out)
+            for b, o in zip(bufs, out):  # what run_image_sequence does per frame
+                b[k].copy_(o)
+            if k == window[1] - 1:
+                torch.cuda.synchronize()
+                prof.stop()
+
+    for mode in ("eager", "captured"):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        if mode == "eager":
+            run(False, prof, window)
+        else:
+            captured(prof)
+        evs = prof.events()
+        host = [e for e in evs if e.device_type == torch.autograd.DeviceType.CPU and e.name in launch_calls]
+        kernels = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = float(np.sum([e.time_range.elapsed_us() for e in kernels])) if kernels else 0.0
+        if kernels:
+            span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+            print(f"profiler window {n_win} frames, {mode}: {len(host) / n_win:.1f} host launch calls/frame, "
+                  f"device busy {busy_us / 1e3 / n_win:.3f} ms/frame, device span "
+                  f"{span_us / 1e3 / n_win:.3f} ms/frame, idle share {1 - busy_us / max(span_us, 1e-9):.4f}, "
+                  f"{len(kernels) / n_win:.1f} device operations/frame", flush=True)
+        else:
+            print(f"profiler window {n_win} frames, {mode}: {len(host) / n_win:.1f} host launch calls/frame; "
+                  "no device events recorded (device time not measured)", flush=True)
+        if mode != "eager":
+            continue
+        ka = prof.key_averages()
+        dev_attr = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
+        table = ka.table(sort_by=dev_attr, row_limit=60)
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(f"{card}\n{table}\n")
+        by_name: dict = {}
+        for e in kernels:
+            tot, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+        for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+            print(f"  {tot / 1e3 / n_win:9.4f} ms/frame  {cnt / n_win:7.1f} launches/frame  {name[:100]}")
 
     # the descriptor pass alone: replay one frame's describe() call under the profiler
     from larvio_tpu_torch.models import frontend
