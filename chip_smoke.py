@@ -51,8 +51,8 @@ Phases, each raising on failure (the script then exits non-zero):
    image pipeline: 0 resets, mean tracks > 40, ATE < 0.2 m, one K1 and one
    describe launch per frame (``tests/test_consistency.py``'s gates);
 3g. ``tests/test_consistency.py``'s feature-level workloads as two lanes of
-   one batched ``api.run_sequence`` (15 s each), eager and captured in
-   turns, equal bit for bit: position NEES < 12 per axis; with 3% gross
+   one batched ``api.run_sequence`` (15 s each), one eager and one
+   captured run, equal bit for bit: position NEES < 12 per axis; with 3% gross
    outliers 0 resets and ATE < 0.15 m;
 3h. the reference's remaining feature-level gates (``tests/test_e2e_sim.py``
    and the verify skill's drives): seven 15 s workloads (clean, noisy with
@@ -61,10 +61,24 @@ Phases, each raising on failure (the script then exits non-zero):
    its test's gates, then the noisy 20 s drive as one instance (ATE < 0.10
    m, 0 resets); each workload's figures beside the JAX package's on the CPU
    (``tools/f2_figures.py``);
+3i. the Joseph path (``FilterConfig(sqrt_form=False)``, the dense
+   covariance; ``bench.py --joseph``'s configuration): phase 3's 160 frames
+   at full width, one eager and one captured run equal bit for bit, phase
+   3's gates, the captured P a dense (D, D), and its ATE against phase 3's
+   square-root ATE (|d| < 0.3 max(ATE_joseph, 0.01),
+   ``tests/test_sqrt_filter.py:97-100``); phase 4's 8 lanes captured once
+   with phase 4's gates; ``bench.py --joseph``'s workload captured (ATE <
+   0.13 m, 0 resets); the Joseph against square-root feature-level parity
+   (``tests/test_sqrt_filter.py:60-116``) and the 20-seed Joseph NEES
+   (``tests/test_consistency_hardening.py:222-297``) through captured
+   ``api.run_sequence``, each beside the JAX package's figures on the CPU
+   (``tools/f2_figures.py --joseph``); after phase 4 the two forms take
+   turns (sqrt, Joseph, Joseph, sqrt), single and B = 8: captured ms/frame
+   over the sequence, eager ms/frame over frames 60-64;
 4. fleet path: the same 160 frames for 8 instances at once (lanes 1-7 with
    their own image noise, lane 7 with 1 s of NaN accelerometer samples)
-   through ``run_fleet_image_sequence``, default configuration, eager and
-   captured in turns, equal bit for bit (the NaN lane included); checks
+   through ``run_fleet_image_sequence``, default configuration, one eager
+   and one captured run, equal bit for bit (the NaN lane included); checks
    every lane's health, lane 0's SLAM engagement and its ATE against the
    single path's, that the NaN lane holds no SLAM slot on its reset frames,
    the fleet metrics and that every frame launched K3 and the batched
@@ -83,7 +97,8 @@ Phases, each raising on failure (the script then exits non-zero):
 5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
    version at the same shapes; then host launch calls per frame, device
    busy time and idle share of the eager and the captured main path and
-   fleet under ``torch.profiler`` (last: a process that has run
+   fleet, square-root and Joseph in turns, under ``torch.profiler`` over
+   frames 60-64, reached by replays (last: a process that has run
    ``torch.profiler`` launches every later kernel more slowly).
 
 On the card every path but the eager runs of phases 3, 3g and 4 replays a
@@ -140,6 +155,7 @@ from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
 from larvio_tpu_torch.ops.orb import _CIRC, N_BITS, _describe_plain, _r, describe
 from larvio_tpu_torch.parallel import multichip
 from larvio_tpu_torch.models.msckf import init_vio_state
+from larvio_tpu_torch.models.state import state_dim
 from larvio_tpu_torch.parallel.fleet import (fleet_metrics, fleet_step, init_fleet_pipeline_state,
                                              init_fleet_state, run_fleet_image_sequence, run_fleet_sequence)
 from larvio_tpu_torch.parallel.multichip import lane_data
@@ -620,17 +636,19 @@ def _bits_equal(a, b) -> bool:
     return True
 
 
-def _eager_vs_captured(cfg, ps, frames, label: str, batched: bool = False):
+def _eager_vs_captured(cfg, ps, frames, label: str, batched: bool = False,
+                       order=("eager", "captured", "captured", "eager")):
     """``run_image_sequence`` over ``frames`` eagerly and captured, in turns
-    (eager, captured, captured, eager: the host drifts within a call); each
-    run holds its launch gate (eager: the wrappers' counts; captured:
-    replays times the capture's counts, no wrapper running) and equals the
-    first eager run bit for bit, outputs and final state. Returns (captured
-    outputs, launches of a captured run, {mode: [ms/frame]})."""
+    (by default eager, captured, captured, eager: the host drifts within a
+    call); each run holds its launch gate (eager: the wrappers' counts;
+    captured: replays times the capture's counts, no wrapper running) and
+    equals the first run bit for bit, outputs and final state. Returns
+    (captured outputs, launches of a captured run, {mode: [ms/frame]}, the
+    captured step)."""
     T = frames.t.shape[0]
     graph = _capture(cfg, ps, frames)
     ref, ms = None, {"eager": [], "captured": []}
-    for mode in ("eager", "captured", "captured", "eager"):
+    for mode in order:
         if mode == "eager":
             torch.cuda.synchronize()
             _reset_counts()
@@ -643,9 +661,9 @@ def _eager_vs_captured(cfg, ps, frames, label: str, batched: bool = False):
             captured = launches
         _launch_gate(launches, T, f"{label} ({mode})", batched)
         ref = res if ref is None else ref
-        assert _bits_equal(res, ref), f"{label}: a {mode} run differs from the first eager run"
+        assert _bits_equal(res, ref), f"{label}: a {mode} run differs from the first {order[0]} run"
         ms[mode].append(1e3 * wall / T)
-    return res[1], captured, ms
+    return res[1], captured, ms, graph
 
 
 def _ms_line(ms: dict) -> str:
@@ -678,17 +696,19 @@ def _slam_gate(o, lane: str) -> int:
     return n
 
 
-def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True):
+def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
+                    order=("eager", "captured", "captured", "eager")):
     """The single path over the rendered frames. ``compare``: eager and
-    captured runs in turns, equal bit for bit (``_eager_vs_captured``);
-    else one captured run. The health gates read the captured run."""
+    captured runs in ``order``, equal bit for bit (``_eager_vs_captured``);
+    else one captured run. The health gates read the captured run. Returns
+    (launches of a captured run, ATE, the frames, the captured step)."""
     T = imgs.shape[0]
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
     frames = FrameInput(image=imgs, imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]),
                         t=g["t_img"])
     ps = init_pipeline_state(cfg, dev)
     if compare:
-        outs, launches, ms = _eager_vs_captured(cfg, ps, frames, label)
+        outs, launches, ms, graph = _eager_vs_captured(cfg, ps, frames, label, order=order)
         how = f"eager and captured runs equal bit for bit (outputs and final state); {_ms_line(ms)}"
     else:
         graph = _capture(cfg, ps, frames)
@@ -703,7 +723,7 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True)
     print(f"{label}: {T} frames, {n_init} initialized, 0 resets, mean n_tracks "
           f"{mean_tracks:.2f}{slam}, ATE {ate:.5f} m (gate {ATE_GATE}); one K1 and one describe launch "
           f"per frame; {how} on {card}", flush=True)
-    return launches, ate, frames
+    return launches, ate, frames, graph
 
 
 FLEX_ATE_GATE = 0.15  # m; the JAX package's moving-start image gate (tests/test_e2e_image.py:133)
@@ -894,8 +914,9 @@ def phase_dataset(dev, cfg, card):
 
 def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path", compare=True):
     """B instances through one batched image step per frame. ``compare``:
-    eager and captured runs in turns, equal bit for bit (the NaN lane
-    included); else one captured run."""
+    one eager and one captured run, equal bit for bit (the NaN lane
+    included; phase 3i's turns time the fleet eager and captured); else one
+    captured run."""
     T = imgs.shape[0]
     bimgs = torch.empty((T, B, *imgs.shape[1:]), dtype=torch.float32, device=dev)
     bimgs[:, 0] = imgs  # lane 0: the main path's frames unchanged
@@ -918,7 +939,8 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
     )
     ps = init_fleet_pipeline_state(cfg, B, dev)
     if compare:
-        outs, launches, ms = _eager_vs_captured(cfg, ps, frames, label, batched=True)
+        outs, launches, ms, graph = _eager_vs_captured(cfg, ps, frames, label, batched=True,
+                                                       order=("eager", "captured"))
         how = f"eager and captured runs equal bit for bit (NaN lane included); {_ms_line(ms)} per batched frame"
         wall = 1e-3 * T * min(ms["captured"])
     else:
@@ -959,7 +981,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
           flush=True)
     print(f"{label} throughput: {B * T / wall:.3f} instance-frames/s aggregate (captured); {how}; one "
           f"K3 and one batched describe launch per frame, no one-lane launch; on {card}", flush=True)
-    return launches, frames
+    return launches, frames, graph
 
 
 def _image_run(dev, cfg, frames, label: str):
@@ -980,23 +1002,28 @@ def _image_run(dev, cfg, frames, label: str):
 BENCH_ATE_JAX = 0.1034  # m, the JAX package's bench.py on this workload (BENCH_r05.json)
 
 
-def phase_bench(dev, card):
+def phase_bench(dev, card, joseph: bool = False):
     """Phase 3e: ``bench.py``'s workload (``tools/torch_bench.py``'s
     ``bench_workload``: 400 frames, IMU noise and biases, 2 gray levels of
-    image noise) once through the single path; ``bench.py``'s ATE gate."""
-    cfg = VioConfig()
+    image noise) once through the single path; ``bench.py``'s ATE gate.
+    ``joseph``: ``bench.py --joseph``'s configuration (phase 3i)."""
+    cfg = JOSEPH if joseph else VioConfig()
+    label = "Joseph bench workload" if joseph else "bench workload"
     data, frames = bench_workload(cfg, dev)
     T = frames.t.shape[0]
-    o, wall = _image_run(dev, cfg, frames, "bench workload")
+    o, wall = _image_run(dev, cfg, frames, label)
     m = o["initialized"].astype(bool)
     n_resets = int(o["did_reset"].sum())
-    assert n_resets == 0, f"bench workload: {n_resets} online resets"
+    assert n_resets == 0, f"{label}: {n_resets} online resets"
     ate = ate_rmse(o["p"][m], data["gt_p"][m])
-    assert ate < BENCH_ATE_GATE, f"bench workload: ATE {ate:.4f} m >= {BENCH_ATE_GATE}"
-    print(f"bench workload (bench.py's, {frames.image.shape[2]}x{frames.image.shape[1]}): {T} frames, {int(m.sum())} initialized, 0 resets, "
+    assert ate < BENCH_ATE_GATE, f"{label}: ATE {ate:.4f} m >= {BENCH_ATE_GATE}"
+    jax = "not measured" if joseph else BENCH_ATE_JAX
+    print(f"{label} (bench.py{' --joseph' if joseph else ''}'s, {frames.image.shape[2]}x{frames.image.shape[1]}): "
+          f"{T} frames, {int(m.sum())} initialized, 0 resets, "
           f"mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max {int(o['n_slam'].max())}, ATE "
-          f"{ate:.5f} m (gate {BENCH_ATE_GATE}; the JAX package: {BENCH_ATE_JAX}); one K1 and one "
+          f"{ate:.5f} m (gate {BENCH_ATE_GATE}; the JAX package: {jax}); one K1 and one "
           f"describe launch per frame; {1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
+    return ate
 
 
 FISHEYE_TRACKS_GATE = 40  # mean tracks over initialized frames (tests/test_consistency.py:95)
@@ -1056,7 +1083,7 @@ def phase_consistency(dev, card):
     T = feats.t.shape[0]
     vs0 = init_fleet_state(cfg, 2, dev)
     ms, ref = {}, None
-    for graph in (False, None, None, False):  # eager, captured (captured for each call), eager
+    for graph in (False, None):  # eager, then captured (the capture included)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run_sequence(cfg, vs0, feats, imu, graph=graph)
@@ -1220,6 +1247,198 @@ def phase_f2(dev, card):
           f"all gates held; {wall:.3f} s on {card}", flush=True)
 
 
+# Phase 3i: the Joseph (dense covariance) path, FilterConfig(sqrt_form=False)
+# (bench.py --joseph's configuration), full width, single and fleet.
+JOSEPH = VioConfig(filter=FilterConfig(sqrt_form=False))
+PARITY_REL = 0.3  # |ATE_sqrt - ATE_joseph| < 0.3 max(ATE_joseph, 0.01) (tests/test_sqrt_filter.py:97-100)
+PARITY_ATE_GATE = 0.2  # m, both forms (tests/test_sqrt_filter.py:95)
+STD_RATIO = (0.75, 1.35)  # median sqrt/Joseph p_std and v_std, last 60 frames (tests/test_sqrt_filter.py:106-116)
+NEES_J_GATE, NEES_J_FLOOR = 3.0, 0.02  # tests/test_consistency_hardening.py:270,291
+# tests/test_sqrt_filter.py:60-88: the SMALL window, 12 s, both biases
+PARITY_CFG = dict(filter=dict(max_clones=8, max_update_features=12, imu_slots_per_frame=24),
+                  frontend=dict(max_features=48))
+PARITY_SIM = dict(duration=12.0, pixel_noise=0.002, gyro_noise=0.005, acc_noise=0.05,
+                  gyro_bias=(0.01, -0.02, 0.015), acc_bias=(0.05, -0.03, 0.08), n_landmarks=400)
+# tests/test_consistency_hardening.py:222-297: 20 seeds x 10 s, Joseph form
+NEES_CFG = dict(noise=dict(observation_noise=0.005), filter=dict(sqrt_form=False))
+NEES_SIM = dict(duration=10.0, pixel_noise=0.002, gyro_noise=0.005, acc_noise=0.05)
+NEES_SEEDS = 20
+# The JAX package on these workloads, on the CPU (tools/f2_figures.py --joseph)
+JOSEPH_JAX = {
+    "parity": dict(ate_joseph=0.13527, ate_sqrt=0.13527, p_std_ratio=1.0001, v_std_ratio=1.0001),
+    "nees": dict(nees_p=[0.07266, 0.10743, 0.10622], nees_v=[0.06822, 0.05006, 0.056292]),
+}
+
+
+def build_cfg(config_mod, sections: dict, **filter_kw):
+    """``config_mod.VioConfig`` (either package's) from section dicts."""
+    secs = {k: dict(v) for k, v in sections.items()}
+    secs.setdefault("filter", {}).update(filter_kw)
+    classes = {"filter": "FilterConfig", "frontend": "FrontendConfig", "noise": "NoiseConfig"}
+    return config_mod.VioConfig(**{k: getattr(config_mod, classes[k])(**v) for k, v in secs.items()})
+
+
+def parity_figures(data: dict, o_j: dict, o_s: dict) -> dict:
+    """``tests/test_sqrt_filter.py::TestSqrtEquivalence``'s figures from the
+    Joseph and the square-root runs' outputs (numpy, over frames)."""
+    m = o_j["initialized"].astype(bool)
+    fig = {"ate_joseph": ate_rmse(o_j["p"][m], data["gt_p"][m]),
+           "ate_sqrt": ate_rmse(o_s["p"][m], data["gt_p"][m]),
+           "resets_joseph": int(o_j["did_reset"].sum()), "resets_sqrt": int(o_s["did_reset"].sum())}
+    for fld in ("p_std", "v_std"):
+        fig[f"{fld}_ratio"] = float(np.median(o_s[fld][-60:] / np.maximum(o_j[fld][-60:], 1e-6)))
+    return fig
+
+
+def parity_check(fig: dict) -> None:
+    aj, as_ = fig["ate_joseph"], fig["ate_sqrt"]
+    assert aj < PARITY_ATE_GATE and as_ < PARITY_ATE_GATE, f"Joseph/sqrt parity: ATE {aj:.4f} / {as_:.4f} m"
+    assert abs(as_ - aj) < PARITY_REL * max(aj, 0.01), f"Joseph/sqrt parity: ATE {aj:.5f} vs {as_:.5f} m"
+    assert fig["resets_sqrt"] == 0, f"Joseph/sqrt parity: {fig['resets_sqrt']} resets in the sqrt run"
+    for fld in ("p_std", "v_std"):
+        r = fig[f"{fld}_ratio"]
+        assert STD_RATIO[0] < r < STD_RATIO[1], f"Joseph/sqrt parity: median {fld} ratio {r:.3f}"
+
+
+def nees_figures(stacked: dict, o: dict) -> dict:
+    """``tests/test_consistency_hardening.py::TestMonteCarloNees``'s figures
+    from a fleet's outputs (numpy, (T, B, ...)): position and velocity NEES
+    per axis over every lane's steady-state frames (the test's gate), and
+    per lane (the mean over the axes)."""
+    m = o["initialized"].astype(bool)
+    sel = m.copy()
+    sel[:5 * 20] = False  # steady state only: skip the post-init transient
+    gt = stacked["gt_p"]
+    t = stacked["t_img"]
+    gt_v = np.gradient(gt, axis=0) / np.gradient(t, axis=0)[..., None]
+    e_p = (o["p"] - gt) ** 2 / np.maximum(o["p_std"], 1e-6) ** 2
+    e_v = (o["v"] - gt_v) ** 2 / np.maximum(o["v_std"], 1e-6) ** 2
+    lanes = lambda e: [float(e[sel[:, b], b].mean()) for b in range(e.shape[1])]  # noqa: E731
+    return {"nees_p": e_p[sel].mean(axis=0).tolist(), "nees_v": e_v[sel].mean(axis=0).tolist(),
+            "lane_nees_p": lanes(e_p), "lane_nees_v": lanes(e_v),
+            "finite": bool(np.isfinite(o["p"]).all()), "resets": int(o["did_reset"].sum())}
+
+
+def nees_check(fig: dict) -> None:
+    assert fig["finite"], "Joseph NEES: non-finite positions"
+    assert max(fig["nees_p"]) < NEES_J_GATE, f"Joseph NEES: position {fig['nees_p']} (gate {NEES_J_GATE})"
+    assert max(fig["nees_v"]) < NEES_J_GATE, f"Joseph NEES: velocity {fig['nees_v']} (gate {NEES_J_GATE})"
+    assert min(fig["nees_v"]) > NEES_J_FLOOR, f"Joseph NEES: velocity {fig['nees_v']} (floor {NEES_J_FLOOR})"
+
+
+def _numpy_outs(outs, keys=("p", "v", "initialized", "did_reset", "p_std", "v_std")) -> dict:
+    return {k: getattr(outs, k).cpu().numpy() for k in keys}
+
+
+def run_joseph_features(dev, graph=None) -> dict:
+    """Phase 3i's feature-level workloads through the port's
+    ``api.run_sequence``: the parity workload in both forms (two runs), and
+    the NEES seeds as lanes of one Joseph fleet. Returns {name: figures}."""
+    import larvio_tpu_torch.config as config_mod
+
+    runs = {}
+    for sqrt in (False, True):
+        cfg = build_cfg(config_mod, PARITY_CFG, sqrt_form=sqrt)
+        data = Simulator(SimConfig(**PARITY_SIM), cfg).generate()
+        _, outs = run_sequence(cfg, init_vio_state(cfg, dev), *make_frame_inputs(data, device=dev), graph=graph)
+        runs[sqrt] = (data, _numpy_outs(outs))
+    figs = {"parity": parity_figures(runs[False][0], runs[False][1], runs[True][1])}
+    cfg = build_cfg(config_mod, NEES_CFG)
+    datas = [Simulator(SimConfig(seed=s, **NEES_SIM), cfg).generate() for s in range(NEES_SEEDS)]
+    stacked = {k: np.stack([d[k] for d in datas], axis=1) for k in datas[0]}
+    vs, outs = run_sequence(cfg, init_fleet_state(cfg, NEES_SEEDS, dev), *make_frame_inputs(stacked, device=dev),
+                            graph=graph)
+    figs["nees"] = nees_figures(stacked, _numpy_outs(outs))
+    assert vs.filter.P.shape[-2:] == (state_dim(cfg), state_dim(cfg))
+    return figs
+
+
+def _fmt(x) -> str:
+    if x is None:
+        return "not measured"
+    if isinstance(x, (list, tuple)):
+        return "[" + ", ".join(f"{v:.4g}" for v in x) + "]"
+    return f"{x:.5g}" if isinstance(x, float) else str(x)
+
+
+def phase_joseph(dev, data, imgs, sqrt_ate, card):
+    """Phase 3i: the Joseph path. The main path (one eager and one captured
+    run, equal bit for bit) with phase 3's gates and the parity rule against
+    phase 3's square-root ATE; the 8-lane fleet captured once with phase 4's
+    gates; ``bench.py --joseph``'s workload; the feature-level Joseph vs
+    square-root parity and the 20-seed NEES, each held to its test's gates
+    and printed beside the JAX package's figures on the CPU. Returns the
+    captured steps and frames for the timing turns and profiles."""
+    cfg = JOSEPH
+    D = state_dim(cfg)
+    t0 = time.perf_counter()
+    _, ate, frames, graph = phase_main_path(dev, cfg, data, imgs, card, label="Joseph main path",
+                                            order=("eager", "captured"))
+    assert graph.state().vio.filter.P.shape == (D, D), "Joseph main path: the captured P is not (D, D)"
+    assert abs(sqrt_ate - ate) < PARITY_REL * max(ate, 0.01), \
+        f"Joseph main path: ATE {ate:.5f} m against the square-root path's {sqrt_ate:.5f} m"
+    print(f"Joseph main path ATE {ate:.5f} m beside the square-root main path's {sqrt_ate:.5f} m: "
+          f"|d| {abs(sqrt_ate - ate):.5f} m < {PARITY_REL} x max(ATE_joseph, 0.01); the captured step "
+          f"holds a dense ({D}, {D}) P", flush=True)
+    _, fleet_frames, fleet_graph = phase_fleet(dev, cfg, data, imgs, ate, card, label="Joseph fleet",
+                                               compare=False)
+    assert fleet_graph.state().vio.filter.P.shape == (B_FLEET, D, D)
+    phase_bench(dev, card, joseph=True)
+    figs = run_joseph_features(dev)
+    parity_check(figs["parity"])
+    nees_check(figs["nees"])
+    for name in ("parity", "nees"):
+        jax = JOSEPH_JAX[name]
+        print(f"  Joseph {name}: " + ", ".join(f"{k} {_fmt(v)}" for k, v in figs[name].items())
+              + "; the JAX package on the CPU: " + ", ".join(f"{k} {_fmt(v)}" for k, v in jax.items()), flush=True)
+    print(f"Joseph path (phase 3i): every gate held; {time.perf_counter() - t0:.3f} s on {card}", flush=True)
+    return (frames, graph), (fleet_frames, fleet_graph)
+
+
+def _state_at(graph, ps0, frames, k: int):
+    """The state before frame ``k``: ``ps0`` loaded into the captured step and
+    frames 0..k-1 replayed (bit for bit the eager loop's state there)."""
+    graph.load(ps0)
+    for j in range(k):
+        graph.replay(tree_map(lambda a: a[j], frames))
+    return graph.state()
+
+
+TURN_WINDOW = (60, 65)  # eager frames timed in the turns, after the filter initialized
+
+
+def phase_turns(runs: dict, card: str):
+    """Phase 3i's timing: the square-root and the Joseph path in turns
+    (sqrt, Joseph, Joseph, sqrt), single and B = 8: captured ms/frame over
+    the whole sequence (``run_image_sequence`` replaying each path's step),
+    then eager ms/frame over ``TURN_WINDOW`` from the state the replays
+    reach there. ``runs``: {(width, form): (cfg, ps0, frames, graph)}."""
+    lo, hi = TURN_WINDOW
+    starts = {}  # each path's state at frame lo, reached once
+    for width in ("single", "fleet B = 8"):
+        ms = {(form, mode): [] for form in ("sqrt", "Joseph") for mode in ("captured", "eager")}
+        for form in ("sqrt", "Joseph", "Joseph", "sqrt"):
+            cfg, ps0, frames, graph = runs[(width, form)]
+            T = frames.t.shape[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_image_sequence(cfg, ps0, frames, graph=graph)
+            torch.cuda.synchronize()
+            ms[(form, "captured")].append(1e3 * (time.perf_counter() - t0) / T)
+            if (width, form) not in starts:
+                starts[(width, form)] = _state_at(graph, ps0, frames, lo)
+            st = starts[(width, form)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(lo, hi):
+                st, _ = pipeline_step(cfg, st, tree_map(lambda a: a[k], frames))
+            torch.cuda.synchronize()
+            ms[(form, "eager")].append(1e3 * (time.perf_counter() - t0) / (hi - lo))
+        print(f"turns ({width}, sqrt, Joseph, Joseph, sqrt): " + "; ".join(
+            f"{form} {mode} " + ", ".join(f"{x:.3f}" for x in v) + " ms/frame" for (form, mode), v in ms.items())
+            + f" (eager over frames {lo}-{hi - 1}) on {card}", flush=True)
+
+
 SHARD_BAND_HEAD, SHARD_BAND = 1.5e-2, 3e-2  # m, frames < 60 and all (tests/test_fleet.py:133-134)
 SHARD_GT_GATE = 0.25  # m from each lane's own ground truth (tests/test_fleet.py:143)
 
@@ -1291,21 +1510,21 @@ def phase_sharded(dev, card):
 
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                       "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
-PROFILE_WINDOW = (60, 70)  # frames profiled, after the filter initialized
+PROFILE_WINDOW = (60, 65)  # frames profiled, after the filter initialized
 
 
 def _profile_window(step, lo: int, hi: int):
-    """``step(k)`` runs frame k; frames [lo, hi) under ``torch.profiler``.
-    Returns per frame: the host's launch calls (kernels, graphs, copies and
-    fills it enqueued), the device's operations, its busy ms, and the idle
-    share of the device's span."""
+    """``step(k)`` runs frame k; frames [lo, hi) under ``torch.profiler``
+    (the caller's state is already at frame lo). Returns per frame: the
+    host's launch calls (kernels, graphs, copies and fills it enqueued), the
+    device's operations, its busy ms, and the idle share of the device's
+    span."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    for k in range(hi):
-        if k == lo:
-            torch.cuda.synchronize()
-            prof.start()
+    torch.cuda.synchronize()
+    prof.start()
+    for k in range(lo, hi):
         step(k)
     torch.cuda.synchronize()
     prof.stop()
@@ -1320,18 +1539,18 @@ def _profile_window(step, lo: int, hi: int):
     return len(host) / n, len(ops) / n, busy / 1e3 / n, 1.0 - busy / max(span, 1e-9)
 
 
-def phase_profile(cfg, frames, ps0, label: str, card: str):
+def phase_profile(cfg, frames, ps0, graph, label: str, card: str):
     """Host launches per frame, device busy time and idle share of the eager
-    and the captured step over ``PROFILE_WINDOW`` of (T, ...) ``frames``
-    (last: a process that has run ``torch.profiler`` launches later kernels
-    more slowly)."""
+    and the captured step (``graph``, captured for ``ps0``) over
+    ``PROFILE_WINDOW`` of (T, ...) ``frames``, each from the state the
+    replays reach at the window's first frame (last: a process that has run
+    ``torch.profiler`` launches later kernels more slowly)."""
     lo, hi = PROFILE_WINDOW
-    state = [ps0]
+    state = [None]
 
     def eager(k):
         state[0], _ = pipeline_step(cfg, state[0], tree_map(lambda a: a[k], frames))
 
-    graph = _capture(cfg, ps0, frames)
     bufs = []
 
     def captured(k):  # what run_image_sequence does per frame
@@ -1341,12 +1560,27 @@ def phase_profile(cfg, frames, ps0, label: str, card: str):
         for b, o in zip(bufs, out):
             b[k].copy_(o)
 
+    start = _state_at(graph, ps0, frames, lo)
     for mode, step in (("eager", eager), ("captured", captured)):
+        state[0] = start
+        graph.load(start)
         host, ops, busy, idle = _profile_window(step, lo, hi)
         dev_part = (f"{ops:.1f} device operations, device busy {busy:.3f} ms, idle share {idle:.4f}"
                     if busy is not None else "no device events recorded (device time not measured)")
         print(f"profile {label} ({mode}, frames {lo}-{hi - 1}): {host:.1f} host launch calls per frame, "
               f"{dev_part} per frame on {card}", flush=True)
+
+
+class _PhaseClock:
+    """Host seconds of each phase: ``clock(name)`` closes the span since the
+    previous call (or the clock's start) under ``name``."""
+
+    def __init__(self):
+        self.spans, self._t = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        t = time.perf_counter()
+        self.spans[name], self._t = t - self._t, t
 
 
 def main() -> int:
@@ -1366,10 +1600,12 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}", flush=True)
 
     t_start = time.perf_counter()
+    clock = _PhaseClock()
     cfg = VioConfig()  # the default configuration: 6 SLAM slots, D = 160
     sim = Simulator(SimConfig(duration=8.0), cfg)
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
     timings = phase_kernels(dev, sim, rend) + phase_kernels_batched(dev, sim, rend)
+    clock("2")
 
     data = sim.generate()
     t0 = time.perf_counter()
@@ -1377,24 +1613,47 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} on the card in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    launches, ate, main_frames = phase_main_path(dev, cfg, data, imgs, card)
+    launches, ate, main_frames, main_graph = phase_main_path(dev, cfg, data, imgs, card)
+    clock("3")
     phase_flexible(dev, cfg, card)
+    clock("3c")
     phase_dataset(dev, cfg, card)
+    clock("3d")
     phase_bench(dev, card)
+    clock("3e")
     phase_fisheye(dev, card)
+    clock("3f")
     phase_consistency(dev, card)
+    clock("3g")
     phase_f2(dev, card)
-    fleet_launches, fleet_frames = phase_fleet(dev, cfg, data, imgs, ate, card)
+    clock("3h")
+    j_main, j_fleet = phase_joseph(dev, data, imgs, ate, card)
+    clock("3i")
+    fleet_launches, fleet_frames, fleet_graph = phase_fleet(dev, cfg, data, imgs, ate, card)
+    clock("4")
     launches.update({k: v for k, v in fleet_launches.items() if k.endswith("_batched")})
+    ps_single, ps_fleet = init_pipeline_state(cfg, dev), init_fleet_pipeline_state(cfg, B_FLEET, dev)
+    runs = {("single", "sqrt"): (cfg, ps_single, main_frames, main_graph),
+            ("single", "Joseph"): (JOSEPH, init_pipeline_state(JOSEPH, dev), *j_main),
+            ("fleet B = 8", "sqrt"): (cfg, ps_fleet, fleet_frames, fleet_graph),
+            ("fleet B = 8", "Joseph"): (JOSEPH, init_fleet_pipeline_state(JOSEPH, B_FLEET, dev), *j_fleet)}
+    phase_turns(runs, card)
+    clock("3i turns")
     pure = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM slots
     # one captured run each: the default configuration's phases compared
     # eager and captured runs (keeps the command under 600 s)
-    _, pure_ate, _ = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", compare=False)
+    _, pure_ate, _, _ = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", compare=False)
     phase_fleet(dev, pure, data, imgs, pure_ate, card, label="pure-MSCKF fleet", compare=False)
+    clock("4b")
     phase_sharded(dev, card)
+    clock("4c")
     kernels = phase_timing(timings)
-    phase_profile(cfg, main_frames, init_pipeline_state(cfg, dev), "main path", card)
-    phase_profile(cfg, fleet_frames, init_fleet_pipeline_state(cfg, B_FLEET, dev), "fleet path", card)
+    # in turns: the square-root and the Joseph path, single then B = 8
+    for (width, form), (cfg_, ps0, frames_, graph_) in runs.items():
+        phase_profile(cfg_, frames_, ps0, graph_, f"{form} {'main path' if width == 'single' else 'fleet path'}",
+                      card)
+    clock("5")
+    print("command time per phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in clock.spans.items()), flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"command time {time.perf_counter() - t_start:.1f} s after the kernel build", flush=True)

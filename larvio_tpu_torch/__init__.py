@@ -11,7 +11,8 @@ wrapper dispatches on the tensor's device: CPU tensors take the plain
 PyTorch version, CUDA tensors take the kernel.
 
 Covered: the hybrid SLAM/MSCKF filter in square-root covariance form (the
-default ``VioConfig``, and the pure-MSCKF ``max_slam_features == 0``), one
+default ``VioConfig``, and the pure-MSCKF ``max_slam_features == 0``) and in
+Joseph (dense covariance) form (``FilterConfig(sqrt_form=False)``), one
 instance or a fleet of B independent instances on one card (every state leaf
 with a leading instance axis, ``parallel/fleet.py``), and the user's entry
 point: ``python -m larvio_tpu_torch.cli {run,sim,export-sim}`` (EuRoC reader

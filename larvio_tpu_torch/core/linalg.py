@@ -5,10 +5,17 @@ float32 throughout; callers keep TF32 off (``torch.backends.cuda.matmul.
 allow_tf32 = False``), so ``mm`` is a full-precision f32 product like the JAX
 package's HIGHEST-precision ``mm``.
 
-Cholesky failure semantics follow the JAX package: a failed factorization
-yields the identity fallback (JAX returns NaN and the code selects the
-identity). ``torch.linalg.cholesky_ex`` reports failure in ``info`` without
-raising or synchronizing the host, so the select stays on the device.
+Cholesky failure semantics follow the JAX package, whose factorization
+returns NaN where it fails: ``chol_nan`` reproduces that (the callers'
+finite guards then reject the result), ``_chol_or_eye`` the identity
+fallback the JAX code selects in place of NaN. ``torch.linalg.cholesky_ex``
+reports failure in ``info`` without raising or synchronizing the host, so
+every select stays on the device.
+
+The Joseph (dense covariance) path's pieces, ``qr_compress`` and
+``joseph_update``, take one instance or a fleet: ``lanes`` counts the
+leading lane axes, and the products whose batch would fold them run per
+lane (``mm_lanes``), so a lane's bits do not depend on the fleet's width.
 """
 
 from __future__ import annotations
@@ -69,6 +76,13 @@ def _chol_or_eye(A: torch.Tensor) -> torch.Tensor:
     L, info = torch.linalg.cholesky_ex(A)
     L = torch.where((info != 0)[..., None, None], eye, L)
     return torch.where(torch.isnan(L), eye, L)
+
+
+def chol_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, all NaN where the factorization failed (the
+    JAX package's ``cholesky``), so a caller's finite guard rejects it."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info != 0)[..., None, None], torch.nan, L)
 
 
 def householder_eliminate(A: torch.Tensor, B: torch.Tensor, r: torch.Tensor, ncols: int,
@@ -192,3 +206,85 @@ def psd_chol(Q: torch.Tensor, rel_jitter: float = 1e-6) -> torch.Tensor:
     N = Q / (ds[..., :, None] * ds[..., None, :])
     L = _chol_or_eye(symmetrize(N) + rel_jitter * _eye_like(Q.shape[-1], Q))
     return ds[..., :, None] * L
+
+
+def qr_compress(H: torch.Tensor, r: torch.Tensor, mode: str = "cholqr2", lanes: int = 0):
+    """Compress a tall whitened stack H (..., N, D), r (..., N) to (..., D, D)
+    H_c and (..., D) r_c with H_c^T H_c = H^T H and H_c^T r_c = H^T r (the
+    same information); zero (padding) rows of H keep the iid noise iid.
+
+    mode="cholqr2" (the default): two rounds of chol(H^T H)-based
+    factorization; round 2 re-factors the nearly orthonormal B = H R1^{-1}
+    and restores Householder-grade accuracy. mode="qr": Householder thin QR.
+    mode="gram": one chol(H^T H + eps I), the numerical floor. Each failed
+    factorization falls back as in the JAX package (diagonal factors, a
+    zero r_c), and stays on the device.
+    """
+    D = H.shape[-1]
+    Ht = H.transpose(-1, -2)
+    eye = _eye_like(D, H)
+    if mode == "qr":
+        q, R = torch.linalg.qr(H, mode="reduced")
+        return R, mm_lanes(q.transpose(-1, -2), r[..., None], lanes)[..., 0]
+    if mode == "cholqr2":
+        G = symmetrize(mm_lanes(Ht, H, lanes))
+        dG = torch.diagonal(G, dim1=-2, dim2=-1)
+        # jitter above the f32 GEMM rounding floor, 4+ orders below any
+        # real information
+        eps = (3e-5 * (1.0 + torch.amax(dG, dim=-1)))[..., None, None]
+        safe1 = torch.diag_embed(torch.sqrt(torch.clamp(dG, min=0.0) + eps[..., 0]))
+        R1 = chol_nan(G + eps * eye).transpose(-1, -2)  # upper
+        R1 = torch.where(torch.isnan(R1), safe1, R1)
+        # B = H R1^{-1}: the rows of H in the (near-)orthonormal basis.
+        # NOTE: do NOT rewrite round 2 in the Gram domain
+        # (G2 = R1^{-T} G R1^{-1}, r_c from H^T r): it is identical math but
+        # squares the conditioning of what round 2 exists to repair, and it
+        # measurably degraded f32 filter accuracy in the JAX package
+        # (noisy-20s ATE 0.043 -> 0.156). The N-wide solve and product below
+        # are the price of the accuracy: B stays materialized.
+        Bt = torch.linalg.solve_triangular(R1.transpose(-1, -2), Ht, upper=False)  # (..., D, N) = B^T
+        G2 = symmetrize(mm_lanes(Bt, Bt.transpose(-1, -2), lanes))
+        R2 = chol_nan(G2 + 1e-6 * eye).transpose(-1, -2)
+        R2 = torch.where(torch.isnan(R2), eye, R2)
+        H_c = mm_lanes(R2, R1, lanes)  # H = Q2 H_c with Q2 near-orthonormal
+        # r_c = Q2^T r = R2^{-T} B^T r
+        Btr = mm_lanes(Bt, r[..., None], lanes)  # (..., D, 1)
+        r_c = torch.linalg.solve_triangular(R2.transpose(-1, -2), Btr, upper=False)[..., 0]
+        bad = (torch.isnan(r_c).any(dim=-1) | torch.isnan(H_c).flatten(-2).any(dim=-1))
+        H_c = torch.where(bad[..., None, None], safe1, H_c)
+        r_c = torch.where(bad[..., None], 0.0, r_c)
+        return H_c, r_c
+    if mode != "gram":
+        raise ValueError(f"qr_compress: unknown mode {mode!r}")
+    G = mm_lanes(Ht, H, lanes)
+    dG = torch.diagonal(G, dim1=-2, dim2=-1)
+    eps = (3e-5 * (1.0 + torch.amax(dG, dim=-1)))[..., None, None]
+    L = chol_nan(symmetrize(G) + eps * eye)
+    safe = torch.diag_embed(torch.sqrt(torch.clamp(dG, min=0.0) + eps[..., 0]))
+    L = torch.where(torch.isnan(L), safe, L)
+    Htr = mm_lanes(Ht, r[..., None], lanes)
+    r_c = torch.linalg.solve_triangular(L, Htr, upper=False)[..., 0]
+    r_c = torch.where(torch.isnan(r_c), 0.0, r_c)
+    return L.transpose(-1, -2), r_c
+
+
+def joseph_update(P: torch.Tensor, H: torch.Tensor, r: torch.Tensor, noise_var, lanes: int = 0):
+    """EKF update of a dense covariance P (..., D, D) by the rows H (..., n, D),
+    r (..., n) with noise ``noise_var`` (a scalar or (..., n)), in Joseph form
+    P' = (I - K H) P (I - K H)^T + K R K^T. Returns (dx, P'); a failed
+    innovation factorization gives NaN, for the caller's finite guard."""
+    D, n = P.shape[-1], H.shape[-2]
+    if isinstance(noise_var, torch.Tensor):
+        Rn = torch.broadcast_to(noise_var.to(P.dtype), (*H.shape[:-2], n))
+    else:  # filled on the device: a host scalar copied over would break a capture
+        Rn = torch.full((*H.shape[:-2], n), float(noise_var), dtype=P.dtype, device=P.device)
+    Ht = H.transpose(-1, -2)
+    PHt = mm_lanes(P, Ht, lanes)  # (..., D, n)
+    S = symmetrize(mm_lanes(H, PHt, lanes) + torch.diag_embed(Rn))
+    chol = chol_nan(S + 1e-12 * _eye_like(n, P))
+    K = torch.cholesky_solve(PHt.transpose(-1, -2), chol).transpose(-1, -2)  # (..., D, n)
+    dx = mm_lanes(K, r[..., None], lanes)[..., 0]
+    IKH = _eye_like(D, P) - mm_lanes(K, H, lanes)
+    P_new = (mm_lanes(mm_lanes(IKH, P, lanes), IKH.transpose(-1, -2), lanes)
+             + mm_lanes(K * Rn[..., None, :], K.transpose(-1, -2), lanes))
+    return dx, symmetrize(P_new)

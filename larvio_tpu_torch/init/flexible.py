@@ -47,11 +47,11 @@ class InitResult:
 
 def inject_init_result(cfg: VioConfig, vs, res: InitResult):
     """Seed a (not-yet-initialized) VioState from an InitResult, on the
-    state's own device. Square-root form only, as ``filter_step``."""
-    if not cfg.filter.sqrt_form:
-        raise NotImplementedError("the port supports the square-root covariance form only")
+    state's own device: the prior covariance of the result's mode, or its
+    factor in square-root form."""
     fs = vs.filter
     kw = dict(dtype=fs.P.dtype, device=fs.P.device)
+    P0 = initial_covariance(cfg, fs.P.device, fs.P.dtype, mode=res.mode)
 
     def vec(x):
         return torch.as_tensor(np.asarray(x), **kw)
@@ -65,7 +65,7 @@ def inject_init_result(cfg: VioConfig, vs, res: InitResult):
         ba=vec(res.ba),
         p=torch.zeros(3, **kw),
         p_null=torch.zeros(3, **kw),
-        P=torch.sqrt(initial_covariance(cfg, fs.P.device, fs.P.dtype, mode=res.mode)),
+        P=torch.sqrt(P0) if cfg.filter.sqrt_form else P0.clone(),  # the cached prior stays read-only
         time=torch.tensor(res.time, **kw),
         initialized=torch.tensor(True, device=fs.P.device),
     )

@@ -1,6 +1,7 @@
 """Camera-pose cloning (state augmentation) and observation bookkeeping (port
 of ``larvio_tpu/models/augmentation.py``). A clone goes into the first free
-slot; in square-root form the covariance grows by the row op S[slot] <- J S.
+slot; in square-root form the covariance grows by the row op S[slot] <- J S,
+in Joseph form by the rows J P, the columns (J P)^T and the block J P J^T.
 The state may carry a leading instance axis (a fleet): each lane picks its
 own slot."""
 
@@ -9,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from larvio_tpu_torch.config import VioConfig
-from larvio_tpu_torch.core.linalg import mm
+from larvio_tpu_torch.core.linalg import mm, mm_lanes
 from larvio_tpu_torch.core.tree import take
 from larvio_tpu_torch.models.state import CLONE_DIM, IDX_P, IDX_TD, IDX_THETA, FilterState, clone_offset
 
@@ -20,8 +21,6 @@ def augment_state(cfg: VioConfig, fs: FilterState, do_augment: torch.Tensor, w_b
     The clone error carries the time-offset component (dtheta + w dtd,
     dp + v dtd). Returns (new_state, slot or -1).
     """
-    if not cfg.filter.sqrt_form:
-        raise NotImplementedError("the port supports the square-root covariance form only")
     C = cfg.filter.max_clones
     D = fs.P.shape[-2]
     dtype, dev = fs.P.dtype, fs.P.device
@@ -48,12 +47,23 @@ def augment_state(cfg: VioConfig, fs: FilterState, do_augment: torch.Tensor, w_b
     if cfg.filter.estimate_td:
         J[..., 0:3, IDX_TD] = w_body
         J[..., 3:6, IDX_TD] = fs.v
-    JS = mm(J, fs.P)  # (..., 6, W) rows in the factor basis
-    # rows [off, off+6) <- JS, as a masked row select (slot is a device tensor)
+    # rows [off, off+6) <- J P (J S: rows in the factor basis), as a masked
+    # row select (slot is a device tensor)
     row_clone = torch.arange(D, device=dev) - clone_offset(slot)[..., None]
     in_slot = (row_clone >= 0) & (row_clone < CLONE_DIM) & do_augment[..., None]
-    rows = take(JS, torch.clamp(row_clone, 0, CLONE_DIM - 1), -2)
-    P = torch.where(in_slot[..., None], rows, fs.P)
+    at = torch.clamp(row_clone, 0, CLONE_DIM - 1)
+    if cfg.filter.sqrt_form:
+        JS = mm(J, fs.P)  # (..., 6, W)
+        P = torch.where(in_slot[..., None], take(JS, at, -2), fs.P)
+    else:
+        lanes = len(lead)
+        JP = mm_lanes(J, fs.P, lanes)  # (..., 6, D)
+        JPJt = mm_lanes(JP, J.transpose(-1, -2), lanes)  # (..., 6, 6)
+        P = torch.where(in_slot[..., None], take(JP, at, -2), fs.P)
+        at_col = at[..., None, :]
+        P = torch.where(in_slot[..., None, :], take(JP.transpose(-1, -2), at_col, -1), P)
+        block = take(take(JPJt, at, -2), at_col, -1)  # (..., D, D): JPJt[row_clone, col_clone]
+        P = torch.where(in_slot[..., :, None] & in_slot[..., None, :], block, P)
     return fs.replace(clones=clones, P=P), torch.where(do_augment, slot, -1)
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from larvio_tpu_torch.config import VioConfig
@@ -222,8 +223,6 @@ def _consume_blocks(cfg: VioConfig, fs: FilterState, cand, wide):
 
 def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatch):
     """One frame. Returns (VioState, StepOutput)."""
-    if not cfg.filter.sqrt_form:
-        raise NotImplementedError("the port supports the square-root covariance form only")
     fs0 = vs.filter
     dtype, dev = fs0.P.dtype, fs0.P.device
     C = cfg.filter.max_clones
@@ -240,7 +239,8 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
     fs_init, acc, _ = try_static_init(cfg, fs0, acc)
     inited = fs_init.initialized
 
-    # ---- 2. propagation (returns the WIDE factor; pad the other branch) -----
+    # ---- 2. propagation (square-root form: returns the WIDE factor; pad the
+    # other branch; Joseph form: P keeps its (D, D) shape, pad 0) -------------
     fs_prop = propagate(cfg, fs_init, imu, feats.t)
     pad = fs_prop.P.shape[-1] - fs_init.P.shape[-1]
     fs_init_m = fs_init.replace(P=torch.cat(
@@ -343,17 +343,20 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
     d_reset = const(initial_covariance_diag(cfg, mode="dynamic").tolist(), dtype, dev)
     ar = torch.arange(d_reset.shape[0], device=dev)
 
+    def _var32(std):  # std squared in float32, as the JAX package does
+        return float(np.float32(std) * np.float32(std))
+
     def _cal_var(d, i0, n, var_keep, survived):
         return torch.where((ar >= i0) & (ar < i0 + n) & survived[..., None], var_keep, d)
 
     q_ok = finite(fs.q)
-    d_reset = _cal_var(d_reset, 0, 2, fcfg.reset_rp_std**2, q_ok)
-    d_reset = _cal_var(d_reset, 2, 1, fcfg.reset_yaw_std**2, q_ok)
-    d_reset = _cal_var(d_reset, 0, 2, fcfg.reset_accel_seed_rp_std**2, ~q_ok)
-    d_reset = _cal_var(d_reset, 3, 3, fcfg.reset_bg_std**2, finite(fs.bg))
-    d_reset = _cal_var(d_reset, 9, 3, fcfg.reset_ba_std**2, finite(fs.ba))
+    d_reset = _cal_var(d_reset, 0, 2, _var32(fcfg.reset_rp_std), q_ok)
+    d_reset = _cal_var(d_reset, 2, 1, _var32(fcfg.reset_yaw_std), q_ok)
+    d_reset = _cal_var(d_reset, 0, 2, _var32(fcfg.reset_accel_seed_rp_std), ~q_ok)
+    d_reset = _cal_var(d_reset, 3, 3, _var32(fcfg.reset_bg_std), finite(fs.bg))
+    d_reset = _cal_var(d_reset, 9, 3, _var32(fcfg.reset_ba_std), finite(fs.ba))
     if fcfg.estimate_td:
-        d_reset = _cal_var(d_reset, IDX_TD, 1, fcfg.reset_td_std**2, torch.isfinite(fs.td))
+        d_reset = _cal_var(d_reset, IDX_TD, 1, _var32(fcfg.reset_td_std), torch.isfinite(fs.td))
 
     def _san(x, fallback):
         bad = do_reset & ~finite(x)
@@ -368,7 +371,8 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
     p_s = _san(fs.p, 0.0)
     lane = do_reset[..., None]  # against per-slot tables (..., S) / (..., F)
     fs = fs.replace(
-        P=where(do_reset, torch.diag_embed(torch.sqrt(d_reset)), fs.P),
+        # the diagonal prior, or its factor diag(sqrt(d)) in square-root form
+        P=where(do_reset, torch.diag_embed(torch.sqrt(d_reset) if fcfg.sqrt_form else d_reset), fs.P),
         q=q_s, v=v_s, p=p_s,
         bg=_san(fs.bg, 0.0),
         ba=_san(fs.ba, 0.0),

@@ -4,9 +4,11 @@
 Matches ``_propagate_parallel``, the path the JAX package runs: per-slot
 transition matrices are built in one batch; the ordered products and the
 prefix sums use ``core.scan`` (the JAX package's combination orders).
-Zero-dt (padding) slots are exact no-ops. Square-root covariance only: the
-Joseph path (``sqrt_form=False``) is not ported yet. The state and the IMU
-batch may carry a leading instance axis; the slot axis is then the second.
+Zero-dt (padding) slots are exact no-ops. Both covariance forms: a row op
+on the factor that widens it by the process-noise columns (square-root
+form), or the dense congruence Phi P Phi^T + Q (Joseph form). The state and
+the IMU batch may carry a leading instance axis; the slot axis is then the
+second.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import const
-from larvio_tpu_torch.core.linalg import matvec, mm, psd_chol
+from larvio_tpu_torch.core.linalg import matvec, mm, mm_lanes, psd_chol, symmetrize
 from larvio_tpu_torch.core.quaternion import omega, quat_normalize, quat_to_rotation
 from larvio_tpu_torch.core.scan import associative_scan, cumsum
 from larvio_tpu_torch.core.so3 import skew
@@ -102,8 +104,6 @@ def _phi_and_Q(cfg: VioConfig, q_new, v_new, p_new, q_null, v_null, p_null, w_ha
 def propagate(cfg: VioConfig, fs: FilterState, imu: ImuBatch, t_target_img: torch.Tensor) -> FilterState:
     """Propagate state + covariance through the frame's IMU batch to
     ``t_target_img + td`` (the current online time-offset estimate)."""
-    if not cfg.filter.sqrt_form:
-        raise NotImplementedError("the port supports the square-root covariance form only")
     dtype, dev = fs.P.dtype, fs.P.device
     lead = fs.time.shape  # () for one instance, (B,) for a fleet
     t_target = t_target_img + fs.td
@@ -208,13 +208,19 @@ def propagate(cfg: VioConfig, fs: FilterState, imu: ImuBatch, t_target_img: torc
 
 
 def _apply_frame_transition(cfg: VioConfig, P, Phi_acc, Q_acc, slam_q=None):
-    """Factor form: S[:15] <- Phi S[:15], and the process noise stacks its own
+    """P <- diag(Phi, I) P diag(Phi, I)^T + diag(Q, 0).
+
+    Factor form: S[:15] <- Phi S[:15], and the process noise stacks its own
     factor as 15 extra columns. The WIDE (..., D, W+15) factor is returned
     as-is; the frame's measurement update re-compresses it to square.
+    Dense form: the IMU rows, then the IMU columns, then + Q, symmetrized.
 
     ``slam_q`` (optional, (..., 3S) per-component std over this frame) adds
     a landmark random walk on the in-state SLAM rows: one more noise column
-    per SLAM component, so the factor becomes (..., D, W+15+3S)."""
+    per SLAM component (the factor becomes (..., D, W+15+3S)), or slam_q^2
+    on the dense diagonal."""
+    if not cfg.filter.sqrt_form:
+        return _dense_frame_transition(cfg, P, Phi_acc, Q_acc, slam_q)
     S = torch.cat([mm(Phi_acc, P[..., :IMU_DIM, :]), P[..., IMU_DIM:, :]], dim=-2)
     col = torch.zeros((*S.shape[:-1], IMU_DIM), dtype=S.dtype, device=S.device)
     col[..., :IMU_DIM, :] = psd_chol(Q_acc)
@@ -226,6 +232,21 @@ def _apply_frame_transition(cfg: VioConfig, P, Phi_acc, Q_acc, slam_q=None):
         scol[..., base:base + n, :] = torch.diag_embed(slam_q)
         S = torch.cat([S, scol], dim=-1)
     return S
+
+
+def _dense_frame_transition(cfg: VioConfig, P, Phi_acc, Q_acc, slam_q):
+    lanes = Phi_acc.dim() - 2
+    P = torch.cat([mm_lanes(Phi_acc, P[..., :IMU_DIM, :], lanes), P[..., IMU_DIM:, :]], dim=-2)
+    P = torch.cat([mm_lanes(P[..., :, :IMU_DIM], Phi_acc.transpose(-1, -2), lanes), P[..., :, IMU_DIM:]],
+                  dim=-1)
+    D = P.shape[-1]
+    q = torch.zeros((*P.shape[:-2], D, D), dtype=P.dtype, device=P.device)
+    q[..., :IMU_DIM, :IMU_DIM] = Q_acc
+    if slam_q is not None:
+        base = slam_offset(cfg, 0)
+        n = slam_q.shape[-1]
+        q[..., base:base + n, base:base + n] = torch.diag_embed(slam_q**2)
+    return symmetrize(P + q)
 
 
 def _slam_frame_noise(cfg: VioConfig, fs: FilterState, dt_frame):

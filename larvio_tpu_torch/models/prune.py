@@ -44,8 +44,10 @@ def select_redundant(cfg: VioConfig, fs: FilterState):
 
 
 def remove_clones(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune) -> FilterState:
-    """Clear 2 clone slots: mask bits, observation columns, factor rows (the
-    factor's COLUMNS are shared basis directions and stay)."""
+    """Clear 2 clone slots: mask bits, observation columns, covariance rows,
+    and in Joseph form the columns too (a factor's COLUMNS are shared basis
+    directions and stay: its zero rows alone zero the implied P's rows and
+    columns)."""
     C = cfg.filter.max_clones
     D = state_dim(cfg)
     dev = fs.P.device
@@ -57,4 +59,6 @@ def remove_clones(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune) -> 
     in_clones = (ar >= CLONE_BASE) & (ar < CLONE_BASE + C * CLONE_DIM)
     row_cleared = in_clones & sel[..., torch.clamp((ar - CLONE_BASE) // CLONE_DIM, 0, C - 1)]
     P = torch.where(row_cleared[..., None], 0.0, fs.P)
+    if not cfg.filter.sqrt_form:
+        P = torch.where(row_cleared[..., None, :], 0.0, P)
     return fs.replace(clones=clones, obs=obs, P=P)

@@ -20,9 +20,11 @@ surviving clone with an exact first-order covariance transform. FEJ:
 Jacobians use idp_null and the clones' null poses; residuals use current
 estimates.
 
-Square-root covariance only (``fs.P`` holds a factor S with P = S S^T):
-every covariance write here is a row operation on the factor, valid at any
-factor width. The dense branches wait for the Joseph path and raise.
+Both covariance forms. Square-root form (``fs.P`` holds a factor S with
+P = S S^T): every covariance write here is a row operation on the factor,
+valid at any factor width. Joseph form (``fs.P`` is the dense P): each row
+write is mirrored on the columns, and promotion writes the exact cross
+blocks between features promoted together.
 
 Every function takes the state with an optional leading instance axis (a
 fleet): slots that differ per lane (the newest clone, the anchors, the new
@@ -55,11 +57,6 @@ from larvio_tpu_torch.models.update import _pinhole_jac, _predict
 # promotion gate on the init uncertainty of the bearing part (normalized
 # image units); the inverse-depth gate is configurable (slam_max_init_rho_sigma)
 _MAX_AB_SIGMA = 0.05
-
-
-def _require_sqrt(cfg: VioConfig):
-    if not cfg.filter.sqrt_form:
-        raise NotImplementedError("the port supports the square-root covariance form only")
 
 
 def _rot(R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +151,6 @@ def slam_measurement_blocks(cfg: VioConfig, fs: FilterState, feats, newest_slot)
 
     Returns (H (..., 2S, D), r (..., 2S), accept (..., S), gate_fail_hard (..., S)).
     """
-    _require_sqrt(cfg)
     S = cfg.filter.max_slam_features
     C = cfg.filter.max_clones
     D = state_dim(cfg)
@@ -223,9 +219,14 @@ def slam_measurement_blocks(cfg: VioConfig, fs: FilterState, feats, newest_slot)
     use = tracked & in_front & anchor_ok
     H = torch.where(use[..., None, None], H, 0.0)
 
-    # chi2 gate (2 dof) per feature: H P H^T = (H S)(H S)^T
-    HS = mm_lanes(H, fs.P[..., None, :, :], len(lead))
-    Svar = HS @ HS.transpose(-1, -2) + sigma2 * torch.eye(2, dtype=dtype, device=dev)
+    # chi2 gate (2 dof) per feature: H P H^T, = (H S)(H S)^T in factor form
+    eye2 = torch.eye(2, dtype=dtype, device=dev)
+    if cfg.filter.sqrt_form:
+        HS = mm_lanes(H, fs.P[..., None, :, :], len(lead))
+        Svar = HS @ HS.transpose(-1, -2) + sigma2 * eye2
+    else:
+        HP = mm_lanes(H, fs.P[..., None, :, :], len(lead))
+        Svar = mm_lanes(HP, H.transpose(-1, -2), len(lead)) + sigma2 * eye2
     det = Svar[..., 0, 0] * Svar[..., 1, 1] - Svar[..., 0, 1] * Svar[..., 1, 0]
     det = torch.where(torch.abs(det) < 1e-20, 1e-20, det)
     gamma = (
@@ -265,7 +266,11 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
     feature's own measurement noise sigma W, W = T Rf^-1, goes into the
     slot's own columns, structurally zero while the slot is free
     (``psd_factor`` keeps freed slots' columns zero), so the factor must be
-    the square one the hybrid update returns.
+    the square one the hybrid update returns. In Joseph form the same
+    expressions give rows of P (P_fx = -E P); the feature's own block is the
+    dense congruence of P_ff = E P E^T + sigma^2 Rf^-1 Rf^-T, the rows are
+    mirrored on the columns, and the exact cross blocks between features
+    promoted together are written into the SLAM block.
 
     blocks: the consumed windows' ``FeatureBlock`` (..., K, ...); tri their
     triangulation; idx (..., K) their rows; sel (..., K) the consumed mask;
@@ -274,7 +279,6 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
     S = cfg.filter.max_slam_features
     if S == 0:
         return fs
-    _require_sqrt(cfg)
     C = cfg.filter.max_clones
     F = fs.obs.track_id.shape[-1]
     dtype, dev = fs.P.dtype, fs.P.device
@@ -286,14 +290,16 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
     sigma2 = sigma**2
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     P = fs.P
+    sqrt = fcfg.sqrt_form
+    nl = len(lead)
 
     R_ci = quat_to_rotation(fs.q_ci)
     a_slot = torch.clamp(anchor_slot, 0, C - 1)
     R_Aq = quat_to_rotation(take1(fs.clones.q, a_slot, -2))[..., None, :, :].expand(*lead, K, 3, 3)
     p_Aq = take1(fs.clones.p, a_slot, -2)[..., None, :].expand(*lead, K, 3)
-    ar6 = torch.arange(CLONE_DIM, device=dev)
-    # the conditioning rows: [anchor(6); extrinsic(6)] of the factor
-    P_ae_rows = torch.cat([take(P, clone_offset(a_slot)[..., None] + ar6, -2),
+    ao6 = clone_offset(a_slot)[..., None] + torch.arange(CLONE_DIM, device=dev)  # (..., 6)
+    # the conditioning rows: [anchor(6); extrinsic(6)] of the factor (of P)
+    P_ae_rows = torch.cat([take(P, ao6, -2),
                            P[..., IDX_EXT_THETA:IDX_EXT_THETA + 6, :]], dim=-2)  # (..., 12, W)
 
     # per-candidate conditional init, batched over the K candidates
@@ -311,21 +317,38 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
     T = inv3(J_idp)
     P_idp_x = mm(T, P_fx - mm(A12, P_ae_rows[..., None, :, :]))  # (..., K, 3, W)
     Wn = mm(T, Rf_inv)  # noise-injection factor (sqrt of sigma2 W W^T)
-    P_idp = mm(P_idp_x, P_idp_x.transpose(-1, -2)) + sigma2 * mm(Wn, Wn.transpose(-1, -2))
+    if sqrt:
+        P_idp = mm(P_idp_x, P_idp_x.transpose(-1, -2)) + sigma2 * mm(Wn, Wn.transpose(-1, -2))
+    else:
+        # dense: P_ff = E P E^T + sigma2 Rf^-1 Rf^-T (P_fx = -E P), then the
+        # idp congruence T (P_ff - P_fae A^T - A P_fae^T + A P_aaee A^T) T^T
+        # against the [anchor(6); extrinsic(6)] columns
+        Rf_gram = mm(Rf_inv, Rf_inv.transpose(-1, -2))
+        P_ff = -mm_lanes(P_fx, E.transpose(-1, -2), nl) + sigma2 * Rf_gram
+        P_ff = 0.5 * (P_ff + P_ff.transpose(-1, -2))
+        P_fae = _ae_columns(P_fx, ao6[..., None, None, :])  # (..., K, 3, 12)
+        P_aaee = _ae_columns(P_ae_rows, ao6[..., None, :])  # (..., 12, 12)
+        A12t = A12.transpose(-1, -2)
+        A_Paa = mm_lanes(A12, P_aaee[..., None, :, :], nl)  # (..., K, 3, 12)
+        core = (P_ff - mm_lanes(P_fae, A12t, nl) - mm_lanes(A12, P_fae.transpose(-1, -2), nl)
+                + mm_lanes(A_Paa, A12t, nl))
+        P_idp = mm_lanes(T, mm_lanes(core, T.transpose(-1, -2), nl), nl)
     P_idp = 0.5 * (P_idp + P_idp.transpose(-1, -2))
     # consistency-aware init (slam_init_rho_inflation = k): k^2 x the init's
-    # own rho variance as independent noise along rho, folded into the
-    # slot's own noise columns by re-factoring W
+    # own rho variance as independent noise along rho, added to P_idp in
+    # both forms (the promotion gates read it); in factor form it rides the
+    # slot's own noise columns, by re-factoring W
     k_rho = fcfg.slam_init_rho_inflation
     if k_rho > 0.0:
         e33 = torch.zeros((3, 3), dtype=dtype, device=dev)
         e33[2, 2] = 1.0
         extra = (k_rho**2) * P_idp[..., 2, 2][..., None, None]
         P_idp = P_idp + extra * e33
-        Wg = mm(Wn, Wn.transpose(-1, -2)) + (extra / sigma2) * e33
-        L, info = torch.linalg.cholesky_ex(Wg + 1e-12 * eye3)
-        failed = (info != 0) | torch.isnan(L).flatten(-2).any(dim=-1)
-        Wn = torch.where(failed[..., None, None], Wn, L)
+        if sqrt:
+            Wg = mm(Wn, Wn.transpose(-1, -2)) + (extra / sigma2) * e33
+            L, info = torch.linalg.cholesky_ex(Wg + 1e-12 * eye3)
+            failed = (info != 0) | torch.isnan(L).flatten(-2).any(dim=-1)
+            Wn = torch.where(failed[..., None, None], Wn, L)
 
     # promote only features whose initialization is well constrained: the
     # bearing sigma (normalized image) and inverse-depth sigma (1/m) gates
@@ -373,19 +396,69 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
         age=torch.where(tk, 0, sl.age),
     )
 
-    # covariance write: the taken slots' factor rows, then sigma W into each
-    # taken slot's own diagonal block of columns
+    # covariance write: the taken slots' rows (factor rows, or rows of P)
     base, nS, W = slam_offset(cfg, 0), S * SLAM_DIM, P.shape[-1]
-    old_rows = P[..., base:, :].reshape(*lead, S, SLAM_DIM, W)
+    old_rows = P[..., base:base + nS, :].reshape(*lead, S, SLAM_DIM, W)
     rows = torch.where(tk[..., None, None], take(P_idp_x, cand_of_slot, -3), old_rows)
-    own = (tk[..., :, None] & torch.eye(S, dtype=torch.bool, device=dev))[..., :, None, :, None]
-    sigW = sigma * take(Wn, cand_of_slot, -3)  # (..., S, 3, 3)
-    blk = rows[..., base:base + nS].reshape(*lead, S, SLAM_DIM, S, SLAM_DIM)
-    blk = blk + torch.where(own, sigW[..., :, :, None, :], 0.0)
-    rows = torch.cat([rows[..., :base], blk.reshape(*lead, S, SLAM_DIM, nS),
-                      rows[..., base + nS:]], dim=-1)
-    P = torch.cat([P[..., :base, :], rows.reshape(*lead, nS, W)], dim=-2)
+    eyeS = torch.eye(S, dtype=torch.bool, device=dev)
+    if sqrt:
+        # sigma W into each taken slot's own diagonal block of columns
+        own = (tk[..., :, None] & eyeS)[..., :, None, :, None]
+        sigW = sigma * take(Wn, cand_of_slot, -3)  # (..., S, 3, 3)
+        blk = rows[..., base:base + nS].reshape(*lead, S, SLAM_DIM, S, SLAM_DIM)
+        blk = blk + torch.where(own, sigW[..., :, :, None, :], 0.0)
+        rows = torch.cat([rows[..., :base], blk.reshape(*lead, S, SLAM_DIM, nS),
+                          rows[..., base + nS:]], dim=-1)
+        P = _set_rows(P, base, rows.reshape(*lead, nS, W))
+        return fs.replace(slam=slam, P=P)
+
+    # dense: the row pass, its mirror on the columns, then the SLAM block's
+    # interior: P_idp on each taken slot's diagonal, the exact cross blocks
+    # between slots taken together (each candidate's rows were computed
+    # before any sibling existed)
+    P = _set_rows(P, base, rows.reshape(*lead, nS, W))
+    old_cols = P[..., :, base:base + nS].reshape(*lead, W, S, SLAM_DIM)
+    cols = torch.where(tk[..., None, :, None], rows.permute(*range(nl), -1, -3, -2), old_cols)
+    P = _set_cols(P, base, cols.reshape(*lead, W, nS))
+    cross = _cross_blocks(P_fx, E, P_fae, A12, A_Paa, T, nl)  # (..., K, K, 3, 3)
+    M = take(take(cross, cand_of_slot, -4), cand_of_slot[..., None, :], -3)  # (..., S, S, 3, 3)
+    blk = P[..., base:base + nS, base:base + nS].reshape(*lead, S, SLAM_DIM, S, SLAM_DIM)
+    pair = tk[..., :, None] & tk[..., None, :]
+    blk = torch.where((pair & ~eyeS)[..., :, None, :, None], M.transpose(-3, -2), blk)
+    diag = take(P_idp, cand_of_slot, -3)  # (..., S, 3, 3)
+    blk = torch.where((pair & eyeS)[..., :, None, :, None], diag[..., :, :, None, :], blk)
+    P = _set_rows(P, base, torch.cat([P[..., base:base + nS, :base], blk.reshape(*lead, nS, nS),
+                                      P[..., base:base + nS, base + nS:]], dim=-1))
     return fs.replace(slam=slam, P=P)
+
+
+def _ae_columns(X, ao6):
+    """The [anchor(6); extrinsic(6)] columns of rows X (..., W) -> (..., 12);
+    ``ao6`` the anchor's columns, shaped to ``take`` along X's last axis."""
+    return torch.cat([take(X, ao6, -1), X[..., IDX_EXT_THETA:IDX_EXT_THETA + 6]], dim=-1)
+
+
+def _cross_blocks(P_fx, E, X, A12, A_Paa, T, nl):
+    """Dense cross-covariance of every pair of candidates promoted together
+    (..., K, K, 3, 3): T_i (E_i P E_j^T - X_i A_j^T - A_i X_j^T
+    + A_i P_aa A_j^T) T_j^T with P_fx = -E P, X_i the [anchor; extrinsic]
+    columns of P_fx_i and A_Paa_i = A_i P_aa; the features' measurement
+    noises are independent (no sigma^2 term)."""
+    def pair(a, b):  # a_i b_j^T over every (i, j): (..., K, 3, m) x (..., K, 3, m)
+        return mm_lanes(a[..., :, None, :, :], b.transpose(-1, -2)[..., None, :, :, :], nl)
+
+    m = -pair(P_fx, E) - pair(X, A12) - pair(A12, X) + pair(A_Paa, A12)
+    return mm_lanes(mm_lanes(T[..., :, None, :, :], m, nl), T.transpose(-1, -2)[..., None, :, :, :], nl)
+
+
+def _set_rows(P, base, rows):
+    """P with rows [base, base + n) replaced by ``rows`` (..., n, W)."""
+    return torch.cat([P[..., :base, :], rows, P[..., base + rows.shape[-2]:, :]], dim=-2)
+
+
+def _set_cols(P, base, cols):
+    """P with columns [base, base + n) replaced by ``cols`` (..., D, n)."""
+    return torch.cat([P[..., :, :base], cols, P[..., :, base + cols.shape[-1]:]], dim=-1)
 
 
 def reanchor_on_prune(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune) -> FilterState:
@@ -399,12 +472,12 @@ def reanchor_on_prune(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune)
 
     applied to the factor as one row pass (each feature writes its own rows
     and reads its own, the anchors' and the extrinsic's, never another
-    feature's), so it is exact and valid at any factor width.
+    feature's), so it is exact and valid at any factor width. In Joseph
+    form a column pass over the row-passed P follows (P' = T P T^T).
     """
     S = cfg.filter.max_slam_features
     if S == 0:
         return fs
-    _require_sqrt(cfg)
     C = cfg.filter.max_clones
     dev = fs.P.device
     lead = fs.time.shape
@@ -463,6 +536,20 @@ def reanchor_on_prune(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune)
     new_rows = torch.where(ok[..., None, None], new_rows, rows_f)
     new_rows = torch.where(dead[..., None, None], 0.0, new_rows)
     P = torch.cat([P[..., :base, :], new_rows.reshape(*lead, nS, W)], dim=-2)
+    if not cfg.filter.sqrt_form:
+        # dense: the same congruence on the columns of the row-passed P (in
+        # factor form the row pass is the whole transform), as rows of P^T
+        nl = len(lead)
+        Pt = P.transpose(-1, -2)
+        cols_f = Pt[..., base:, :].reshape(*lead, S, SLAM_DIM, W)
+        cols_a = take(Pt, gidx, -2).reshape(*lead, S, CLONE_DIM, W)
+        cols_b = take(Pt, clone_offset(b_slot)[..., None] + ar6, -2)[..., None, :, :]
+        cols_e = Pt[..., None, IDX_EXT_THETA:IDX_EXT_THETA + 6, :]
+        new_cols = (mm_lanes(G_f, cols_f, nl) + mm_lanes(G_A, cols_a, nl) + mm_lanes(G_B, cols_b, nl)
+                    + mm_lanes(G_E, cols_e, nl))
+        new_cols = torch.where(ok[..., None, None], new_cols, cols_f)
+        new_cols = torch.where(dead[..., None, None], 0.0, new_cols)
+        P = torch.cat([P[..., :, :base], new_cols.reshape(*lead, nS, W).transpose(-1, -2)], dim=-1)
 
     slam = sl.replace(
         idp=torch.where(ok[..., None], idp_B, sl.idp),
@@ -494,11 +581,11 @@ def relinearize_nulls(cfg: VioConfig, fs: FilterState) -> FilterState:
 
 def drop_lost(cfg: VioConfig, fs: FilterState, feats, hard_fail) -> FilterState:
     """Drop SLAM features whose track died, that failed gating hard, or that
-    outlived ``slam_max_lifetime`` frames (0 = no cap); zero their factor rows."""
+    outlived ``slam_max_lifetime`` frames (0 = no cap); zero their covariance
+    rows (and in Joseph form their columns)."""
     S = cfg.filter.max_slam_features
     if S == 0:
         return fs
-    _require_sqrt(cfg)
     sl = fs.slam
     slot = torch.clamp(sl.track_slot, 0, feats.uv.shape[-2] - 1)
     tracked = (sl.valid & (sl.track_slot >= 0) & take(feats.valid, slot, -1)
@@ -510,12 +597,15 @@ def drop_lost(cfg: VioConfig, fs: FilterState, feats, hard_fail) -> FilterState:
 
     # the SLAM block is the tail of the state: row i's slot is (i - base) // 3.
     # torch.where, not a 0/1 multiply, so poisoned rows clear too; in factor
-    # form zero rows alone zero the implied covariance's rows and columns
+    # form zero rows alone zero the implied covariance's rows and columns,
+    # in dense form the columns are cleared too
     D = state_dim(cfg)
     base = slam_offset(cfg, 0)
     ar = torch.arange(D, device=fs.P.device)
     row_dropped = (ar >= base) & take(drop, torch.clamp((ar - base) // SLAM_DIM, 0, S - 1), -1)
     P = torch.where(row_dropped[..., None], 0.0, fs.P)
+    if not cfg.filter.sqrt_form:
+        P = torch.where(row_dropped[..., None, :], 0.0, P)
     return fs.replace(
         slam=sl.replace(
             valid=sl.valid & ~drop,

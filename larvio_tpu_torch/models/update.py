@@ -3,9 +3,10 @@
 where the JAX package vmaps.
 
 FEJ: Jacobians at the clones' first-estimate poses, residuals at the current
-estimates. Square-root covariance only (``fs.P`` holds S with P = S S^T);
-the Joseph path is not ported yet. The state and every block may carry a
-leading instance axis (a fleet); shapes below are one instance's.
+estimates. Both covariance forms: the square-root form (``fs.P`` holds a
+factor S with P = S S^T, the default) and the Joseph form
+(``sqrt_form=False``: ``fs.P`` is the dense P). The state and every block
+may carry a leading instance axis (a fleet); shapes below are one instance's.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.chi2 import chi2_inv
-from larvio_tpu_torch.core.linalg import (householder_eliminate, inv_quadform, mm, mm_lanes, psd_factor,
-                                         symmetrize)
+from larvio_tpu_torch.core.linalg import (chol_nan, householder_eliminate, inv_quadform, joseph_update, mm,
+                                         mm_lanes, psd_factor, qr_compress, symmetrize)
 from larvio_tpu_torch.core.quaternion import quat_multiply, quat_to_rotation, small_angle_quat
 from larvio_tpu_torch.core.so3 import skew
 from larvio_tpu_torch.core.tree import all_finite, take, where
@@ -164,9 +165,15 @@ def feature_block(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask, tri_valid)
         H_o = H_o * sw[..., None]
         r_o = r_o * sw
 
-    T = mm(H_o, fs.P[..., None, :, :])  # H in the factor basis
-    S = mm(T, T.transpose(-1, -2)) + sigma2 * torch.eye(2 * C, dtype=T.dtype, device=dev)
-    gamma = inv_quadform(S, r_o, lanes=fs.time.dim())
+    nb = fs.time.dim()
+    eye = torch.eye(2 * C, dtype=H_o.dtype, device=dev)
+    if cfg.filter.sqrt_form:
+        T = mm(H_o, fs.P[..., None, :, :])  # H in the factor basis
+        S = mm(T, T.transpose(-1, -2)) + sigma2 * eye
+    else:
+        PHt = mm_lanes(fs.P[..., None, :, :], H_o.transpose(-1, -2), nb)
+        S = mm_lanes(H_o, PHt, nb) + sigma2 * eye
+    gamma = inv_quadform(S, r_o, lanes=nb)
     n_obs = torch.sum(mask_s, dim=-1)
     dof = torch.clamp(2 * n_obs - 3, min=1)
     gate_ok = gamma < chi2_inv(dof, cfg.filter.chi2_confidence)
@@ -206,21 +213,18 @@ def prune_feature_block(cfg: VioConfig, fs: FilterState, p_w, uv2, slots, row_ok
     H_o, r_o, _, _ = householder_eliminate(H_f4, rows, r, 3, lanes=fs.time.dim())
     H_row, r_row = H_o[..., 3, :], r_o[..., 3]
 
-    Sh = mm(H_row, fs.P)  # (K2, W) in the factor basis
-    s = torch.sum(Sh * Sh, dim=-1) + sigma2
+    if cfg.filter.sqrt_form:
+        Sh = mm(H_row, fs.P)  # (K2, W) in the factor basis
+        s = torch.sum(Sh * Sh, dim=-1) + sigma2
+    else:
+        PH = mm_lanes(fs.P[..., None, :, :], H_row[..., None], fs.time.dim())[..., 0]  # (K2, D)
+        s = torch.sum(H_row * PH, dim=-1) + sigma2
     gamma = r_row * r_row / s
     gate_ok = gamma < chi2_inv(torch.ones_like(r_row, dtype=torch.int32), cfg.filter.chi2_confidence)
     accept = tri_valid & gate_ok & row_ok.all(dim=-1)
     H_row = torch.where(accept[..., None], H_row, 0.0)
     r_row = torch.where(accept, r_row, 0.0)
     return H_row, r_row, accept
-
-
-def _chol_nan(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor, NaN where the factorization failed (JAX
-    semantics: the update's finite-guard then rejects it)."""
-    L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info != 0)[..., None, None], torch.nan, L)
 
 
 def sqrt_update(S, H, r):
@@ -230,7 +234,7 @@ def sqrt_update(S, H, r):
     Tt = T.transpose(-1, -2)
     n = H.shape[-2]
     Sy = mm(T, Tt) + torch.eye(n, dtype=S.dtype, device=S.device)
-    chol = _chol_nan(symmetrize(Sy))
+    chol = chol_nan(symmetrize(Sy))
     PHt = mm(S, Tt)  # (D, n)
     K = torch.cholesky_solve(PHt.transpose(-1, -2), chol).transpose(-1, -2)  # (D, n)
     dx = mm_lanes(K, r[..., None], K.dim() - 2)[..., 0]
@@ -245,7 +249,7 @@ def sqrt_update_gram(S, Hw, rw, refactor: bool):
     T = mm(Hw, S)
     Tt = T.transpose(-1, -2)
     A = symmetrize(mm(Tt, T)) + torch.eye(W, dtype=S.dtype, device=S.device)
-    L = _chol_nan(A)
+    L = chol_nan(A)
     g = mm_lanes(Tt, rw[..., None], Tt.dim() - 2)  # (W, 1)
     Y = torch.linalg.solve_triangular(L, torch.cat([S.transpose(-1, -2), g], dim=-1), upper=False)
     Sn = Y[..., :D].transpose(-1, -2)
@@ -259,31 +263,38 @@ def apply_update(cfg: VioConfig, fs: FilterState, H, r, noise_var, enable=None, 
     """Compressed EKF update + error injection. H (N, D), r (N,); ``enable``
     (bool tensor, per instance) turns the update into a no-op. ``noise_var``
     broadcasts against r (a fleet passes (B, 1) for one variance per lane).
+    Square-root form: the Gram update for a tall stack (n > D), the stacked
+    Joseph factor update otherwise, ``refactor`` squaring the factor once.
+    Joseph form: a tall stack is compressed to D rows first (``qr_compress``),
+    then ``joseph_update``; ``refactor`` has no effect.
     Returns (state, dx, finite)."""
-    if not cfg.filter.sqrt_form:
-        raise NotImplementedError("the port supports the square-root covariance form only")
     D = state_dim(cfg)
+    nb = fs.time.dim()
     n = H.shape[-2]
     nv = torch.as_tensor(noise_var, dtype=fs.P.dtype, device=fs.P.device)
     sig = torch.sqrt(torch.broadcast_to(nv, r.shape))
     Hw = H / sig[..., None]
     rw = r / sig
     W = fs.P.shape[-1]
-    if n > D:
+    if not cfg.filter.sqrt_form:
+        # a stack taller than the state is compressed to D rows; a shorter
+        # one (the 9-row ZUPT) is used as it is
+        H_c, r_c = qr_compress(Hw, rw, lanes=nb) if n > D else (Hw, rw)
+        dx, P_new = joseph_update(fs.P, H_c, r_c, 1.0, lanes=nb)
+    elif n > D:
         dx, P_new = sqrt_update_gram(fs.P, Hw, rw, refactor=False)
     else:
         dx, P_new = sqrt_update(fs.P, Hw, rw)
         if W > D:
             pad = torch.zeros((*P_new.shape[:-1], W - D), dtype=P_new.dtype, device=P_new.device)
             P_new = torch.cat([P_new, pad], dim=-1)
-    nb = fs.time.dim()
     finite = all_finite(dx, nb) & all_finite(P_new, nb)
     dx = where(finite, dx, 0.0)
     P_new = where(finite, P_new, fs.P)
     if enable is not None:
         dx = where(enable, dx, 0.0)
         P_new = where(enable, P_new, fs.P)
-    if refactor and (n > D or P_new.shape[-1] > D):
+    if cfg.filter.sqrt_form and refactor and (n > D or P_new.shape[-1] > D):
         P_new = psd_factor(P_new)
     return inject_error(cfg, fs, dx).replace(P=P_new), dx, finite
 

@@ -349,11 +349,3 @@ def test_filter_step(seq, offset):
     for name in ("initialized", "stationary", "n_clones", "n_tracks", "n_updated", "did_reset"):
         assert int(getattr(ot, name)) == int(getattr(oj, name)), name
     np.testing.assert_allclose(ot.p_std.numpy(), np.asarray(oj.p_std), rtol=2e-3, atol=1e-6)
-
-
-def test_filter_step_rejects_joseph_config():
-    """The dense (Joseph) covariance path is not ported: filter_step raises."""
-    cfg = VioConfig(filter=FilterConfig(sqrt_form=False))
-    vs = tmsckf.init_vio_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        tmsckf.filter_step(cfg, vs, None, None)

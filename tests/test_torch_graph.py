@@ -17,11 +17,14 @@ rounding must not depend on how many lanes step beside it) equals
 
 The ``cuda`` cases need the card and skip here; there they hold the
 captured step to the eager one bit for bit over 40 frames (one instance and
-a fleet, with the launch accounting), ``load`` / ``state`` and an injection
-mid-sequence, and a fleet lane at 8 and 4 lanes. They import no JAX:
+a fleet, with the launch accounting, in the square-root and the Joseph
+form), ``load`` / ``state`` and an injection mid-sequence, and a fleet lane
+at 8 and 4 lanes (both forms). They import no JAX:
 
     python -m pytest --noconftest tests/test_torch_graph.py -q -m cuda
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -53,6 +56,8 @@ CFG = VioConfig(
     filter=FilterConfig(max_clones=8, max_slam_features=3, imu_slots_per_frame=14),
 )
 K = 4  # the chunk of the CLI cases; every sequence here is not a multiple of it
+# the Joseph (dense covariance) form of CFG, for the card's cases
+FORMS = {"sqrt": CFG, "joseph": dataclasses.replace(CFG, filter=dataclasses.replace(CFG.filter, sqrt_form=False))}
 
 
 def _assert_bits(a, b, what=""):
@@ -281,19 +286,22 @@ def card_frames(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["sqrt", "joseph"])
 @pytest.mark.parametrize("lanes", [0, 3])
-def test_captured_equals_eager_on_card(dev, card_frames, lanes):
+def test_captured_equals_eager_on_card(dev, card_frames, lanes, form):
     """40 frames: the replayed step equals the eager step bit for bit, and
     the launches are the replays times what the capture counted (one K1 and
-    one describe per frame, or one K3 and one batched describe)."""
+    one describe per frame, or one K3 and one batched describe); in both
+    covariance forms (the Joseph form's P a constant (D, D))."""
+    cfg = FORMS[form]
     data, frames = card_frames
-    ps = init_pipeline_state(CFG, dev)
+    ps = init_pipeline_state(cfg, dev)
     if lanes:
-        frames, ps = _lanes(frames, lanes), init_fleet_pipeline_state(CFG, lanes, dev)
-    eager = run_image_sequence(CFG, ps, frames, graph=False)
-    graph = capture_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
+        frames, ps = _lanes(frames, lanes), init_fleet_pipeline_state(cfg, lanes, dev)
+    eager = run_image_sequence(cfg, ps, frames, graph=False)
+    graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
     before = kernel_launches()
-    got = run_image_sequence(CFG, ps, frames, graph=graph)
+    got = run_image_sequence(cfg, ps, frames, graph=graph)
     torch.cuda.synchronize()
     assert kernel_launches() == before  # replays do not run the wrappers
     T = frames.t.shape[0]
@@ -329,16 +337,18 @@ def test_load_state_and_injection_on_card(dev, card_frames):
 
 
 @pytest.mark.cuda
-def test_fleet_lane_independent_of_width_on_card(dev):
+@pytest.mark.parametrize("form", ["sqrt", "joseph"])
+def test_fleet_lane_independent_of_width_on_card(dev, form):
     """ROADMAP F4 on the card: lanes 0-3 of an 8-lane fleet equal a 4-lane
     fleet bit for bit over 60 feature-level frames (the sharded fleet's 2
-    ranks of 4 against one process of 8)."""
-    data = [Simulator(SimConfig(duration=3.0, pixel_noise=0.002, seed=100 + b), CFG).generate()
+    ranks of 4 against one process of 8), in both covariance forms."""
+    cfg = FORMS[form]
+    data = [Simulator(SimConfig(duration=3.0, pixel_noise=0.002, seed=100 + b), cfg).generate()
             for b in range(8)]
     feats, imu = make_frame_inputs({k: np.stack([d[k] for d in data], axis=1) for k in data[0]},
                                    device=dev)
-    s8, o8 = run_sequence(CFG, init_fleet_state(CFG, 8, dev), feats, imu, graph=False)
-    s4, o4 = run_sequence(CFG, init_fleet_state(CFG, 4, dev),
+    s8, o8 = run_sequence(cfg, init_fleet_state(cfg, 8, dev), feats, imu, graph=False)
+    s4, o4 = run_sequence(cfg, init_fleet_state(cfg, 4, dev),
                           *tree_map(lambda a: a[:, :4].contiguous(), (feats, imu)), graph=False)
     _assert_bits(tree_map(lambda a: a[:, :4], o8), o4)
     _assert_bits(tree_map(lambda a: a[:4], s8), s4)

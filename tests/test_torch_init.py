@@ -113,15 +113,6 @@ def test_inject_init_result_matches_jax(mode):
     np.testing.assert_allclose(St @ St.T, Sj @ Sj.T, rtol=0, atol=1e-6)
 
 
-def test_inject_init_result_raises_for_the_dense_form():
-    cfg = config_from_dict(dataclasses.asdict(CFG.replace(filter=dataclasses.replace(CFG.filter, sqrt_form=False))))
-    res = tflex.InitResult(q_wi=np.array([0, 0, 0, 1.0], np.float32), v=np.zeros(3), bg=np.zeros(3),
-                           ba=np.zeros(3), time=0.0, mode="dynamic")
-    vs = tpipe.init_pipeline_state(TCFG, "cpu").vio
-    with pytest.raises(NotImplementedError, match="square-root"):
-        tflex.inject_init_result(cfg, vs, res)
-
-
 def _render(sc):
     sim = Simulator(sc, CFG)
     data = sim.generate()

@@ -1,6 +1,6 @@
 """The port's counterpart of ``bench.py``: the full image pipeline on one card.
 
-    python3 tools/torch_bench.py [--fleet B] [--device cuda]
+    python3 tools/torch_bench.py [--fleet B] [--joseph] [--device cuda]
 
 Prints ONE JSON line with ``bench.py``'s keys and metric names:
 ``{"metric": ..., "value": fps, "unit": "fps", "vs_baseline": fps / 200,
@@ -14,6 +14,10 @@ The workload is ``bench.py``'s (``bench_workload``): the default
 port's ``Renderer``, plus 2 gray levels of image noise (``2.0 * randn``).
 The noise comes from a seeded ``torch.Generator``: the same distribution as
 ``bench.py``'s ``jax.random`` draw, not the same numbers.
+
+``--joseph`` benches the Joseph (dense covariance) form,
+``FilterConfig(sqrt_form=False)``, as ``bench.py --joseph`` does: the same
+workload, ``_joseph`` appended to the metric's name.
 
 Single path: ``run_image_sequence`` over the 400 frames. ``--fleet B``: B
 instances through the batched step, every lane on the same frames, the
@@ -43,7 +47,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from larvio_tpu_torch.config import VioConfig  # noqa: E402
+from larvio_tpu_torch.config import FilterConfig, VioConfig  # noqa: E402
 from larvio_tpu_torch.core.device import card_numerics, resolve_device  # noqa: E402
 from larvio_tpu_torch.core.tree import leaves, tree_map  # noqa: E402
 from larvio_tpu_torch.data.evaluate import ate_rmse  # noqa: E402
@@ -93,11 +97,11 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_bench(fleet: int = 0, device="cuda") -> dict:
+def run_bench(fleet: int = 0, device="cuda", joseph: bool = False) -> dict:
     """The benchmark; returns ``bench.py``'s JSON object."""
     dev = resolve_device(device)
     card_numerics()
-    cfg = VioConfig()
+    cfg = VioConfig(filter=FilterConfig(sqrt_form=False)) if joseph else VioConfig()
     data, frames = bench_workload(cfg, dev)
     T = frames.t.shape[0]
     if fleet:
@@ -133,7 +137,7 @@ def run_bench(fleet: int = 0, device="cuda") -> dict:
     wall = best["captured"] if graph else best["eager"]
     fps = (fleet or 1) * T / wall
     metric = (f"synthetic_euroc_fleet_b{fleet}_aggregate_fps_per_chip" if fleet
-              else "synthetic_euroc_image_pipeline_fps_per_chip")
+              else "synthetic_euroc_image_pipeline_fps_per_chip") + ("_joseph" if joseph else "")
     return {"metric": metric, "value": round(fps, 2), "unit": "fps", "vs_baseline": round(fps / 200.0, 3),
             "detail": {"frames": int(T), "wall_s": round(wall, 3), "ate_m": round(float(ate), 4),
                        "noise": NOISE, "realtime_factor": round(fps / 20.0, 2), "captured": graph is not None,
@@ -144,9 +148,11 @@ def run_bench(fleet: int = 0, device="cuda") -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="The port's bench.py: image-pipeline fps on one card.")
     ap.add_argument("--fleet", type=int, default=0, help="B instances through the batched step")
+    ap.add_argument("--joseph", action="store_true",
+                    help="the Joseph (dense covariance) form, as bench.py --joseph")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    print(json.dumps(run_bench(args.fleet, args.device)), flush=True)
+    print(json.dumps(run_bench(args.fleet, args.device, args.joseph)), flush=True)
     return 0
 
 
