@@ -19,9 +19,9 @@ Phases, each raising on failure (the script then exits non-zero):
 3. main path: 160 rendered frames of the clean 8 s simulator workload through
    ``run_image_sequence`` at full EuRoC width in the default configuration
    (``VioConfig()``: 6 SLAM slots, D = 160, the hybrid SLAM/MSCKF update),
-   eager and captured as a CUDA graph in turns (eager, captured, captured,
-   eager), every run equal to the first bit for bit (outputs and final
-   state), with eager and captured ms/frame; checks initialization,
+   eager, then captured as a CUDA graph, equal bit for bit (outputs and
+   final state; phase 3i's turns time both), with eager and captured
+   ms/frame; checks initialization,
    resets, finiteness, track counts, ATE, that SLAM features entered the
    state (``n_slam`` >= 3 at some frame) and that every frame launched K1
    and the describe kernel once (eager: the wrappers' counts; captured: the
@@ -41,6 +41,19 @@ Phases, each raising on failure (the script then exits non-zero):
    uninterrupted cli run (within 1e-4 m); prints the per-frame budget, the
    fps and the PNG decode time of one frame, and holds a Paeth-row frame
    (unfiltered in C) under 10 ms;
+3j. diagnostics on phase 3d's tree: ``run --plot --live --live-every 40``
+   (both figures decoded: size, the estimate, ground truth and features
+   drawn; the TUM file phase 3d's); ``--debug-nans run`` (the eager step,
+   every stage's outputs checked: phase 3d's TUM file byte for byte, one K1
+   and one describe launch per frame) and on a copy whose IMU file holds one
+   NaN accelerometer row after initialization (raises, naming
+   ``filt.propagate``); ``track_frame(debug=True)`` over frames 60-79 of
+   phase 3's frames (the masks nested, poses and state bit-identical to the
+   captured step's); the native CSV loader against ``np.loadtxt`` on the
+   tree's CSVs, bit for bit; last, after the timing, ``cli run --profile``
+   over 3 frames, its trace summed per stage (``tools/torch_trace_analyze.py``:
+   the twelve stages hold >= 90% of the eager warm-up steps' device time, K1
+   under ``fe.lk``, describe under ``fe.orb``; the replays mapped onto them);
 3e. ``bench.py``'s workload (``tools/torch_bench.py::bench_workload``: 400
    frames, IMU noise and biases, 2 gray levels of image noise) once through
    the captured single path: ATE < 0.13 m, 0 resets, finite, one K1 and one
@@ -51,9 +64,9 @@ Phases, each raising on failure (the script then exits non-zero):
    image pipeline: 0 resets, mean tracks > 40, ATE < 0.2 m, one K1 and one
    describe launch per frame (``tests/test_consistency.py``'s gates);
 3g. ``tests/test_consistency.py``'s feature-level workloads as two lanes of
-   one batched ``api.run_sequence`` (15 s each), one eager and one
-   captured run, equal bit for bit: position NEES < 12 per axis; with 3% gross
-   outliers 0 resets and ATE < 0.15 m;
+   one batched ``api.run_sequence`` (15 s each), captured, its first 100
+   frames equal to an eager run's bit for bit: position NEES < 12 per axis;
+   with 3% gross outliers 0 resets and ATE < 0.15 m;
 3h. the reference's remaining feature-level gates (``tests/test_e2e_sim.py``
    and the verify skill's drives): seven 15 s workloads (clean, noisy with
    biases, time offsets -0.02 and +0.02, vision dropout, IMU gap, ZUPT at
@@ -92,14 +105,21 @@ Phases, each raising on failure (the script then exits non-zero):
    configuration, 8 lanes of 6 s): NCCL at world size 1 and 2 ``gloo`` ranks
    sharing the card (4 lanes each) equal to the one-process fleet bit for
    bit (a lane's arithmetic does not depend on the lanes beside it), the
-   reduced metrics equal to the host sums, then
-   ``dryrun_multichip(2, backend="gloo")``;
+   reduced metrics equal to the host sums (the NCCL rank's ``step_fn``
+   replays a captured CUDA graph), then ``dryrun_multichip(2,
+   backend="gloo")``; then an NCCL group of world size 1 in this process:
+   ``make_sharded_fleet``'s captured ``step_fn`` (the fleet step, the
+   metrics and the ``all_reduce`` in one graph) against its eager one over
+   the last 10 frames, bit for bit, with both times per frame;
 5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
    version at the same shapes; then host launch calls per frame, device
-   busy time and idle share of the eager and the captured main path and
-   fleet, square-root and Joseph in turns, under ``torch.profiler`` over
-   frames 60-64, reached by replays (last: a process that has run
-   ``torch.profiler`` launches every later kernel more slowly).
+   busy time and idle share of the eager main path and fleet, square-root
+   and Joseph, and of the captured square-root ones, under
+   ``torch.profiler`` over frames 60-64, reached by replays (last: a
+   process that has run ``torch.profiler`` launches every later kernel more
+   slowly); each eager window's device time per stage
+   (``tools/torch_trace_analyze.py``, the gates of 3j's profile), the
+   captured windows' replays mapped onto the eager steps by position.
 
 On the card every path but the eager runs of phases 3, 3g and 4 replays a
 captured step, so a kernel's wrapper runs only while a step is captured
@@ -132,6 +152,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import larvio_tpu_torch.pipeline as pipeline_mod
 from larvio_tpu_torch import cli
@@ -162,6 +183,14 @@ from larvio_tpu_torch.parallel.multichip import lane_data
 from larvio_tpu_torch.data.trajectory import read_tum
 from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state, pipeline_step,
                                        run_image_sequence, run_image_sequence_flexible)
+from larvio_tpu_torch.core.stages import STAGES, STEP
+from larvio_tpu_torch.data import visualize
+from larvio_tpu_torch.models.frontend import track_frame
+from larvio_tpu_torch.models.msckf import filter_step
+from larvio_tpu_torch.parallel.fleet import make_sharded_fleet
+from larvio_tpu_torch.pipeline import PipelineState
+from larvio_tpu_torch.utils import native
+from tools import torch_trace_analyze as trace_analyze
 from tools.torch_bench import ATE_GATE as BENCH_ATE_GATE, bench_workload, card_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -697,7 +726,7 @@ def _slam_gate(o, lane: str) -> int:
 
 
 def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
-                    order=("eager", "captured", "captured", "eager")):
+                    order=("eager", "captured")):
     """The single path over the rendered frames. ``compare``: eager and
     captured runs in ``order``, equal bit for bit (``_eager_vs_captured``);
     else one captured run. The health gates read the captured run. Returns
@@ -835,81 +864,265 @@ def _cli_run(argv) -> dict:
     return {k: v * graphs[0].replays for k, v in per.items()}
 
 
-def phase_dataset(dev, cfg, card):
+def phase_dataset(dev, cfg, card, tmp: str):
     """Phase 3d: the user's entry point. ``export-sim`` renders an 8 s
-    sequence on the card into a EuRoC tree, ``run`` reads it back through the
-    PNG decoder, the prefetcher and the streaming loop; then the checkpoint /
-    resume round trip over the same frames."""
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "euroc")
-        t0 = time.perf_counter()
-        assert cli.main(["export-sim", root, "--duration", "8"]) == 0
-        export_s = time.perf_counter() - t0
-        traj, metrics = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "metrics.csv")
-        launches = _cli_run(["run", "-", root, "--eval", "--budget", "--metrics", metrics, "--out", traj])
-        seq = EurocSequence(root)
-        T = len(seq.image_stamps)
-        _launch_gate(launches, T, "cli run")
-        rows = np.loadtxt(metrics, delimiter=",", skiprows=1, ndmin=2)
-        assert rows.shape == (T, 7), f"cli run: metrics CSV {rows.shape}, ({T}, 7) expected"
-        init = rows[:, 1].astype(bool)
-        t, p, q = read_tum(traj)
-        assert len(t) == int(init.sum()), f"cli run: {len(t)} TUM lines for {int(init.sum())} initialized frames"
-        assert init.sum() >= 100, f"cli run: only {int(init.sum())} initialized frames"
-        assert int(rows[:, 6].sum()) == 0, f"cli run: {int(rows[:, 6].sum())} online resets"
-        assert np.isfinite(p).all() and np.isfinite(q).all(), "cli run: non-finite trajectory"
-        mean_tracks = float(rows[init, 2].mean())
-        assert mean_tracks > TRACKS_GATE, f"cli run: mean n_tracks {mean_tracks:.1f} <= {TRACKS_GATE}"
-        ate = ate_rmse(p, seq.ground_truth_at(t))
-        assert ate < ATE_GATE, f"cli run: ATE {ate:.4f} m >= {ATE_GATE}"
-        print(f"cli export-sim: {T} frames in {export_s:.3f} s; cli run: {int(init.sum())} initialized, "
-              f"0 resets, mean n_tracks {mean_tracks:.2f}, ATE {ate:.5f} m (gate {ATE_GATE}); TUM and "
-              f"metrics files complete; one K1 and one describe launch per frame (replays)", flush=True)
+    sequence on the card into a EuRoC tree under ``tmp``, ``run`` reads it
+    back through the PNG decoder, the prefetcher and the streaming loop; then
+    the checkpoint / resume round trip over the same frames. Returns (the
+    tree, the run's TUM file)."""
+    root = os.path.join(tmp, "euroc")
+    t0 = time.perf_counter()
+    assert cli.main(["export-sim", root, "--duration", "8"]) == 0
+    export_s = time.perf_counter() - t0
+    traj, metrics = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "metrics.csv")
+    launches = _cli_run(["run", "-", root, "--eval", "--budget", "--metrics", metrics, "--out", traj])
+    seq = EurocSequence(root)
+    T = len(seq.image_stamps)
+    _launch_gate(launches, T, "cli run")
+    rows = np.loadtxt(metrics, delimiter=",", skiprows=1, ndmin=2)
+    assert rows.shape == (T, 7), f"cli run: metrics CSV {rows.shape}, ({T}, 7) expected"
+    init = rows[:, 1].astype(bool)
+    t, p, q = read_tum(traj)
+    assert len(t) == int(init.sum()), f"cli run: {len(t)} TUM lines for {int(init.sum())} initialized frames"
+    assert init.sum() >= 100, f"cli run: only {int(init.sum())} initialized frames"
+    assert int(rows[:, 6].sum()) == 0, f"cli run: {int(rows[:, 6].sum())} online resets"
+    assert np.isfinite(p).all() and np.isfinite(q).all(), "cli run: non-finite trajectory"
+    mean_tracks = float(rows[init, 2].mean())
+    assert mean_tracks > TRACKS_GATE, f"cli run: mean n_tracks {mean_tracks:.1f} <= {TRACKS_GATE}"
+    ate = ate_rmse(p, seq.ground_truth_at(t))
+    assert ate < ATE_GATE, f"cli run: ATE {ate:.4f} m >= {ATE_GATE}"
+    print(f"cli export-sim: {T} frames in {export_s:.3f} s; cli run: {int(init.sum())} initialized, "
+          f"0 resets, mean n_tracks {mean_tracks:.2f}, ATE {ate:.5f} m (gate {ATE_GATE}); TUM and "
+          f"metrics files complete; one K1 and one describe launch per frame (replays)", flush=True)
 
-        # --chunk 8: the same frames staged 8 per upload once initialized
-        traj8 = os.path.join(tmp, "traj8.txt")
-        _launch_gate(_cli_run(["run", "-", root, "--budget", "--chunk", "8", "--out", traj8]), T,
-                     "cli run --chunk 8")
-        with open(traj, "rb") as f1, open(traj8, "rb") as f8:
-            assert f1.read() == f8.read(), "cli run --chunk 8: the TUM file differs from --chunk 1's"
-        print(f"cli run --chunk 8: TUM file byte-identical to --chunk 1's ({T - len(t)} frames before "
-              f"the first pose one at a time); one K1 and one describe launch per frame", flush=True)
+    # --chunk 8: the same frames staged 8 per upload once initialized
+    traj8 = os.path.join(tmp, "traj8.txt")
+    _launch_gate(_cli_run(["run", "-", root, "--budget", "--chunk", "8", "--out", traj8]), T,
+                 "cli run --chunk 8")
+    with open(traj, "rb") as f1, open(traj8, "rb") as f8:
+        assert f1.read() == f8.read(), "cli run --chunk 8: the TUM file differs from --chunk 1's"
+    print(f"cli run --chunk 8: TUM file byte-identical to --chunk 1's ({T - len(t)} frames before "
+          f"the first pose one at a time); one K1 and one describe launch per frame", flush=True)
 
-        # resume: one pass of the reader split in two (frames(skip_frames=K)
-        # would seed frame K's IMU interval from t = 0, as the JAX package's
-        # does), held against the cli run above, the uninterrupted run over
-        # the same frames (its TUM file has 1e-6 m digits)
-        K = T // 2
-        frames = list(seq.frames(cfg, lazy=True))
-        ck = os.path.join(tmp, "state")
-        for chunk in (1, 8):
-            a = cli._run_streaming(cfg, iter(frames[:K]), device=dev, checkpoint=ck, chunk=chunk)
-            b = cli._run_streaming(cfg, iter(frames[K:]), device=dev, resume=ck, chunk=chunk)
-            init_ab = np.concatenate([a[3], b[3]])
-            assert np.array_equal(init_ab, init), \
-                f"resume (--chunk {chunk}): initialized frames differ from the uninterrupted run"
-            d_resume = float(np.abs(np.concatenate([a[1], b[1]])[init_ab] - p).max())
-            assert d_resume < RESUME_TOL, f"resume (--chunk {chunk}): {d_resume:.3e} m from the uninterrupted run"
-            print(f"resume (--chunk {chunk}): frames [0, {K}) with a checkpoint, [{K}, {T}) resumed from it: "
-                  f"max |dp| {d_resume:.3e} m from the uninterrupted cli run's TUM file (1e-6 m digits; gate "
-                  f"{RESUME_TOL}); streaming without the budget's synchronizations: {a[5]:.3f} fps "
-                  f"(frames 1-{K - 1}), {b[5]:.3f} fps (frames {K + 1}-{T - 1}) on {card}", flush=True)
+    # resume: one pass of the reader split in two (frames(skip_frames=K)
+    # would seed frame K's IMU interval from t = 0, as the JAX package's
+    # does), held against the cli run above, the uninterrupted run over
+    # the same frames (its TUM file has 1e-6 m digits)
+    K = T // 2
+    frames = list(seq.frames(cfg, lazy=True))
+    ck = os.path.join(tmp, "state")
+    for chunk in (1, 8):
+        a = cli._run_streaming(cfg, iter(frames[:K]), device=dev, checkpoint=ck, chunk=chunk)
+        b = cli._run_streaming(cfg, iter(frames[K:]), device=dev, resume=ck, chunk=chunk)
+        init_ab = np.concatenate([a[3], b[3]])
+        assert np.array_equal(init_ab, init), \
+            f"resume (--chunk {chunk}): initialized frames differ from the uninterrupted run"
+        d_resume = float(np.abs(np.concatenate([a[1], b[1]])[init_ab] - p).max())
+        assert d_resume < RESUME_TOL, f"resume (--chunk {chunk}): {d_resume:.3e} m from the uninterrupted run"
+        print(f"resume (--chunk {chunk}): frames [0, {K}) with a checkpoint, [{K}, {T}) resumed from it: "
+              f"max |dp| {d_resume:.3e} m from the uninterrupted cli run's TUM file (1e-6 m digits; gate "
+              f"{RESUME_TOL}); streaming without the budget's synchronizations: {a[5]:.3f} fps "
+              f"(frames 1-{K - 1}), {b[5]:.3f} fps (frames {K + 1}-{T - 1}) on {card}", flush=True)
 
-        with open(os.path.join(seq.cam_dir, f"{seq.image_stamps[0]}.png"), "rb") as f:
-            own = f.read()
-        img = png.decode_png_gray(own)
-        paeth = _paeth_png(img)
-        assert np.array_equal(png.decode_png_gray(paeth), img), "the Paeth file decodes to another image"
-        up_ms, paeth_ms = _decode_ms(own), _decode_ms(paeth)
-        idat = b"".join(body for kind, body in png._chunks(paeth) if kind == b"IDAT")
-        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(img.shape[0], -1)
-        t0 = time.perf_counter()
-        assert np.array_equal(png._unfilter_wavefront(rows[:, 1:], rows[:, 0]), img)
-        wave_ms = 1e3 * (time.perf_counter() - t0)
-        print(f"PNG decode of one {img.shape[1]}x{img.shape[0]} frame on the host: {up_ms:.3f} ms "
-              f"(the export's Up rows), {paeth_ms:.3f} ms (Paeth rows; both unfiltered in C; gate "
-              f"{PAETH_MS_GATE} ms); the numpy wavefront on the same rows {wave_ms:.3f} ms", flush=True)
-        assert paeth_ms < PAETH_MS_GATE, f"Paeth-row decode {paeth_ms:.3f} ms >= {PAETH_MS_GATE} ms"
+    with open(os.path.join(seq.cam_dir, f"{seq.image_stamps[0]}.png"), "rb") as f:
+        own = f.read()
+    img = png.decode_png_gray(own)
+    paeth = _paeth_png(img)
+    assert np.array_equal(png.decode_png_gray(paeth), img), "the Paeth file decodes to another image"
+    up_ms, paeth_ms = _decode_ms(own), _decode_ms(paeth)
+    idat = b"".join(body for kind, body in png._chunks(paeth) if kind == b"IDAT")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(img.shape[0], -1)
+    t0 = time.perf_counter()
+    assert np.array_equal(png._unfilter_wavefront(rows[:, 1:], rows[:, 0]), img)
+    wave_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"PNG decode of one {img.shape[1]}x{img.shape[0]} frame on the host: {up_ms:.3f} ms "
+          f"(the export's Up rows), {paeth_ms:.3f} ms (Paeth rows; both unfiltered in C; gate "
+          f"{PAETH_MS_GATE} ms); the numpy wavefront on the same rows {wave_ms:.3f} ms", flush=True)
+    assert paeth_ms < PAETH_MS_GATE, f"Paeth-row decode {paeth_ms:.3f} ms >= {PAETH_MS_GATE} ms"
+    return root, traj
+
+
+STAGE_SHARE_GATE = 0.90  # of an eager window's device time inside the twelve stages
+PLOT_PX_GATE = 200  # pixels of the estimate's colour in a figure
+
+
+def _stages_line(sec: dict) -> str:
+    return ", ".join(f"{k} {v['ms']:.4f}" for k, v in sec["stages"].items())
+
+
+def _stage_gates(res: dict, label: str) -> None:
+    """The eager steps of a trace name all twelve stages, hold at least
+    ``STAGE_SHARE_GATE`` of their device time, and every LK / describe
+    launch sits under ``fe.lk`` / ``fe.orb`` (one of each per step)."""
+    sec = res["eager"]
+    assert sec is not None, f"{label}: no eager step with device operations in the trace"
+    missing = [k for k in STAGES if not sec["stages"][k]["ops"]]
+    assert not missing, f"{label}: no device operation under {missing}"
+    assert sec["attributed_share"] >= STAGE_SHARE_GATE, \
+        f"{label}: {sec['attributed_share']:.4f} of the device time in the stages (gate {STAGE_SHARE_GATE})"
+    for frag, st in (("lk_track_kernel", "fe.lk"), ("orb_describe_kernel", "fe.orb")):
+        got = trace_analyze.kernel_stages(res, frag)
+        assert got == {st: sec["frames"]}, f"{label}: {frag} launches by stage {dict(got)}, " \
+                                           f"{sec['frames']} under {st} expected"
+
+
+def _replays_line(res: dict, stages: bool = True) -> str:
+    """The replays of a trace: how many were mapped onto an eager step by
+    position, their share in the stages (and per stage), and the note on the
+    replays that were not."""
+    sec = res["captured"]
+    if res["rows"]["captured"]:
+        tail = sec["stages"].get(trace_analyze.GRAPH_TAIL, {"ms": 0.0})["ms"]
+        line = (f"{sec['frames']} replays mapped onto an eager step by position, "
+                f"{100 * sec['attributed_share']:.2f}% of {sec['ms']:.3f} ms in the stages, graph tail {tail:.4f} ms"
+                + (f": {_stages_line(sec)}" if stages else ""))
+    else:
+        line = "replays unattributed"
+    return line + (f" ({res['note']})" if res["note"] else "")
+
+
+def _decode_rgb(path: str) -> np.ndarray:
+    """The (H, W, 3) image of an RGB PNG with Up rows (``png.encode_png_rgb``'s)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    chunks = list(png._chunks(data))
+    W, H, depth, colour = struct.unpack(">IIBB", chunks[0][1][:10])
+    assert (depth, colour) == (8, 2), f"{path}: bit depth {depth}, colour type {colour}"
+    raw = np.frombuffer(zlib.decompress(b"".join(b for k, b in chunks if k == b"IDAT")), np.uint8)
+    raw = raw.reshape(H, 3 * W + 1)
+    assert (raw[:, 0] == 2).all(), f"{path}: rows not Up-filtered"
+    return np.cumsum(raw[:, 1:], axis=0, dtype=np.uint8).reshape(H, W, 3)  # modulo 256
+
+
+def _colour_px(img: np.ndarray, hex_colour: str) -> int:
+    return int((img == np.array(visualize.rgb(hex_colour), np.uint8)).all(-1).sum())
+
+
+DEBUG_FRAMES = (60, 80)  # main-path frames of track_frame(debug=True), after initialization
+NAN_FRAME = 45  # the frame whose IMU interval holds the NaN accelerometer row (initialized at ~21)
+
+
+def phase_cli_profile(card, tmp: str, root: str, n_prof: int = 3):
+    """Phase 3j's profile (run after every timing phase: a process that has
+    run ``torch.profiler`` launches later kernels more slowly): ``cli run
+    --profile`` over ``n_prof`` frames of phase 3d's tree, its trace summed
+    per stage (``tools/torch_trace_analyze.py``): the capture's eager
+    warm-up steps carry the stages, the replays are mapped onto them by
+    position."""
+    prof_dir = os.path.join(tmp, "profile")
+    t0 = time.perf_counter()
+    _cli_run(["run", "-", root, "--max-frames", str(n_prof), "--profile", prof_dir,
+              "--out", os.path.join(tmp, "traj_prof.txt")])
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = trace_analyze.breakdown(trace_analyze.load(os.path.join(prof_dir, "trace.json")))
+    _stage_gates(res, "cli run --profile")
+    assert res["captured"] is not None, "cli run --profile: no graph replay in the trace"
+    how = _replays_line(res)
+    print(f"cli run --profile ({n_prof} frames, {run_s:.3f} s; trace analysed in "
+          f"{time.perf_counter() - t0:.3f} s): {res['eager']['frames']} eager warm-up steps, "
+          f"{100 * res['eager']['attributed_share']:.1f}% of their device time in the twelve stages, ms/frame "
+          f"{_stages_line(res['eager'])}; {how}; on {card}", flush=True)
+
+
+def phase_diagnostics(dev, cfg, card, tmp: str, root: str, traj: str, frames, graph):
+    """Phase 3j: the diagnostics on phase 3d's tree and phase 3's frames:
+    ``--plot`` and ``--live``; ``--debug-nans`` on the clean tree (the same
+    TUM file as phase 3d's) and on a copy with one NaN accelerometer row
+    (raises naming the stage); ``track_frame(debug=True)`` over
+    ``DEBUG_FRAMES`` against the captured step; the native CSV loader
+    against ``np.loadtxt``. (``cli run --profile``: ``phase_cli_profile``.)"""
+    seq = EurocSequence(root)
+    T = len(seq.image_stamps)
+
+    # -- --plot and --live (one run), each figure decoded
+    plot, live, traj_plot = (os.path.join(tmp, n) for n in ("plot.png", "live.png", "traj_plot.txt"))
+    _launch_gate(_cli_run(["run", "-", root, "--plot", plot, "--live", live, "--live-every", "40",
+                           "--out", traj_plot]), T, "cli run --plot --live")
+    with open(traj, "rb") as f1, open(traj_plot, "rb") as f2:
+        assert f1.read() == f2.read(), "cli run --plot --live: the TUM file differs from phase 3d's"
+    for path, rows in ((plot, 3), (live, 2)):
+        img = _decode_rgb(path)
+        assert img.shape == (rows * visualize.ROW_H, visualize.FIG_W, 3), f"{path}: {img.shape}"
+        n_est = _colour_px(img, visualize.C_EST)
+        assert n_est > PLOT_PX_GATE, f"{path}: {n_est} pixels of the estimate's colour"
+    n_gt, n_feat = _colour_px(_decode_rgb(plot), visualize.C_GT), _colour_px(_decode_rgb(plot), visualize.C_FEAT)
+    assert n_gt > PLOT_PX_GATE and n_feat > PLOT_PX_GATE, f"--plot: {n_gt} ground-truth, {n_feat} feature pixels"
+    print(f"cli run --plot --live --live-every 40: {visualize.FIG_W}x{3 * visualize.ROW_H} and "
+          f"{visualize.FIG_W}x{2 * visualize.ROW_H} RGB PNGs decoded, the estimate, the ground truth "
+          f"({n_gt} px) and the tracked features ({n_feat} px) drawn; TUM file byte-identical to phase 3d's",
+          flush=True)
+
+    # -- --debug-nans: the clean tree (eager step, every stage checked)
+    traj_dbg = os.path.join(tmp, "traj_debug.txt")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    assert cli.main(["--debug-nans", "run", "-", root, "--out", traj_dbg]) == 0
+    dbg_s = time.perf_counter() - t0
+    _launch_gate(kernel_launches(), T, "cli --debug-nans run")
+    with open(traj, "rb") as f1, open(traj_dbg, "rb") as f2:
+        assert f1.read() == f2.read(), "--debug-nans: the TUM file differs from phase 3d's"
+    # a copy of the tree (images linked) with one NaN accelerometer sample
+    bad = os.path.join(tmp, "euroc_nan")
+    for sub in ("cam0", "state_groundtruth_estimate0"):
+        os.makedirs(os.path.join(bad, "mav0"), exist_ok=True)
+        os.symlink(os.path.join(root, "mav0", sub), os.path.join(bad, "mav0", sub))
+    os.makedirs(os.path.join(bad, "mav0", "imu0"))
+    with open(os.path.join(root, "mav0", "imu0", "data.csv")) as f:
+        lines = f.read().splitlines()
+    t_nan = int(seq.image_stamps[NAN_FRAME]) - 20_000_000  # 20 ms before the frame
+    k = next(i for i, ln in enumerate(lines) if not ln.startswith("#") and int(ln.split(",")[0]) >= t_nan)
+    fields = lines[k].split(",")
+    fields[4] = "nan"  # a_x
+    lines[k] = ",".join(fields)
+    with open(os.path.join(bad, "mav0", "imu0", "data.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    try:
+        cli.main(["--debug-nans", "run", "-", bad, "--max-frames", str(NAN_FRAME + 5),
+                  "--out", os.path.join(tmp, "traj_nan.txt")])
+        raise AssertionError("--debug-nans: the NaN accelerometer row raised nothing")
+    except FloatingPointError as e:
+        msg = str(e)
+    assert "stage filt.propagate" in msg, f"--debug-nans named another stage: {msg}"
+    print(f"--debug-nans: the clean tree's {T} frames (eager, {1e3 * dbg_s / T:.3f} ms/frame with the "
+          f"checks) write phase 3d's TUM file byte for byte, one K1 and one describe launch per frame; "
+          f"a NaN accelerometer row before frame {NAN_FRAME} raises: {msg}", flush=True)
+
+    # -- track_frame(debug=True) against the captured step
+    lo, hi = DEBUG_FRAMES
+    start = _state_at(graph, init_pipeline_state(cfg, dev), frames, lo)
+    window = tree_map(lambda a: a[lo:hi], frames)
+    ref_state, ref_out = run_image_sequence(cfg, start, window, graph=graph)
+    ps, outs, n_masks = start, [], 0
+    for k in range(hi - lo):
+        fr = tree_map(lambda a: a[k], window)
+        tracker, feats, m = track_frame(cfg, ps.tracker, fr.image, fr.imu, fr.t, ps.vio.filter.bg, debug=True)
+        vio, out = filter_step(cfg, ps.vio, feats, fr.imu)
+        ps = PipelineState(tracker=tracker, vio=vio)
+        outs.append(out)
+        assert set(m) == {"can_track", "lk_survived", "ransac_survived", "orb_survived", "is_new", "orb_dist"}
+        for inner, outer in (("orb_survived", "ransac_survived"), ("ransac_survived", "lk_survived"),
+                             ("lk_survived", "can_track")):
+            assert not (m[inner] & ~m[outer]).any(), f"track_frame(debug=True), frame {lo + k}: {inner} not in {outer}"
+        assert not (m["is_new"] & m["orb_survived"]).any() and torch.equal(tracker.valid, m["orb_survived"] | m["is_new"])
+        n_masks += int(m["orb_survived"].sum())
+    assert _bits_equal((ps, tree_map(lambda *o: torch.stack(o), *outs)), (ref_state, ref_out)), \
+        "track_frame(debug=True): the eager frames differ from the captured step"
+    print(f"track_frame(debug=True), frames {lo}-{hi - 1}: the six outputs, masks nested (orb ⊆ ransac ⊆ lk ⊆ "
+          f"can_track; {n_masks / (hi - lo):.1f} ORB survivors per frame), poses and state bit-identical to "
+          f"the captured step's", flush=True)
+
+    # -- the native CSV loader against np.loadtxt, bit for bit
+    mav = os.path.join(root, "mav0")
+    rows = 0
+    for name, n in (("imu0/data.csv", 7), ("state_groundtruth_estimate0/data.csv", 8), ("cam0/data.csv", 1)):
+        path = os.path.join(mav, name)
+        got = native.load_csv(path, n)
+        want = np.loadtxt(path, delimiter=",", comments="#", usecols=range(n), ndmin=2)
+        assert got.shape == want.shape and np.array_equal(got.view(np.uint64), want.view(np.uint64)), name
+        rows += got.shape[0]
+    print(f"native CSV loader: the tree's three CSVs ({rows} rows) equal np.loadtxt bit for bit", flush=True)
 
 
 def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path", compare=True):
@@ -1063,6 +1276,7 @@ def phase_fisheye(dev, card):
 
 
 NEES_GATE = 12.0  # per axis (tests/test_consistency.py:35)
+CONSISTENCY_EAGER_FRAMES = 100  # 3g's eager run: initialization and 60 frames of motion
 OUTLIER_ATE_GATE = 0.15  # m (tests/test_consistency.py:56)
 
 
@@ -1082,16 +1296,18 @@ def phase_consistency(dev, card):
     feats, imu = make_frame_inputs(lanes, device=dev)
     T = feats.t.shape[0]
     vs0 = init_fleet_state(cfg, 2, dev)
-    ms, ref = {}, None
-    for graph in (False, None):  # eager, then captured (the capture included)
+    ms = {}
+    runs = {}
+    # captured over the whole sequence (the capture included), eager over its head
+    for graph, n in ((None, T), (False, CONSISTENCY_EAGER_FRAMES)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run_sequence(cfg, vs0, feats, imu, graph=graph)
+        runs[graph] = run_sequence(cfg, vs0, *tree_map(lambda x: x[:n], (feats, imu)), graph=graph)[1]
         torch.cuda.synchronize()
-        ms.setdefault("eager" if graph is False else "captured", []).append(1e3 * (time.perf_counter() - t0) / T)
-        ref = res if ref is None else ref
-        assert _bits_equal(res, ref), "consistency: a captured run differs from the eager run"
-    outs = res[1]
+        ms["eager" if graph is False else "captured"] = [1e3 * (time.perf_counter() - t0) / n]
+    outs = runs[None]
+    assert _bits_equal(runs[False], tree_map(lambda x: x[:CONSISTENCY_EAGER_FRAMES], outs)), \
+        "consistency: the eager run differs from the captured run"
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
         assert np.isfinite(o[k]).all(), f"consistency: non-finite {k}"
@@ -1110,7 +1326,8 @@ def phase_consistency(dev, card):
           f"{', '.join(f'{x:.3f}' for x in nees)} (gate {NEES_GATE}), final std "
           f"{', '.join(f'{x:.2e}' for x in std[-1])} m, ATE {ate_rmse(o['p'][m, 0], a['gt_p'][m]):.5f} m; "
           f"lane 1 ({int(mask.sum())} outlier observations): 0 resets, ATE {ate:.5f} m (gate "
-          f"{OUTLIER_ATE_GATE}); eager and captured runs equal bit for bit (outputs and final state); "
+          f"{OUTLIER_ATE_GATE}); the eager run's {CONSISTENCY_EAGER_FRAMES} frames equal the captured run's "
+          f"bit for bit; "
           f"{_ms_line(ms)} per batched frame (captured: the capture included) on {card}", flush=True)
 
 
@@ -1471,7 +1688,8 @@ def phase_sharded(dev, card):
         assert np.array_equal(one[k], ref[k]), f"nccl, 1 rank: {k} differs from the one-process fleet"
     sums = multichip.check_metrics(one)
     print(f"sharded fleet, nccl, world size 1 on {one['devices'][0]}: {B} lanes x {T} frames equal the "
-          f"one-process run_fleet_sequence bit for bit (every output, and the final step's); reduced "
+          f"one-process run_fleet_sequence bit for bit (every output, and the final step's, which the rank's "
+          f"step_fn replays as a captured CUDA graph against the eager fleet_step here); reduced "
           f"metrics {sums} = host sums; the rank's run {one['wall_s'][0]:.3f} s, the call {one_s:.3f} s "
           f"(spawn included); one process {wall:.3f} s on {card}", flush=True)
 
@@ -1506,19 +1724,70 @@ def phase_sharded(dev, card):
     multichip.dryrun_multichip(2, device=dev, backend="gloo")
     print(f"dryrun_multichip(2, backend='gloo'): the call {time.perf_counter() - t0:.3f} s on {card}",
           flush=True)
+    phase_sharded_graph(dev, cfg, data, ref, card)
 
 
+SHARD_STEP_FRAMES = 10  # the last frames of phase 4c's workload, stepped by step_fn
+
+
+def phase_sharded_graph(dev, cfg, data, ref_outs, card):
+    """Phase 4c, the captured sharded step: an NCCL group of world size 1
+    in this process; from the one-process fleet's state before the last
+    ``SHARD_STEP_FRAMES`` frames, ``make_sharded_fleet``'s eager ``step_fn``
+    (``graph=False``) and its captured one (``graph=True``: one CUDA graph of
+    the fleet step, the metrics and the ``all_reduce``) over those frames:
+    state, outputs and reduced metrics equal bit for bit, the outputs equal
+    the one-process sequence's, the metrics the host sums."""
+    T, B = data["t_img"].shape[:2]
+    lo = T - SHARD_STEP_FRAMES
+    feats, imu = make_frame_inputs(data, device=dev)
+    vs0, _ = run_fleet_sequence(cfg, init_fleet_state(cfg, B, dev), *tree_map(lambda a: a[:lo], (feats, imu)))
+    inputs = [make_frame_inputs(data, k=k, device=dev) for k in range(lo, T)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", world_size=1, rank=0)
+        try:
+            runs, ms = [], {}
+            for graph in (False, True):
+                _, step_fn = make_sharded_fleet(cfg, device=dev, graph=graph)
+                vs, seq = step_fn(vs0, *inputs[0]), []  # the first call captures
+                seq.append(vs[1:])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for args in inputs[1:]:
+                    vs = step_fn(vs[0], *args)
+                    seq.append(vs[1:])
+                torch.cuda.synchronize()
+                ms["captured" if graph else "eager"] = 1e3 * (time.perf_counter() - t0) / (len(inputs) - 1)
+                runs.append((vs[0], seq))
+        finally:
+            dist.destroy_process_group()
+    assert _bits_equal(runs[0], runs[1]), "sharded step_fn: the captured NCCL step differs from the eager one"
+    for k, (outs, metrics) in enumerate(runs[1][1]):
+        for key in multichip.OUT_KEYS:
+            assert np.array_equal(getattr(outs, key).cpu().numpy(), ref_outs[key][lo + k]), \
+                f"sharded step_fn, frame {lo + k}: {key} differs from the one-process sequence"
+        want = {"n_initialized": outs.initialized.sum(), "n_resets": outs.did_reset.sum(),
+                "mean_tracks": outs.n_tracks.sum()}
+        assert all(int(metrics[m]) == int(want[m]) for m in want), f"sharded step_fn: metrics {metrics}"
+    print(f"sharded step_fn, nccl, world size 1 in this process: {B} lanes x {SHARD_STEP_FRAMES} frames, the "
+          f"captured step (fleet step, metrics and all_reduce in one CUDA graph) equal to the eager one bit "
+          f"for bit (state, outputs, reduced metrics) and to the one-process sequence; "
+          f"{ms['captured']:.3f} ms per frame captured (the state loaded and copied out each call) against "
+          f"{ms['eager']:.3f} eager on {card}", flush=True)
+
+
+_REGIONS = frozenset((*STAGES, STEP))
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                       "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 PROFILE_WINDOW = (60, 65)  # frames profiled, after the filter initialized
 
 
-def _profile_window(step, lo: int, hi: int):
+def _profile_window(step, lo: int, hi: int, trace: str | None = None):
     """``step(k)`` runs frame k; frames [lo, hi) under ``torch.profiler``
     (the caller's state is already at frame lo). Returns per frame: the
     host's launch calls (kernels, graphs, copies and fills it enqueued), the
     device's operations, its busy ms, and the idle share of the device's
-    span."""
+    span. ``trace``: also export the chrome trace there."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1528,9 +1797,12 @@ def _profile_window(step, lo: int, hi: int):
         step(k)
     torch.cuda.synchronize()
     prof.stop()
+    if trace:
+        prof.export_chrome_trace(trace)
     evs = prof.events()
     host = [e for e in evs if e.device_type == torch.autograd.DeviceType.CPU and e.name in _HOST_LAUNCH_CALLS]
-    ops = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device-side spans of the stage regions are no device operations
+    ops = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _REGIONS]
     n = hi - lo
     if not ops:
         return len(host) / n, 0.0, None, None
@@ -1539,12 +1811,15 @@ def _profile_window(step, lo: int, hi: int):
     return len(host) / n, len(ops) / n, busy / 1e3 / n, 1.0 - busy / max(span, 1e-9)
 
 
-def phase_profile(cfg, frames, ps0, graph, label: str, card: str):
+def phase_profile(cfg, frames, ps0, graph, label: str, card: str, tmp: str, modes=("eager", "captured")):
     """Host launches per frame, device busy time and idle share of the eager
-    and the captured step (``graph``, captured for ``ps0``) over
-    ``PROFILE_WINDOW`` of (T, ...) ``frames``, each from the state the
+    and (in ``modes``) the captured step (``graph``, captured for ``ps0``)
+    over ``PROFILE_WINDOW`` of (T, ...) ``frames``, each from the state the
     replays reach at the window's first frame (last: a process that has run
-    ``torch.profiler`` launches later kernels more slowly)."""
+    ``torch.profiler`` launches later kernels more slowly). The eager
+    window's trace is summed per stage (``tools/torch_trace_analyze.py``,
+    ``_stage_gates``), and the captured window's replays mapped onto its
+    step by position."""
     lo, hi = PROFILE_WINDOW
     state = [None]
 
@@ -1561,14 +1836,31 @@ def phase_profile(cfg, frames, ps0, graph, label: str, card: str):
             b[k].copy_(o)
 
     start = _state_at(graph, ps0, frames, lo)
+    references = None
     for mode, step in (("eager", eager), ("captured", captured)):
+        if mode not in modes:
+            continue
         state[0] = start
         graph.load(start)
-        host, ops, busy, idle = _profile_window(step, lo, hi)
+        path = os.path.join(tmp, "trace.json")
+        host, ops, busy, idle = _profile_window(step, lo, hi, trace=path)
         dev_part = (f"{ops:.1f} device operations, device busy {busy:.3f} ms, idle share {idle:.4f}"
                     if busy is not None else "no device events recorded (device time not measured)")
         print(f"profile {label} ({mode}, frames {lo}-{hi - 1}): {host:.1f} host launch calls per frame, "
               f"{dev_part} per frame on {card}", flush=True)
+        t0 = time.perf_counter()
+        res = trace_analyze.breakdown(trace_analyze.load(path), references=references)
+        os.remove(path)
+        if mode == "eager":
+            _stage_gates(res, f"profile {label} (eager)")
+            references, sec = res["references"], res["eager"]
+            what = f"{100 * sec['attributed_share']:.2f}% of {sec['ms']:.3f} ms in the stages"
+        else:
+            sec = res["captured"]
+            what = _replays_line(res, stages=False)
+        print(f"stages {label} ({mode}, frames {lo}-{hi - 1}; {what}; gaps {res['gaps_ms']:.3f} ms; "
+              f"analysed in {time.perf_counter() - t0:.1f} s), device ms per frame: {_stages_line(sec)} "
+              f"on {card}", flush=True)
 
 
 class _PhaseClock:
@@ -1601,6 +1893,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     clock = _PhaseClock()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
     cfg = VioConfig()  # the default configuration: 6 SLAM slots, D = 160
     sim = Simulator(SimConfig(duration=8.0), cfg)
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
@@ -1617,8 +1911,10 @@ def main() -> int:
     clock("3")
     phase_flexible(dev, cfg, card)
     clock("3c")
-    phase_dataset(dev, cfg, card)
+    tree, traj = phase_dataset(dev, cfg, card, tmp)
     clock("3d")
+    phase_diagnostics(dev, cfg, card, tmp, tree, traj, main_frames, main_graph)
+    clock("3j")
     phase_bench(dev, card)
     clock("3e")
     phase_fisheye(dev, card)
@@ -1648,11 +1944,16 @@ def main() -> int:
     phase_sharded(dev, card)
     clock("4c")
     kernels = phase_timing(timings)
-    # in turns: the square-root and the Joseph path, single then B = 8
+    clock("5 kernels")
+    phase_cli_profile(card, tmp, tree)
+    clock("3j profile")
+    # the square-root and the Joseph path, single then B = 8; the Joseph
+    # form's eager windows only (its captured frame is timed in phase 3i's turns)
     for (width, form), (cfg_, ps0, frames_, graph_) in runs.items():
         phase_profile(cfg_, frames_, ps0, graph_, f"{form} {'main path' if width == 'single' else 'fleet path'}",
-                      card)
-    clock("5")
+                      card, tmp, modes=("eager", "captured") if form == "sqrt" else ("eager",))
+    clock("5 profiles")
+    tmp_dir.cleanup()
     print("command time per phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in clock.spans.items()), flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]

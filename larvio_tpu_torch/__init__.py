@@ -17,10 +17,15 @@ instance or a fleet of B independent instances on one card (every state leaf
 with a leading instance axis, ``parallel/fleet.py``), and the user's entry
 point: ``python -m larvio_tpu_torch.cli {run,sim,export-sim}`` (EuRoC reader
 with its own PNG codec, TUM output, checkpoint/resume, the host's in-motion
-initializer), ``api.py`` and ``pipeline.run_image_sequence_flexible``. The
-configuration schema, the simulator, the ATE evaluation and the host
-initialization code are the port's own modules. Nothing here imports JAX,
-the JAX package, cv2 or matplotlib.
+initializer, ``--plot`` / ``--live`` figures drawn by a numpy rasteriser,
+``--debug-nans``), ``api.py`` and ``pipeline.run_image_sequence_flexible``;
+the sharded fleet over ``torch.distributed`` (its step replayed as one CUDA
+graph on NCCL); the diagnostics: the twelve stage regions of the step
+(``core/stages.py``, summed per stage by ``tools/torch_trace_analyze.py``)
+and ``track_frame(debug=True)``; the native EuRoC CSV loader and IMU ring
+(``utils/native.py``). The configuration schema, the simulator, the ATE
+evaluation and the host initialization code are the port's own modules.
+Nothing here imports JAX, the JAX package, cv2, matplotlib or PIL.
 """
 
 __version__ = "0.2.0"

@@ -1,12 +1,13 @@
 """Command-line entry point of the port (port of ``larvio_tpu/cli.py``),
 mirroring the reference's non-ROS app ``larvio <config.yaml> <euroc_dir>``.
 
-    python -m larvio_tpu_torch.cli run <config.yaml|-> <euroc_dir> [--out traj.txt]
-        [--max-frames N] [--eval] [--profile DIR] [--checkpoint PATH]
-        [--resume PATH] [--init auto|static|dynamic] [--metrics CSV]
-        [--budget] [--chunk K] [--device cuda|cpu]
-    python -m larvio_tpu_torch.cli sim [--duration S] [--out traj.txt] [--eval]
-        [--profile DIR] [--device cuda|cpu]
+    python -m larvio_tpu_torch.cli [--debug-nans] run <config.yaml|-> <euroc_dir>
+        [--out traj.txt] [--max-frames N] [--eval] [--profile DIR]
+        [--checkpoint PATH] [--resume PATH] [--init auto|static|dynamic]
+        [--metrics CSV] [--budget] [--chunk K] [--plot PNG]
+        [--live PNG] [--live-every N] [--device cuda|cpu]
+    python -m larvio_tpu_torch.cli [--debug-nans] sim [--duration S]
+        [--out traj.txt] [--eval] [--profile DIR] [--plot PNG] [--device cuda|cpu]
         (no dataset: a simulated sequence rendered on the device)
     python -m larvio_tpu_torch.cli export-sim <out_dir> [--duration S]
         [--moving-start] [--seed N] [--device cuda|cpu]
@@ -18,13 +19,14 @@ the default) and raises where there is none, unless ``--device cpu`` asks for
 the CPU. On the card the step is captured as a CUDA graph at the first frame
 and replayed for every frame (the JAX CLI's jitted step); ``--chunk K``
 stages K frames per upload, as the JAX CLI's compiled scan per chunk does.
-PNGs are read and written by ``data/png.py``: the CLI needs neither cv2 nor
-matplotlib.
-
-Flags of the JAX package's CLI that the port rejects, each with its reason:
-``--plot``, ``--live`` and ``--live-every`` (matplotlib drew them) and
-``--debug-nans`` (PyTorch has no forward NaN sanitizer like
-``jax_debug_nans``).
+PNGs are read and written by ``data/png.py``, and the ``--plot`` and
+``--live`` figures drawn by ``data/visualize.py``: the CLI needs neither cv2
+nor matplotlib. ``--profile DIR`` writes a ``torch.profiler`` trace whose
+stages ``tools/torch_trace_analyze.py DIR/trace.json`` sums.
+``--debug-nans`` (the JAX CLI's ``jax_debug_nans``) holds every stage's
+outputs to ``torch.isfinite`` (``core/stages.py::NanCheck``) and raises at the
+first stage that fails, naming the stage and the frame; it runs the eager
+step, one host sync per stage.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ import numpy as np
 import torch
 
 from larvio_tpu_torch.core.device import card_numerics, resolve_device
+from larvio_tpu_torch.core.stages import NanCheck
 from larvio_tpu_torch.core.tree import leaves, tree_map
+from larvio_tpu_torch.data.visualize import plot_run
 from larvio_tpu_torch.init import FlexibleInitializer
 from larvio_tpu_torch.init.flexible import inject_init_result
 from larvio_tpu_torch.models.propagation import ImuBatch
@@ -132,7 +136,8 @@ class _ChunkStager:
 
 
 def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=None,
-                   init_mode="auto", resume=None, budget: bool = False, chunk: int = 1):
+                   init_mode="auto", resume=None, budget: bool = False, chunk: int = 1,
+                   live=None, live_every: int = 40, debug_nans: bool = False):
     """Host loop: one ``pipeline_step`` per frame of a frame stream. On the
     card the step is captured as a CUDA graph at the first frame
     (``pipeline.capture_pipeline_step``) and every frame is one replay; on
@@ -156,6 +161,11 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
     per-frame split decode / stack / upload / dispatch / compute (dispatch =
     host time of the steps, replays on the card; compute = the wait at
     ``torch.cuda.synchronize()`` after them).
+    live: the JAX CLI's live view: every ``live_every`` frames the positions
+    since the last refresh are read back and the trajectory so far is
+    drawn to this PNG (``data/visualize.py``), with a one-line status.
+    debug_nans: every frame runs the eager step with a ``NanCheck``, which
+    raises at the first stage whose outputs are not finite.
 
     Returns (t, p, q, initialized, stats, fps, final PipelineState); fps and
     the budget count the steady state, after the first frame.
@@ -163,6 +173,10 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)
+    check = NanCheck() if debug_nans else None
+    if check is not None:
+        print("--debug-nans: every stage's outputs are held to torch.isfinite; the eager step runs "
+              "(one host sync per stage)", flush=True)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     timers = {"decode": 0.0, "stack": 0.0, "upload": 0.0, "dispatch": 0.0, "compute": 0.0}
     frame_iter = _prefetch(frame_iter, timers=timers)
@@ -192,7 +206,9 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         """One frame through the step; returns its outputs (kept)."""
         nonlocal ps
         if graph is None:
-            ps, out = pipeline_step(cfg, ps, frame)
+            ps, out = pipeline_step(cfg, ps, frame, check=check)
+            if check is not None:
+                check.frame += 1
             return out
         return tree_map(torch.clone, graph.replay(frame))
 
@@ -213,6 +229,23 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
     pending = []
     t_start = None
     n = n_timed0 = 0
+    live_hist, live_done, live_next = [], 0, live_every
+
+    def live_refresh():
+        """Read back the positions since the last refresh and redraw."""
+        nonlocal live_done, live_next
+        if not live or n < live_next:
+            return
+        live_next = n + live_every
+        live_hist.extend(o.p.cpu().numpy() for o in outs_all[live_done:] if bool(o.initialized))
+        live_done = len(outs_all)
+        ph = np.stack(live_hist) if live_hist else np.zeros((0, 3))
+        if len(ph) >= 2:
+            plot_run(live, np.arange(len(ph), dtype=np.float64), ph, title=f"larvio_tpu_torch live (frame {n})")
+        rate = f" {(n - n_timed0) / (time.perf_counter() - t_start):.1f} fps" if t_start else ""
+        pos = ph[-1] if len(ph) else (float("nan"),) * 3
+        print(f"live: frame {n} t={n / 20.0:.1f}s p=({pos[0]:+.2f},{pos[1]:+.2f},{pos[2]:+.2f}){rate}",
+              flush=True)
 
     def start_clock():  # after the first step or chunk: fps and the budget count the steady state
         nonlocal t_start, n_timed0
@@ -235,7 +268,7 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
             host = host_frame(fr)
             if stager is None and chunk > 1:
                 stager = _ChunkStager(host, chunk, dev)  # pinned before the capture
-            if graph is None and dev.type == "cuda":
+            if graph is None and dev.type == "cuda" and check is None:
                 graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host))
             if initialized and chunk > 1:
                 pending.append(host)
@@ -251,6 +284,7 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
                 n += chunk
                 pending = []
                 start_clock()
+                live_refresh()
                 continue
             t1 = time.perf_counter()
             timers["stack"] += t1 - t0
@@ -261,6 +295,7 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
             out = timed_steps([frame])[0]
             outs_all.append(out)
             n += 1
+            live_refresh()
             if flex is not None and not bool(out.initialized):
                 # feed the host initializer from the tracker's current table
                 tr = state().tracker
@@ -289,6 +324,7 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         for host in pending:
             outs_all += timed_steps([tree_map(lambda a: a.to(dev), host)])
             n += 1
+            live_refresh()
         sync()
     finally:
         if prof is not None:
@@ -328,6 +364,28 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
     return t, p, q, init, stats, fps, ps
 
 
+def _tee_last(frame_iter, sink: dict):
+    """Pass frames through, remembering the last one (for the plot overlay)."""
+    for fr in frame_iter:
+        sink["frame"] = fr
+        yield fr
+
+
+def _write_plot(args, t, p, init, stats, ps, gt=None, last_frame=None):
+    """The run-summary PNG (``data/visualize.py``) at ``args.plot``: the
+    initialized frames, and the tracked features on the last frame."""
+    kw = {}
+    if last_frame:
+        img = last_frame["frame"]["image"]
+        if callable(img):  # lazy-decode frame (euroc.frames(lazy=True))
+            img = img()
+        kw = dict(frame=_host(img), frame_pts=_host(ps.tracker.pos), frame_valid=_host(ps.tracker.valid))
+    m = init
+    plot_run(args.plot, t[m], p[m], gt_p=gt[m] if gt is not None else None,
+             stats={k: v[m] for k, v in stats.items()}, title=f"larvio_tpu_torch ({args.cmd})", **kw)
+    print(f"plot -> {args.plot}")
+
+
 def cmd_run(args):
     from larvio_tpu_torch.config import VioConfig, load_yaml
     from larvio_tpu_torch.data.euroc import EurocSequence
@@ -336,11 +394,15 @@ def cmd_run(args):
     dev = resolve_device(args.device)
     cfg = VioConfig() if args.config == "-" else load_yaml(args.config)
     seq = EurocSequence(args.dataset)
+    last_frame = {}
     # lazy decode: the prefetcher resolves images on a thread pool
     frames = seq.frames(cfg, max_frames=args.max_frames, lazy=True)
+    if args.plot:
+        frames = _tee_last(frames, last_frame)
     t, p, q, init, stats, fps, ps = _run_streaming(
         cfg, frames, device=dev, profile_dir=args.profile, checkpoint=args.checkpoint,
         init_mode=args.init, resume=args.resume, budget=args.budget, chunk=args.chunk,
+        live=args.live, live_every=args.live_every, debug_nans=args.debug_nans,
     )
     m = init
     write_tum(args.out, t[m], p[m], q[m])
@@ -364,6 +426,9 @@ def cmd_run(args):
 
         gt = seq.ground_truth_at(t[m])
         print(f"ATE RMSE vs ground truth: {ate_rmse(p[m], gt):.4f} m")
+    if args.plot:
+        gt_full = seq.ground_truth_at(t) if seq.gt is not None else None
+        _write_plot(args, t, p, init, stats, ps, gt=gt_full, last_frame=last_frame)
     return 0
 
 
@@ -397,13 +462,19 @@ def cmd_sim(args):
                 "t_img": data["t_img"][k],
             }
 
-    t, p, q, init, stats, fps, _ = _run_streaming(cfg, frame_iter(), device=dev,
-                                                  profile_dir=args.profile)
+    last_frame = {}
+    frames = frame_iter()
+    if args.plot:
+        frames = _tee_last(frames, last_frame)
+    t, p, q, init, stats, fps, ps = _run_streaming(cfg, frames, device=dev, profile_dir=args.profile,
+                                                   debug_nans=args.debug_nans)
     write_tum(args.out, t[init], p[init], q[init])
     tracks = f"{stats['tracks'][init].mean():.0f}" if init.any() else "n/a"
     print(f"frames={len(t)} fps={fps:.1f} tracks~{tracks}")
     if args.eval and init.any():
         print(f"ATE RMSE: {ate_rmse(p[init], data['gt_p'][init]):.4f} m")
+    if args.plot:
+        _write_plot(args, t, p, init, stats, ps, gt=data["gt_p"][:len(t)], last_frame=last_frame)
     return 0
 
 
@@ -423,21 +494,6 @@ def cmd_export(args):
     return 0
 
 
-class _Rejected(argparse.Action):
-    """A flag of the JAX package's CLI that the port does not offer: giving
-    it fails the parse with its reason."""
-
-    def __init__(self, option_strings, dest, reason: str, **kw):
-        self.reason = reason
-        super().__init__(option_strings, dest, **kw)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not available in larvio_tpu_torch: {self.reason}")
-
-
-_NO_MATPLOTLIB = "it draws with matplotlib, which the port does not use (the card's machine has none)"
-
-
 def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a GPU unless 'cpu' is given)")
@@ -446,9 +502,10 @@ def _add_device(p):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="larvio_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--debug-nans", action=_Rejected, nargs=0,
-                    reason="PyTorch has no forward NaN sanitizer like jax_debug_nans; the "
-                           "filter's runtime containment (online reset) runs instead")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="hold every stage's outputs to torch.isfinite and raise at the first stage "
+                         "that fails, naming it and the frame (the eager step, one host sync per "
+                         "stage: debugging only)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     rp = sub.add_parser("run", help="run a EuRoC-format sequence")
@@ -470,9 +527,13 @@ def main(argv=None):
                     help="report a per-frame budget breakdown (decode / stack / upload / "
                          "dispatch / compute); synchronizes per frame, so fps in this mode "
                          "is the un-overlapped worst case")
-    rp.add_argument("--plot", action=_Rejected, reason=_NO_MATPLOTLIB)
-    rp.add_argument("--live", action=_Rejected, reason=_NO_MATPLOTLIB)
-    rp.add_argument("--live-every", action=_Rejected, reason=_NO_MATPLOTLIB)
+    rp.add_argument("--plot", default=None,
+                    help="write a run-summary PNG (trajectory, error, health, feature overlay)")
+    rp.add_argument("--live", default=None,
+                    help="live view: refresh a PNG of the trajectory so far at this path during the "
+                         "run, with a one-line status per refresh")
+    rp.add_argument("--live-every", type=int, default=40,
+                    help="frames between --live refreshes (default 40 = 2 s)")
     rp.add_argument("--chunk", type=int, default=1,
                     help="frames per upload once initialized (default 1): K frames are stacked "
                          "in pinned host memory and uploaded once, then stepped back to back; "
@@ -485,7 +546,8 @@ def main(argv=None):
     sp.add_argument("--out", default="trajectory.txt")
     sp.add_argument("--eval", action="store_true")
     sp.add_argument("--profile", default=None)
-    sp.add_argument("--plot", action=_Rejected, reason=_NO_MATPLOTLIB)
+    sp.add_argument("--plot", default=None,
+                    help="write a run-summary PNG (trajectory, error, health, feature overlay)")
     _add_device(sp)
     sp.set_defaults(fn=cmd_sim)
 

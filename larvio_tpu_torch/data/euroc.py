@@ -5,8 +5,9 @@ present, ``mav0/state_groundtruth_estimate0/data.csv``. Host-side numpy: the
 per-frame IMU bucketing produces the padded ``ImuBatch`` layout the pipeline
 consumes (slot 0 = the sample at or before the previous frame so propagation
 can seed its interval, then the samples up to 0.04 s past the frame for
-online time-offset propagation). The CSVs are parsed with numpy, the images
-with ``data/png.py``; images stay uint8 until ``pipeline_step`` casts them on
+online time-offset propagation). The CSVs are parsed in C++
+(``utils/native.py::load_csv``, as the JAX package's native loader does),
+the images with ``data/png.py``; images stay uint8 until ``pipeline_step`` casts them on
 the device.
 """
 
@@ -19,10 +20,11 @@ import numpy as np
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.data.png import read_png_gray
+from larvio_tpu_torch.utils.native import load_csv
 
 
 def _load_csv(path: str, n_cols: int) -> np.ndarray:
-    return np.loadtxt(path, delimiter=",", comments="#", usecols=range(n_cols), ndmin=2)
+    return load_csv(path, n_cols)
 
 
 class EurocSequence:

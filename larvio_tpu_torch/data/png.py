@@ -1,4 +1,4 @@
-"""8-bit grayscale PNG files with the standard library's ``zlib`` and numpy.
+"""8-bit PNG files with the standard library's ``zlib`` and numpy.
 
 The JAX package reads and writes the EuRoC images with ``cv2``; the port
 reads them here, so the dataset path needs no OpenCV. Only what EuRoC
@@ -17,58 +17,33 @@ row filter. ``_unfilter_wavefront`` is the numpy version the tests hold it
 to: every pixel (r, c) with r + c = d depends only on diagonals d - 1 and
 d - 2, so each of the H + W - 1 steps decodes a whole diagonal.
 
-The writer filters every row with Up (the row minus the row above).
+The writers (8-bit grayscale, and 8-bit RGB for ``data/visualize.py``'s
+figures) filter every row with Up (the row minus the row above).
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
 import struct
-import subprocess
 import zlib
 from pathlib import Path
 
 import numpy as np
 
+from larvio_tpu_torch.utils.native import host_library
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _NONE, _SUB, _UP, _AVERAGE, _PAETH = range(5)
-_PKG = Path(__file__).resolve().parent.parent
-_C_SRC = _PKG / "csrc" / "png_unfilter.c"
+_C_SRC = Path(__file__).resolve().parent.parent / "csrc" / "png_unfilter.c"
 _C_FLAGS = ["-O2", "-shared", "-fPIC"]
 _lib = None
 
 
-def _c_compiler() -> str:
-    for c in (os.environ.get("CC"), shutil.which("cc"), shutil.which("gcc")):
-        if c and shutil.which(c):
-            return c
-    raise RuntimeError("no C compiler (cc / gcc, or $CC) to build csrc/png_unfilter.c")
-
-
 def _unfilter_lib() -> ctypes.CDLL:
-    """The unfilter library, built on first call (reused while the source
-    and flags are unchanged)."""
+    """The unfilter library, built on first call (``utils/native.py``)."""
     global _lib
     if _lib is None:
-        h = hashlib.sha256(" ".join(_C_FLAGS).encode() + _C_SRC.read_bytes()).hexdigest()[:16]
-        build = _PKG / "_build"
-        out = build / f"libpng_unfilter_{h}.so"
-        build.mkdir(parents=True, exist_ok=True)
-        with open(build / "png_build.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)  # concurrent processes build once
-            if not out.exists():
-                tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-                cmd = [_c_compiler(), *_C_FLAGS, "-o", str(tmp), str(_C_SRC)]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"C build failed ({proc.returncode}): {' '.join(cmd)}\n"
-                                       f"{proc.stdout}\n{proc.stderr}")
-                os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
+        lib = host_library(_C_SRC, _C_FLAGS)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.larvio_png_unfilter.argtypes = [vp, vp, i32, i32, vp]
         lib.larvio_png_unfilter.restype = i32
@@ -164,20 +139,39 @@ def _unfilter_wavefront(rows: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return S[r_idx + c_idx + 2, r_idx + 1].astype(np.uint8)
 
 
+def _encode(rows: np.ndarray, width: int, colour: int, text: dict | None = None) -> bytes:
+    """PNG bytes of (H, row bytes) uint8 ``rows``, every row filtered with Up;
+    ``text``: {keyword: value} as tEXt chunks."""
+    H = rows.shape[0]
+    raw = np.empty((H, rows.shape[1] + 1), np.uint8)
+    raw[:, 0] = _UP
+    raw[0, 1:] = rows[0]
+    raw[1:, 1:] = rows[1:] - rows[:-1]  # uint8: modulo 256
+    meta = b"".join(_chunk(b"tEXt", k.encode("latin-1") + b"\0" + v.encode("latin-1", "replace"))
+                    for k, v in (text or {}).items())
+    return (_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, H, 8, colour, 0, 0, 0))
+            + meta
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
 def encode_png_gray(img: np.ndarray) -> bytes:
     """PNG bytes of an (H, W) uint8 image, every row filtered with Up."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 2:
         raise ValueError(f"an (H, W) uint8 image is written, not {img.dtype} {img.shape}")
-    H, W = img.shape
-    raw = np.empty((H, W + 1), np.uint8)
-    raw[:, 0] = _UP
-    raw[0, 1:] = img[0]
-    raw[1:, 1:] = img[1:] - img[:-1]  # uint8: modulo 256
-    return (_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-            + _chunk(b"IEND", b""))
+    return _encode(img, img.shape[1], 0)
+
+
+def encode_png_rgb(img: np.ndarray, text: dict | None = None) -> bytes:
+    """PNG bytes of an (H, W, 3) uint8 RGB image (colour type 2), every row
+    filtered with Up; ``text``: {keyword: value} as tEXt chunks."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"an (H, W, 3) uint8 image is written, not {img.dtype} {img.shape}")
+    H, W, _ = img.shape
+    return _encode(np.ascontiguousarray(img).reshape(H, 3 * W), W, 2, text)
 
 
 def read_png_gray(path: str) -> np.ndarray:
@@ -189,5 +183,12 @@ def read_png_gray(path: str) -> np.ndarray:
 def write_png_gray(path: str, img: np.ndarray) -> None:
     """Write an (H, W) uint8 image as a PNG file."""
     data = encode_png_gray(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def write_png_rgb(path: str, img: np.ndarray, text: dict | None = None) -> None:
+    """Write an (H, W, 3) uint8 RGB image as a PNG file."""
+    data = encode_png_rgb(img, text)
     with open(path, "wb") as f:
         f.write(data)

@@ -24,6 +24,7 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import const
+from larvio_tpu_torch.core.stages import stage
 from larvio_tpu_torch.core.tree import Struct, all_finite, take, take1, tree_where, where
 from larvio_tpu_torch.models import prune as prune_mod
 from larvio_tpu_torch.models import slam as slam_mod
@@ -221,8 +222,20 @@ def _consume_blocks(cfg: VioConfig, fs: FilterState, cand, wide):
     return blocks, consumed, idx, tri, sel
 
 
-def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatch):
-    """One frame. Returns (VioState, StepOutput)."""
+def _state_outputs(fs: FilterState, inited) -> dict:
+    """The float leaves of a filter state that a stage writes, each with its
+    validity mask, for ``core.stages.NanCheck``."""
+    out = {k: (getattr(fs, k), inited) for k in ("q", "v", "p", "bg", "ba", "td", "P")}
+    out.update(clone_q=(fs.clones.q, fs.clones.valid), clone_p=(fs.clones.p, fs.clones.valid),
+               slam_idp=(fs.slam.idp, fs.slam.valid), obs_uv=(fs.obs.uv, fs.obs.valid))
+    return out
+
+
+def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatch, check=None):
+    """One frame. Returns (VioState, StepOutput). Each stage runs in its
+    profiler region (``core/stages.py``); ``check``: a
+    ``core.stages.NanCheck`` that holds each stage's outputs to
+    ``torch.isfinite`` under their masks (``--debug-nans``)."""
     fs0 = vs.filter
     dtype, dev = fs0.P.dtype, fs0.P.device
     C = cfg.filter.max_clones
@@ -241,11 +254,14 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
 
     # ---- 2. propagation (square-root form: returns the WIDE factor; pad the
     # other branch; Joseph form: P keeps its (D, D) shape, pad 0) -------------
-    fs_prop = propagate(cfg, fs_init, imu, feats.t)
-    pad = fs_prop.P.shape[-1] - fs_init.P.shape[-1]
-    fs_init_m = fs_init.replace(P=torch.cat(
-        [fs_init.P, torch.zeros((*fs_init.P.shape[:-1], pad), dtype=dtype, device=dev)], dim=-1))
-    fs = tree_where(inited, fs_prop, fs_init_m)
+    with stage("filt.propagate"):
+        fs_prop = propagate(cfg, fs_init, imu, feats.t)
+        pad = fs_prop.P.shape[-1] - fs_init.P.shape[-1]
+        fs_init_m = fs_init.replace(P=torch.cat(
+            [fs_init.P, torch.zeros((*fs_init.P.shape[:-1], pad), dtype=dtype, device=dev)], dim=-1))
+        fs = tree_where(inited, fs_prop, fs_init_m)
+    if check is not None:
+        check("filt.propagate", **_state_outputs(fs, inited))
 
     # ---- 2b. vision-time gate -----------------------------------------------
     t_reached = fs.time >= feats.t + fs.td - fcfg.vision_time_tol
@@ -256,79 +272,97 @@ def filter_step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatc
     stationary = detect_stationary(cfg, feats.mean_motion, n_tracked, fs, imu) & inited
 
     # ---- 4. dead-track + prune blocks -> one update, THEN remove clones -----
-    n_clones = torch.sum(fs.clones.valid, dim=-1)
-    do_prune = (n_clones >= C) & inited
-    slot_a, slot_b = prune_mod.select_redundant(cfg, fs)
-    H_stack, r_stack, n_accepted, dead_rows = _marginalization_blocks(
-        cfg, fs, feats, slot_a, slot_b, do_prune
-    )
-    do_update = inited & (n_accepted > 0)
-    infl = max(cfg.noise.observation_noise**2 * fcfg.bootstrap_noise_inflation,
-               fcfg.bootstrap_noise_floor**2)
+    with stage("filt.marginalize"):
+        n_clones = torch.sum(fs.clones.valid, dim=-1)
+        do_prune = (n_clones >= C) & inited
+        slot_a, slot_b = prune_mod.select_redundant(cfg, fs)
+        H_stack, r_stack, n_accepted, dead_rows = _marginalization_blocks(
+            cfg, fs, feats, slot_a, slot_b, do_prune
+        )
+        do_update = inited & (n_accepted > 0)
+        infl = max(cfg.noise.observation_noise**2 * fcfg.bootstrap_noise_inflation,
+                   fcfg.bootstrap_noise_floor**2)
 
-    def obs_var(high_unc):  # measurement underweighting while velocity is uncertain
-        return torch.where(high_unc, infl, cfg.noise.observation_noise**2).to(dtype)[..., None]
+        def obs_var(high_unc):  # measurement underweighting while velocity is uncertain
+            return torch.where(high_unc, infl, cfg.noise.observation_noise**2).to(dtype)[..., None]
 
-    # refactor=(S == 0): with SLAM slots the hybrid update below re-squares
-    # the factor (every consumer until then is a row op); without them
-    # nothing later this frame would
-    fs, _, _ = apply_update(cfg, fs, H_stack, r_stack, obs_var(_high_vel_unc(cfg, fs)),
-                            enable=do_update, refactor=(S == 0))
+        # refactor=(S == 0): with SLAM slots the hybrid update below re-squares
+        # the factor (every consumer until then is a row op); without them
+        # nothing later this frame would
+        fs, _, _ = apply_update(cfg, fs, H_stack, r_stack, obs_var(_high_vel_unc(cfg, fs)),
+                                enable=do_update, refactor=(S == 0))
+    if check is not None:
+        check("filt.marginalize", **_state_outputs(fs, inited))
 
-    fs = fs.replace(obs=fs.obs.replace(
-        valid=fs.obs.valid & ~dead_rows[..., None],
-        track_id=torch.where(dead_rows, -1, fs.obs.track_id),
-    ))
-    # re-anchor SLAM features whose anchor clone is being pruned BEFORE its
-    # factor rows are zeroed (the transform reads them)
-    fs = slam_mod.reanchor_on_prune(cfg, fs, slot_a, slot_b, do_prune)
-    fs = prune_mod.remove_clones(cfg, fs, slot_a, slot_b, do_prune)
+    with stage("filt.prune"):
+        fs = fs.replace(obs=fs.obs.replace(
+            valid=fs.obs.valid & ~dead_rows[..., None],
+            track_id=torch.where(dead_rows, -1, fs.obs.track_id),
+        ))
+        # re-anchor SLAM features whose anchor clone is being pruned BEFORE its
+        # factor rows are zeroed (the transform reads them)
+        fs = slam_mod.reanchor_on_prune(cfg, fs, slot_a, slot_b, do_prune)
+        fs = prune_mod.remove_clones(cfg, fs, slot_a, slot_b, do_prune)
+    if check is not None:
+        check("filt.prune", **_state_outputs(fs, inited))
 
     # ---- 5. augmentation + observation insertion ----------------------------
-    owned = slam_mod.slam_owned_rows(cfg, fs) if S > 0 else None
-    do_augment = inited & t_reached & (torch.sum(fs.clones.valid, dim=-1) < C)
-    last = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf), dim=-1)  # newest valid sample
-    fs, slot = augment_state(cfg, fs, do_augment, take1(imu.w, last, -2) - fs.bg)
-    fs = add_observations(cfg, fs, slot, feats.ids, feats.uv, feats.valid, slam_owned=owned)
+    with stage("filt.augment"):
+        owned = slam_mod.slam_owned_rows(cfg, fs) if S > 0 else None
+        do_augment = inited & t_reached & (torch.sum(fs.clones.valid, dim=-1) < C)
+        last = torch.argmax(torch.where(imu.valid, imu.t, -torch.inf), dim=-1)  # newest valid sample
+        fs, slot = augment_state(cfg, fs, do_augment, take1(imu.w, last, -2) - fs.bg)
+        fs = add_observations(cfg, fs, slot, feats.ids, feats.uv, feats.valid, slam_owned=owned)
+    if check is not None:
+        check("filt.augment", **_state_outputs(fs, inited))
 
     # ---- 6. hybrid update: SLAM rows + promotion-consumption blocks ---------
     if S > 0:
-        newest = torch.argmax(torch.where(fs.clones.valid, fs.clones.frame, -1), dim=-1)
-        slam_H, slam_r, slam_accept, slam_hard_fail = slam_mod.slam_measurement_blocks(
-            cfg, fs, feats, newest)
-        # promotion candidates: live tracks with at least the promotion count
-        # of window observations (bootstrap mode: bootstrap_min_obs)
-        promote_thresh = torch.where(_bootstrap_mode(cfg, fs), fcfg.bootstrap_min_obs,
-                                     fcfg.slam_promote_obs)
-        promote_cand = (feats.valid & (feats.ids == fs.obs.track_id) & ~owned
-                        & (fs.obs.track_id >= 0)
-                        & (torch.sum(fs.obs.valid, dim=-1) >= promote_thresh[..., None])
-                        & inited[..., None])
-        # the consume width and the underweighting both key on velocity
-        # uncertainty after the marginalizing update
-        high_unc_b = _high_vel_unc(cfg, fs)
-        blocks, consumed_rows, consume_idx, consume_tri, consumed_sel = _consume_blocks(
-            cfg, fs, promote_cand, high_unc_b)
-        H_b = torch.cat([slam_H, blocks.H.reshape(*slam_H.shape[:-2], -1, D)], dim=-2)
-        r_b = torch.cat([slam_r, blocks.r.reshape(*slam_r.shape[:-1], -1)], dim=-1)
-        n_acc_b = torch.sum(slam_accept, dim=-1) + torch.sum(blocks.accept, dim=-1)
-        enable_b = inited & (n_acc_b > 0)
-        fs, dx, upd_ok = apply_update(cfg, fs, H_b, r_b, obs_var(high_unc_b), enable=enable_b)
+        with stage("filt.slam_meas"):
+            newest = torch.argmax(torch.where(fs.clones.valid, fs.clones.frame, -1), dim=-1)
+            slam_H, slam_r, slam_accept, slam_hard_fail = slam_mod.slam_measurement_blocks(
+                cfg, fs, feats, newest)
+        if check is not None:  # rows the gate rejects are zeros
+            check("filt.slam_meas", H=slam_H, r=slam_r)
+        with stage("filt.consume"):
+            # promotion candidates: live tracks with at least the promotion count
+            # of window observations (bootstrap mode: bootstrap_min_obs)
+            promote_thresh = torch.where(_bootstrap_mode(cfg, fs), fcfg.bootstrap_min_obs,
+                                         fcfg.slam_promote_obs)
+            promote_cand = (feats.valid & (feats.ids == fs.obs.track_id) & ~owned
+                            & (fs.obs.track_id >= 0)
+                            & (torch.sum(fs.obs.valid, dim=-1) >= promote_thresh[..., None])
+                            & inited[..., None])
+            # the consume width and the underweighting both key on velocity
+            # uncertainty after the marginalizing update
+            high_unc_b = _high_vel_unc(cfg, fs)
+            blocks, consumed_rows, consume_idx, consume_tri, consumed_sel = _consume_blocks(
+                cfg, fs, promote_cand, high_unc_b)
+            H_b = torch.cat([slam_H, blocks.H.reshape(*slam_H.shape[:-2], -1, D)], dim=-2)
+            r_b = torch.cat([slam_r, blocks.r.reshape(*slam_r.shape[:-1], -1)], dim=-1)
+            n_acc_b = torch.sum(slam_accept, dim=-1) + torch.sum(blocks.accept, dim=-1)
+            enable_b = inited & (n_acc_b > 0)
+            fs, dx, upd_ok = apply_update(cfg, fs, H_b, r_b, obs_var(high_unc_b), enable=enable_b)
 
-        # ---- 7. SLAM lifecycle: promote consumed candidates, drop lost ------
-        # only through an update that was applied (finite and enabled): a
-        # rejected one leaves the pre-update factor and a dx to ignore. The
-        # anchor is the newest clone; consumed windows retire with it.
-        applied = (upd_ok & enable_b)[..., None]
-        fs = slam_mod.promote_features(cfg, fs, blocks, consume_tri, consume_idx,
-                                       consumed_sel & applied, dx, anchor_slot=newest)
-        fs = slam_mod.drop_lost(cfg, fs, feats, slam_hard_fail)
-        fs = slam_mod.relinearize_nulls(cfg, fs)
-        fs = fs.replace(obs=fs.obs.replace(
-            valid=fs.obs.valid & ~(consumed_rows & applied)[..., None]))
+            # ---- 7. SLAM lifecycle: promote consumed candidates, drop lost ------
+            # only through an update that was applied (finite and enabled): a
+            # rejected one leaves the pre-update factor and a dx to ignore. The
+            # anchor is the newest clone; consumed windows retire with it.
+            applied = (upd_ok & enable_b)[..., None]
+            fs = slam_mod.promote_features(cfg, fs, blocks, consume_tri, consume_idx,
+                                           consumed_sel & applied, dx, anchor_slot=newest)
+            fs = slam_mod.drop_lost(cfg, fs, feats, slam_hard_fail)
+            fs = slam_mod.relinearize_nulls(cfg, fs)
+            fs = fs.replace(obs=fs.obs.replace(
+                valid=fs.obs.valid & ~(consumed_rows & applied)[..., None]))
+        if check is not None:
+            check("filt.consume", **_state_outputs(fs, inited))
 
     # ---- 8. ZUPT update -----------------------------------------------------
-    fs = zupt_update(cfg, fs, stationary)
+    with stage("filt.zupt"):
+        fs = zupt_update(cfg, fs, stationary)
+    if check is not None:
+        check("filt.zupt", **_state_outputs(fs, inited))
 
     # ---- 10. online reset ---------------------------------------------------
     diagP = cov_diag(cfg, fs.P)

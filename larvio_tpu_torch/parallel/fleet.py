@@ -22,7 +22,8 @@ step; a whole sequence runs with no communication. Each process holds its
 own lanes only: ``shard_lanes`` cuts a rank's block from a (B, ...) or
 (T, B, ...) tree. Any backend runs it: ``nccl`` with one card per rank,
 ``gloo`` on the CPU or with several ranks on one card
-(``parallel/multichip.py`` starts the ranks).
+(``parallel/multichip.py`` starts the ranks). On ``nccl`` the step with its
+``all_reduce`` is replayed as one CUDA graph; ``gloo`` steps eagerly.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch.distributed as dist
 from larvio_tpu_torch.api import run_sequence
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import resolve_device
+from larvio_tpu_torch.core.graph import CapturedStep
 from larvio_tpu_torch.core.tree import tree_map
 from larvio_tpu_torch.models.msckf import StepOutput, VioState, filter_step, init_vio_state
 from larvio_tpu_torch.pipeline import PipelineState, init_pipeline_state, run_image_sequence
@@ -115,7 +117,7 @@ def shard_lanes(tree, axis: int = 0, group=None):
 METRIC_KEYS = ("n_initialized", "n_resets", "mean_tracks")
 
 
-def make_sharded_fleet(cfg: VioConfig, group=None, device="cuda"):
+def make_sharded_fleet(cfg: VioConfig, group=None, device="cuda", graph=None):
     """(init_fn, step_fn) for a fleet sharded over the ranks of ``group``
     (``torch.distributed``'s world by default), each rank on ``device``.
 
@@ -126,19 +128,49 @@ def make_sharded_fleet(cfg: VioConfig, group=None, device="cuda"):
     fleet-wide ``n_initialized``, ``n_resets`` and ``mean_tracks`` (the sum
     of ``n_tracks``), the same 0-d int64 tensors on every rank, from ONE
     ``all_reduce`` of one (3,) tensor on the state's device (the JAX
-    package's ``psum``; it waits for every rank's step)."""
+    package's ``psum``; it waits for every rank's step).
+
+    ``graph`` (the JAX package's jitted ``step_fn``): on an NCCL group on
+    the card, None or True captures ``fleet_step``, the metrics and the
+    ``all_reduce`` as one CUDA graph at the first call (its eager warm-up
+    steps run the first collectives, which set up the communicator) and
+    every call replays it: ``vs`` is loaded into the graph's static state
+    and the returned state and outputs are copies, so ``step_fn`` stays a
+    function of its arguments, equal bit for bit to the eager step. A
+    ``gloo`` group cannot be captured: None runs the eager step there and
+    True raises. False always runs the eager step."""
     dev = resolve_device(device)
+    backend = dist.get_backend(group)
+    capturable = dev.type == "cuda" and backend == "nccl"
+    if graph and not capturable:
+        raise ValueError(f"graph=True: a {backend} group on {dev} cannot be captured "
+                         "(CUDA graphs hold NCCL collectives only)")
+    capture = capturable if graph is None else bool(graph)
+    captured = None
 
     def init_fn(n_instances: int, dtype=torch.float32) -> VioState:
         n_ranks, rank = _world(group)
         blk = lane_block(n_instances, n_ranks, rank)
         return init_fleet_state(cfg, blk.stop - blk.start, dev, dtype)
 
-    def step_fn(vs: VioState, feats, imu):
-        vs, outs = fleet_step(cfg, vs, feats, imu)
+    def step(vs: VioState, inputs):
+        vs, outs = fleet_step(cfg, vs, *inputs)
         local = fleet_metrics(outs)
         sums = torch.stack([local[k].to(torch.int64) for k in METRIC_KEYS])
         dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        return vs, (outs, sums)
+
+    def step_fn(vs: VioState, feats, imu):
+        nonlocal captured
+        if not capture:
+            vs, (outs, sums) = step(vs, (feats, imu))
+        else:
+            if captured is None:
+                captured = CapturedStep(step, vs, (feats, imu))
+            else:
+                captured.load(vs)
+            outs, sums = tree_map(torch.clone, captured.replay((feats, imu)))
+            vs = captured.state()
         return vs, outs, dict(zip(METRIC_KEYS, sums.unbind()))
 
     return init_fn, step_fn

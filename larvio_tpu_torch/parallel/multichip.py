@@ -11,7 +11,9 @@ worker). Rank r generates every lane's simulator run (the JAX package's
 global arrays), cuts its own block with ``shard_lanes``, runs it through
 ``make_sharded_fleet_run`` (a whole sequence, no communication),
 then one ``step_fn`` on the last frame (one ``all_reduce`` of the health
-sums), and writes its outputs into the temporary directory; the caller reads
+sums; on ``nccl`` the step and its ``all_reduce`` are one captured CUDA
+graph, ``make_sharded_fleet``'s default), and writes its outputs into the
+temporary directory; the caller reads
 them back there, so gathering adds no collective. A rank that raises fails
 the call (``torch.multiprocessing.spawn`` raises its error).
 

@@ -20,6 +20,7 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.graph import CapturedStep, scan
+from larvio_tpu_torch.core.stages import STEP, stage
 from larvio_tpu_torch.core.tree import Struct, tree_map
 from larvio_tpu_torch.init.flexible import FlexibleInitializer, inject_init_result
 from larvio_tpu_torch.models.frontend import TrackerState, init_tracker_state, track_frame
@@ -46,16 +47,20 @@ def init_pipeline_state(cfg: VioConfig, device, dtype=torch.float32) -> Pipeline
     )
 
 
-def pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput):
+def pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput, check=None):
     """One frame through track_frame and filter_step. Returns (state, StepOutput).
 
     Matmuls are float32: callers on the card keep TF32 off
     (``torch.backends.cuda.matmul.allow_tf32 = False``), as the JAX package
-    pins float32 matmul precision here.
+    pins float32 matmul precision here. The step runs in the profiler region
+    ``core.stages.STEP``, each stage in its own. ``check``: a
+    ``core.stages.NanCheck`` (``--debug-nans``; eager steps only).
     """
-    image = frame.image.to(torch.float32).contiguous()  # the kernels take dense rows
-    tracker, feats = track_frame(cfg, ps.tracker, image, frame.imu, frame.t, ps.vio.filter.bg)
-    vio, out = filter_step(cfg, ps.vio, feats, frame.imu)
+    with stage(STEP):
+        image = frame.image.to(torch.float32).contiguous()  # the kernels take dense rows
+        tracker, feats = track_frame(cfg, ps.tracker, image, frame.imu, frame.t, ps.vio.filter.bg,
+                                     check=check)
+        vio, out = filter_step(cfg, ps.vio, feats, frame.imu, check=check)
     return PipelineState(tracker=tracker, vio=vio), out
 
 

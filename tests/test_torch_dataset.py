@@ -50,6 +50,7 @@ from larvio_tpu_torch.data import trajectory as ttraj
 from larvio_tpu_torch.config import load_yaml as tcfg_load
 from larvio_tpu_torch.pipeline import init_pipeline_state
 from larvio_tpu_torch.utils import checkpoint as tckpt
+from larvio_tpu_torch.utils import native as tnative
 
 cv2 = pytest.importorskip("cv2")
 torch.set_num_threads(1)
@@ -189,7 +190,7 @@ def test_png_c_unfilter_refuses_and_never_falls_back(monkeypatch):
         tpng._unfilter_c(np.zeros((2, 3), np.uint8), np.array([0, 5], np.uint8))
     monkeypatch.setattr(tpng, "_lib", None)
     monkeypatch.setattr(tpng, "_C_FLAGS", tpng._C_FLAGS + ["-DLARVIO_UNBUILT"])
-    monkeypatch.setattr(tpng, "_c_compiler", lambda: "false")
+    monkeypatch.setattr(tnative, "_compiler", lambda cxx: "false")
     data = _png_file(_filter_rows(_texture(5, 6), np.full(5, 4)), 6, 5)
     with pytest.raises(RuntimeError, match="C build failed"):
         tpng.decode_png_gray(data)
@@ -482,14 +483,35 @@ def test_cli_runs_on_the_card_unless_told_otherwise(exports):
         tcli.main(["export-sim", "unused_dir", "--duration", "0.1"])
 
 
-@pytest.mark.parametrize("flag", [["--plot", "x.png"], ["--live", "x.png"], ["--live-every", "5"],
-                                  ["--debug-nans"]])
-def test_cli_rejects_flags_it_does_not_offer(flag, capsys):
-    argv = flag + ["run", "-", "d"] if flag == ["--debug-nans"] else ["run", "-", "d"] + flag
-    with pytest.raises(SystemExit) as e:
-        tcli.main(argv)
-    assert e.value.code == 2
-    assert f"{flag[0]} is not available in larvio_tpu_torch" in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [["run", "--plot"], ["run", "--live", "--live-every", "8"],
+                                   ["--debug-nans", "run"], ["sim", "--plot"]],
+                         ids=["run-plot", "run-live", "debug-nans", "sim-plot"])
+def test_cli_offers_the_jax_clis_flags(flags, chunk_trees, tmp_path, capsys):
+    """``run --plot``, ``run --live --live-every``, ``--debug-nans run`` and
+    ``sim --plot`` parse and run on the CPU: each figure is an RGB PNG of the
+    summary's width, and the ``--debug-nans`` run writes the plain run's TUM
+    file byte for byte."""
+    png_path, out = tmp_path / "fig.png", tmp_path / "traj.txt"
+    argv = [f if f not in ("--plot", "--live") else f"{f}={png_path}" for f in flags]
+    if "run" in flags:
+        argv += [str(chunk_trees / "cut.yaml"), str(chunk_trees / "port")]
+    else:
+        argv += ["--duration", "0.2"]
+    assert tcli.main(argv + ["--device", "cpu", "--out", str(out)]) == 0
+    text = capsys.readouterr().out
+    if "--debug-nans" in flags:
+        assert "--debug-nans: every stage's outputs are held to torch.isfinite" in text
+        plain = tmp_path / "plain.txt"
+        assert tcli.main(argv[1:] + ["--device", "cpu", "--out", str(plain)]) == 0
+        assert out.read_bytes() == plain.read_bytes() and len(out.read_bytes()) > 0
+        return
+    data = png_path.read_bytes()
+    W, H, depth, colour = struct.unpack(">IIBB", data[16:26])
+    assert (W, depth, colour) == (1210, 8, 2) and H in (704, 1056)
+    if "--live" in flags:
+        assert text.count("live: frame ") == 4  # frames 8, 16, 24, 32
+    else:
+        assert f"plot -> {png_path}" in text
 
 
 @pytest.fixture(scope="module")

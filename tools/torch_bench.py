@@ -63,18 +63,18 @@ ATE_GATE = 0.13  # m (bench.py:143)
 NOISE = "imu(0.005/0.05)+bias+image(2/255)"
 
 
-def bench_sim_config() -> SimConfig:
+def bench_sim_config(n_frames: int = N_FRAMES) -> SimConfig:
     """``bench.py:44-47``'s simulator: IMU noise and biases, no pixel noise."""
-    return SimConfig(duration=N_FRAMES / 20.0, gyro_noise=0.005, acc_noise=0.05,
+    return SimConfig(duration=n_frames / 20.0, gyro_noise=0.005, acc_noise=0.05,
                      gyro_bias=(0.01, -0.02, 0.015), acc_bias=(0.05, -0.03, 0.08))
 
 
-def bench_workload(cfg: VioConfig, device):
+def bench_workload(cfg: VioConfig, device, n_frames: int = N_FRAMES):
     """(sim data, FrameInput (T, ...) on ``device``): ``bench.py``'s
-    frames rendered by the port plus ``2.0 * randn`` of image noise drawn
-    from ``torch.Generator(device).manual_seed(0)``."""
+    frames (``n_frames`` of them) rendered by the port plus ``2.0 * randn``
+    of image noise drawn from ``torch.Generator(device).manual_seed(0)``."""
     dev = resolve_device(device)
-    sim = Simulator(bench_sim_config(), cfg)
+    sim = Simulator(bench_sim_config(n_frames), cfg)
     data = sim.generate()
     imgs = render_sequence(cfg, sim, data["t_img"], device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -19,7 +19,9 @@ It reports:
 * for each, a ``torch.profiler`` window over 20 steady frames: the host's
   launch calls per frame (kernels, graph launches, copies), the device's
   operations and busy time per frame, its idle share, and (eager) the top
-  kernels by device time (the full table goes to ``--out``);
+  kernels by device time (the full table goes to ``--out``); the device
+  time per stage (``tools/torch_trace_analyze.py``: the eager steps by
+  their stage regions, the replays mapped onto them by position);
 * the descriptor pass alone: one steady frame's ``describe`` call replayed
   50 times under the profiler, its device time and kernel launches per call.
 
@@ -163,15 +165,26 @@ def main() -> int:
                 torch.cuda.synchronize()
                 prof.stop()
 
+    from larvio_tpu_torch.core.stages import STAGES, STEP
+    from tools import torch_trace_analyze as ta
+
+    references = None
     for mode in ("eager", "captured"):
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         if mode == "eager":
             run(False, prof, window)
         else:
             captured(prof)
+        trace = os.path.splitext(args.out)[0] + f"_{mode}_trace.json"
+        prof.export_chrome_trace(trace)
+        res = ta.breakdown(ta.load(trace), references=references)
+        references = res["references"] if mode == "eager" else references
+        print(f"per stage, {mode} (trace {trace}):\n{ta.format_breakdown(res)}", flush=True)
         evs = prof.events()
         host = [e for e in evs if e.device_type == torch.autograd.DeviceType.CPU and e.name in launch_calls]
-        kernels = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+        # the device-side spans of the stage regions are no device operations
+        kernels = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in (*STAGES, STEP)]
         busy_us = float(np.sum([e.time_range.elapsed_us() for e in kernels])) if kernels else 0.0
         if kernels:
             span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
