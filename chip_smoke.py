@@ -26,15 +26,30 @@ Phases, each raising on failure (the script then exits non-zero):
    state (``n_slam`` >= 3 at some frame) and that every frame launched K1
    and the describe kernel once (eager: the wrappers' counts; captured: the
    graph's replays times what its capture counted, no wrapper running);
+3k. (run before phase 3) ``jax.jit``'s compile-once cache
+   (``core/graph.py::CACHE``): first the re-capture turns
+   (``tools/torch_recapture.py``: the main path's step captured explicitly,
+   outside the cache, G1 the process's first capture, G2 while G1 is alive,
+   G1 again, G3 after G1 is released, G2 again, each over phase 3's 160
+   frames with the host's time per graph launch and, behind a spin kernel,
+   the host's and the card's time per replay apart); then a second
+   ``run_image_sequence`` of one signature makes no capture, and
+   ``jit_pipeline_step``, ``api.step`` and ``jit_fleet_step`` (8 lanes, one
+   with NaN accelerometer samples) called per frame equal the captured
+   scans of their signatures bit for bit (outputs and final state), each
+   timed per call against its eager step over frames 60-64, in turns;
 3c. flexible moving start: 200 rendered frames (10 s, no static lead-in,
-   gyro bias) through ``run_image_sequence_flexible`` (eager head, captured
-   tail); checks that the host initializer injected a dynamic result, > 175
-   initialized frames, 0 resets, finiteness, ATE < 0.15 m and one K1 and one
-   describe launch per frame;
+   gyro bias) through ``run_image_sequence_flexible`` (head through
+   ``jit_pipeline_step``, tail through ``run_image_sequence``: one graph, at
+   most one capture); checks that the host initializer injected a dynamic
+   result, > 175 initialized frames, 0 resets, finiteness, ATE < 0.15 m and
+   one K1 and one describe launch per frame; the head's ms per frame beside
+   the eager step's on the same frames;
 3d. the dataset path: ``cli.main(["export-sim", ...])`` writes an 8 s EuRoC
    tree from frames rendered on the card, ``cli.main(["run", ...])`` reads it
-   back (PNG decode, prefetch, the streaming loop replaying the step it
-   captured at its first frame, with ``--budget``) and the gates of phase 3
+   back (PNG decode, prefetch, the streaming loop replaying the cache's step
+   for its signature, captured at the first run's first frame and reused by
+   every later run, with ``--budget``) and the gates of phase 3
    hold on its TUM and metrics files; ``run --chunk 8`` writes the same TUM
    file byte for byte; then the first 80 frames with a checkpoint and the
    next 80 resumed from it, with ``--chunk 1`` and ``--chunk 8``, against the
@@ -51,7 +66,8 @@ Phases, each raising on failure (the script then exits non-zero):
    phase 3's frames (the masks nested, poses and state bit-identical to the
    captured step's); the native CSV loader against ``np.loadtxt`` on the
    tree's CSVs, bit for bit; last, after the timing, ``cli run --profile``
-   over 3 frames, its trace summed per stage (``tools/torch_trace_analyze.py``:
+   over 3 frames in a process of its own (its first capture in the trace),
+   its trace summed per stage (``tools/torch_trace_analyze.py``:
    the twelve stages hold >= 90% of the eager warm-up steps' device time, K1
    under ``fe.lk``, describe under ``fe.orb``; the replays mapped onto them);
 3e. ``bench.py``'s workload (``tools/torch_bench.py::bench_workload``: 400
@@ -121,11 +137,15 @@ Phases, each raising on failure (the script then exits non-zero):
    (``tools/torch_trace_analyze.py``, the gates of 3j's profile), the
    captured windows' replays mapped onto the eager steps by position.
 
-On the card every path but the eager runs of phases 3, 3g and 4 replays a
-captured step, so a kernel's wrapper runs only while a step is captured
-(and in the capture's eager warm-up steps); ``launches`` in the kernels line
-is the main path's (phase 3's, phase 4's for the batched kernels) captured
-run: its replays times the launches its capture recorded.
+Every captured step but 3k's turns and 4c's NCCL ``step_fn`` comes from
+``CACHE``: one capture per signature in the whole script (printed per
+phase with the seconds, and held: captures = signatures), then the card's
+reserved memory. On the card every path but the eager runs of phases 3,
+3g and 4 replays a captured step, so a kernel's wrapper runs only while a
+step is captured (and in the capture's eager warm-up steps); ``launches``
+in the kernels line is the main path's (phase 3's, phase 4's for the
+batched kernels) captured run: its replays times the launches its capture
+recorded.
 
 Each kernel's line carries its own device time per launch (``ms``, from
 ``torch.profiler``'s device events of its ``__global__`` over 100-200
@@ -143,6 +163,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -156,10 +177,11 @@ import torch.distributed as dist
 
 import larvio_tpu_torch.pipeline as pipeline_mod
 from larvio_tpu_torch import cli
+from larvio_tpu_torch import api
 from larvio_tpu_torch.api import make_frame_inputs, run_sequence
 from larvio_tpu_torch.config import FilterConfig, VioConfig, load_yaml
 from larvio_tpu_torch.core.device import card_numerics
-from larvio_tpu_torch.core.graph import WARMUP_STEPS
+from larvio_tpu_torch.core.graph import CACHE, WARMUP_STEPS
 from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.data import png
 from larvio_tpu_torch.data.euroc import EurocSequence
@@ -178,11 +200,12 @@ from larvio_tpu_torch.parallel import multichip
 from larvio_tpu_torch.models.msckf import init_vio_state
 from larvio_tpu_torch.models.state import state_dim
 from larvio_tpu_torch.parallel.fleet import (fleet_metrics, fleet_step, init_fleet_pipeline_state,
-                                             init_fleet_state, run_fleet_image_sequence, run_fleet_sequence)
+                                             init_fleet_state, jit_fleet_step, run_fleet_image_sequence,
+                                             run_fleet_sequence)
 from larvio_tpu_torch.parallel.multichip import lane_data
 from larvio_tpu_torch.data.trajectory import read_tum
-from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state, pipeline_step,
-                                       run_image_sequence, run_image_sequence_flexible)
+from larvio_tpu_torch.pipeline import (FrameInput, cached_pipeline_step, init_pipeline_state, jit_pipeline_step,
+                                       pipeline_step, run_image_sequence, run_image_sequence_flexible)
 from larvio_tpu_torch.core.stages import STAGES, STEP
 from larvio_tpu_torch.data import visualize
 from larvio_tpu_torch.models.frontend import track_frame
@@ -190,7 +213,7 @@ from larvio_tpu_torch.models.msckf import filter_step
 from larvio_tpu_torch.parallel.fleet import make_sharded_fleet
 from larvio_tpu_torch.pipeline import PipelineState
 from larvio_tpu_torch.utils import native
-from tools import torch_trace_analyze as trace_analyze
+from tools import torch_recapture, torch_trace_analyze as trace_analyze
 from tools.torch_bench import ATE_GATE as BENCH_ATE_GATE, bench_workload, card_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -627,9 +650,11 @@ def _launch_gate(launches: dict, T: int, label: str, batched: bool = False) -> N
 
 
 def _capture(cfg, ps, frames):
-    """``capture_pipeline_step`` for (T, ...) ``frames``, its eager warm-up
-    steps and its capture outside any counting window."""
-    graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
+    """The cache's captured ``pipeline_step`` for (T, ...) ``frames``
+    (``cached_pipeline_step``): captured now, its eager warm-up steps and
+    its capture outside any counting window, unless an earlier phase
+    captured the signature."""
+    graph = cached_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
     torch.cuda.synchronize()
     return graph
 
@@ -755,6 +780,113 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
     return launches, ate, frames, graph
 
 
+JIT_WINDOW = (60, 65)  # frames of the per-call timing turns, after the filter initialized
+
+
+def _per_frame(fn, state, xs):
+    """``fn(state, x)`` for each element of the leading axis of ``xs``:
+    (final state, outputs stacked, the state before frame ``JIT_WINDOW[0]``)."""
+    outs, at = [], None
+    for k in range(next(iter(leaves(xs))).shape[0]):
+        if k == JIT_WINDOW[0]:
+            at = state
+        state, out = fn(state, tree_map(lambda a: a[k], xs))
+        outs.append(out)
+    return state, tree_map(lambda *o: torch.stack(o), *outs), at
+
+
+def _call_turns(paths: dict) -> dict:
+    """ms per call of each path's eager and jitted step over ``JIT_WINDOW``,
+    in turns (eager, jitted, jitted, eager), from the state before the
+    window. ``paths``: {name: (eager, jitted, state, xs)}, each step
+    ``fn(state, x)``. Returns {name: {mode: [ms]}}."""
+    lo, hi = JIT_WINDOW
+    ms = {name: {"eager": [], "jitted": []} for name in paths}
+    for mode in ("eager", "jitted", "jitted", "eager"):
+        for name, (eager, jitted, st, xs) in paths.items():
+            fn = eager if mode == "eager" else jitted
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(lo, hi):
+                st, _ = fn(st, tree_map(lambda a: a[k], xs))
+            torch.cuda.synchronize()
+            ms[name][mode].append(1e3 * (time.perf_counter() - t0) / (hi - lo))
+    return ms
+
+
+def phase_jit(dev, cfg, data, frames, card) -> None:
+    """Phase 3k: ``jax.jit``'s compile-once cache (``core/graph.py::CACHE``).
+
+    First the re-capture turns (``tools/torch_recapture.py``, explicit
+    captures outside the cache, before the cache holds the main path's
+    step): G1, the process's first capture of the step, G2 captured while
+    G1 is alive, G1 again, G3 after G1 is released, G2 again, each over
+    phase 3's 160 frames with the host's time per graph launch. Then the
+    cache: ``run_image_sequence`` twice (the second makes no capture),
+    ``jit_pipeline_step`` per frame (no capture, one K1 and one describe
+    launch per frame through the replays), ``api.step`` per frame on phase
+    3's feature-level data and ``jit_fleet_step`` per frame on 8 lanes of it
+    (phase 4's NaN accelerometer lane included), each equal bit for bit,
+    outputs and final state, to the captured scan of its signature
+    (``api.run_sequence``, ``run_fleet_sequence``); last each entry point
+    timed per call against its eager step over ``JIT_WINDOW``, in turns."""
+    t_start = time.perf_counter()
+    ps0 = init_pipeline_state(cfg, dev)
+    rows, _ = torch_recapture.turns(cfg, ps0, frames)
+    first = rows[0][1]
+    print("re-capture turns (explicit captures, phase 3's frames): " + "; ".join(
+        f"{what} {ms:.3f} ms/frame (host {launch:.3f} ms per graph launch; behind a spin the host {h:.3f} ms per "
+        f"launch, the card {c:.3f} ms per replay)" for what, ms, _, launch, (h, c) in rows)
+        + "; each later turn against the first: " + ", ".join(f"{100 * (ms / first - 1):+.1f}%" for _, ms, *_ in rows[1:])
+        + f"; outputs and final state equal bit for bit on {card}", flush=True)
+
+    T = frames.t.shape[0]
+    n0 = CACHE.captures
+    a, launches, captures, _ = _replays_of(lambda: run_image_sequence(cfg, ps0, frames))
+    _launch_gate(launches, T, "run_image_sequence (cached)")
+    b, launches, again, graphs = _replays_of(lambda: run_image_sequence(cfg, ps0, frames))
+    assert again == 0 and graphs == 1, f"a second run_image_sequence made {again} captures"
+    assert _bits_equal(a, b), "the second run_image_sequence differs from the first"
+    (st, outs, at_img), launches, per_call, graphs = _replays_of(
+        lambda: _per_frame(lambda p, f: jit_pipeline_step(cfg, p, f), ps0, frames))
+    _launch_gate(launches, T, "jit_pipeline_step per frame")
+    assert per_call == 0 and graphs == 1, f"jit_pipeline_step made {per_call} captures"
+    assert _bits_equal((st, outs), a), "jit_pipeline_step per frame differs from run_image_sequence"
+
+    feats, imu = make_frame_inputs(data, device=dev)
+    vs0 = init_vio_state(cfg, dev)
+    ref = run_sequence(cfg, vs0, feats, imu)
+    st, outs, at_feat = _per_frame(lambda s, x: api.step(cfg, s, *x), vs0, (feats, imu))
+    assert _bits_equal((st, outs), ref), "api.step per frame differs from api.run_sequence"
+    a_fleet = np.repeat(data["imu_a"][:, None], B_FLEET, axis=1)
+    a_fleet[80:100, B_FLEET - 1] = np.nan  # phase 4's NaN accelerometer lane
+    lanes = {k: np.repeat(data[k][:, None], B_FLEET, axis=1)
+             for k in ("ids", "uv", "vel", "fvalid", "mean_motion", "t_img", "imu_t", "imu_w", "imu_valid")}
+    ffeats, fimu = make_frame_inputs(dict(lanes, imu_a=a_fleet), device=dev)
+    fs0 = init_fleet_state(cfg, B_FLEET, dev)
+    ref = run_fleet_sequence(cfg, fs0, ffeats, fimu)
+    st, outs, at_fleet = _per_frame(lambda s, x: jit_fleet_step(cfg, s, *x), fs0, (ffeats, fimu))
+    assert _bits_equal((st, outs), ref), "jit_fleet_step per frame differs from run_fleet_sequence"
+    assert int(outs.did_reset[:, B_FLEET - 1].sum()) >= 1 and not outs.did_reset[:, :-1].any()
+
+    ms = _call_turns({
+        "jit_pipeline_step": (lambda p, f: pipeline_step(cfg, p, f), lambda p, f: jit_pipeline_step(cfg, p, f),
+                              at_img, frames),
+        "api.step": (lambda s, x: filter_step(cfg, s, *x), lambda s, x: api.step(cfg, s, *x), at_feat, (feats, imu)),
+        f"jit_fleet_step (B = {B_FLEET})": (lambda s, x: fleet_step(cfg, s, *x), lambda s, x: jit_fleet_step(cfg, s, *x),
+                                         at_fleet, (ffeats, fimu)),
+    })
+    lo, hi = JIT_WINDOW
+    for name, v in ms.items():
+        print(f"  {name}: " + "; ".join(f"{m} " + ", ".join(f"{x:.3f}" for x in xs) for m, xs in v.items())
+              + f" ms per call over frames {lo}-{hi - 1} (turns eager, jitted, jitted, eager)", flush=True)
+    print(f"jit cache: run_image_sequence captured {captures} time(s), its second call 0; jit_pipeline_step, "
+          f"api.step and jit_fleet_step per frame equal the captured scans bit for bit (outputs and final "
+          f"state; {T} frames, the fleet's NaN lane included), one K1 and one describe launch per frame through "
+          f"the replays; {CACHE.captures - n0} captures for {len(CACHE)} signatures so far; "
+          f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
+
+
 FLEX_ATE_GATE = 0.15  # m; the JAX package's moving-start image gate (tests/test_e2e_image.py:133)
 FLEX_INIT_GATE = 175  # initialized frames of 200 (the same test)
 RESUME_TOL = 1e-4  # m; resume against uninterrupted (tests/test_data_utils.py)
@@ -779,20 +911,35 @@ def phase_flexible(dev, cfg, card):
         injected.append(res)
         return real(cfg_, vs, res)
 
-    graph = _capture(cfg, init_pipeline_state(cfg, dev), frames)  # the tail replays it
-    pipeline_mod.inject_init_result = record
-    _reset_counts()
-    r0 = graph.replays
+    head_s, real_call = [], pipeline_mod.call
+
+    def timed_call(*a, **kw):  # the head's steps (the tail replays inside run_image_sequence)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_call(*a, **kw)
+        torch.cuda.synchronize()
+        head_s.append(time.perf_counter() - t0)
+        return res
+
+    pipeline_mod.inject_init_result, pipeline_mod.call = record, timed_call
     t0 = time.perf_counter()
     try:
-        _, outs = run_image_sequence_flexible(cfg, init_pipeline_state(cfg, dev), frames, graph=graph)
-        torch.cuda.synchronize()
+        (_, outs), launches, captures, graphs = _replays_of(
+            lambda: run_image_sequence_flexible(cfg, init_pipeline_state(cfg, dev), frames))
     finally:
-        pipeline_mod.inject_init_result = real
+        pipeline_mod.inject_init_result, pipeline_mod.call = real, real_call
     wall = time.perf_counter() - t0
-    head, n_tail = kernel_launches(), graph.replays - r0  # eager head frames, replayed tail frames
-    _launch_gate({k: head[k] + v * n_tail for k, v in graph.launches_per_replay.items()}, T, "flexible")
-    assert n_tail > 0 and head["lk_track"] == T - n_tail, f"flexible: {head} eager, {n_tail} replayed"
+    _launch_gate(launches, T, "flexible")
+    assert captures <= 1 and graphs == 1, f"flexible: {captures} captures, {graphs} graphs replayed"
+    n_head = len(head_s)
+    # the same head frames through the eager step, for comparison
+    ps = init_pipeline_state(cfg, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k in range(n_head):
+        ps, _ = pipeline_step(cfg, ps, tree_map(lambda a: a[k], frames))
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t1) / n_head
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
         assert np.isfinite(o[k]).all(), f"flexible: non-finite {k}"
@@ -807,9 +954,10 @@ def phase_flexible(dev, cfg, card):
     print(f"flexible moving start: {T} frames, dynamic initialization at frame {first} "
           f"(t={injected[0].time:.2f} s, |v|={np.linalg.norm(injected[0].v):.3f} m/s), {int(m.sum())} "
           f"initialized, 0 resets, mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max "
-          f"{int(o['n_slam'].max())}, ATE {ate:.5f} m (gate {FLEX_ATE_GATE}); {T - n_tail} eager head "
-          f"frames and {n_tail} replays, one K1 and one describe launch per frame; "
-          f"{1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
+          f"{int(o['n_slam'].max())}, ATE {ate:.5f} m (gate {FLEX_ATE_GATE}); head and tail replay one graph "
+          f"({captures} captures), one K1 and one describe launch per frame; {n_head} head frames "
+          f"(jit_pipeline_step) {1e3 * sum(head_s) / n_head:.3f} ms per frame against the eager step's "
+          f"{eager_ms:.3f} on the same frames; {1e3 * wall / T:.3f} ms/frame in all on {card}", flush=True)
 
 
 def _paeth_png(img: np.ndarray) -> bytes:
@@ -838,30 +986,35 @@ def _decode_ms(data: bytes, reps: int = 10) -> float:
     return 1e3 * float(np.median(ts))
 
 
+def _replays_of(fn):
+    """``fn()`` with the wrapper counts reset first; returns (its result, the
+    launches of the cache's replays meanwhile: each graph's new replays
+    times what its capture counted, the captures it made, the graphs it
+    replayed). The wrappers may run only in those captures' eager warm-up
+    steps and the captures."""
+    torch.cuda.synchronize()
+    before, n0 = {id(g): g.replays for g in CACHE.graphs()}, CACHE.captures
+    _reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    launches, captured = dict.fromkeys(kernel_launches(), 0), dict.fromkeys(kernel_launches(), 0)
+    replayed = [g for g in CACHE.graphs() if g.replays != before.get(id(g), 0)]
+    for g in replayed:
+        for k, v in g.launches_per_replay.items():
+            launches[k] += v * (g.replays - before.get(id(g), 0))
+            captured[k] += 0 if id(g) in before else (WARMUP_STEPS + 1) * v
+    assert kernel_launches() == captured, f"wrapper launches {kernel_launches()} beyond the captures' {captured}"
+    return res, launches, CACHE.captures - n0, len(replayed)
+
+
 def _cli_run(argv) -> dict:
     """``cli.main(argv)`` on the card; returns the launches of its frames
-    (the replays of the step it captured at its first frame, times what the
-    capture counted). The wrappers ran only in the capture's eager warm-up
-    steps and the capture itself."""
-    graphs = []
-    real = cli.capture_pipeline_step
-
-    def spy(*a):
-        graphs.append(real(*a))
-        return graphs[-1]
-
-    torch.cuda.synchronize()
-    cli.capture_pipeline_step = spy
-    _reset_counts()
-    try:
-        assert cli.main(argv) == 0
-    finally:
-        cli.capture_pipeline_step = real
-    assert len(graphs) == 1, f"cli {argv[0]}: {len(graphs)} captures"
-    per = graphs[0].launches_per_replay
-    assert kernel_launches() == {k: (WARMUP_STEPS + 1) * v for k, v in per.items()}, \
-        f"cli {argv[0]}: wrapper launches {kernel_launches()} beyond the capture's"
-    return {k: v * graphs[0].replays for k, v in per.items()}
+    (the replays of the cache's step, captured at its first frame unless an
+    earlier run captured the signature), and holds the run to at most one
+    capture."""
+    ok, launches, captures, graphs = _replays_of(lambda: cli.main(argv) == 0)
+    assert ok and captures <= 1 and graphs == 1, f"cli {argv[0]}: exit code, {captures} captures, {graphs} graphs"
+    return launches
 
 
 def phase_dataset(dev, cfg, card, tmp: str):
@@ -969,7 +1122,9 @@ def _stage_gates(res: dict, label: str) -> None:
 def _replays_line(res: dict, stages: bool = True) -> str:
     """The replays of a trace: how many were mapped onto an eager step by
     position, their share in the stages (and per stage), and the note on the
-    replays that were not."""
+    replays that were not, or that came short of records (with the device
+    records of other launches inside their span: none means the profiler
+    dropped them)."""
     sec = res["captured"]
     if res["rows"]["captured"]:
         tail = sec["stages"].get(trace_analyze.GRAPH_TAIL, {"ms": 0.0})["ms"]
@@ -1004,22 +1159,28 @@ NAN_FRAME = 45  # the frame whose IMU interval holds the NaN accelerometer row (
 
 def phase_cli_profile(card, tmp: str, root: str, n_prof: int = 3):
     """Phase 3j's profile (run after every timing phase: a process that has
-    run ``torch.profiler`` launches later kernels more slowly): ``cli run
-    --profile`` over ``n_prof`` frames of phase 3d's tree, its trace summed
-    per stage (``tools/torch_trace_analyze.py``): the capture's eager
-    warm-up steps carry the stages, the replays are mapped onto them by
-    position."""
+    run ``torch.profiler`` launches later kernels more slowly): ``python -m
+    larvio_tpu_torch.cli run --profile`` over ``n_prof`` frames of phase
+    3d's tree in a process of its own, as a user runs it (this process's
+    cache holds the step already, so a run here would capture nothing), its
+    trace summed per stage (``tools/torch_trace_analyze.py``): the capture's
+    eager warm-up steps carry the stages, the replays are mapped onto them
+    by position."""
     prof_dir = os.path.join(tmp, "profile")
     t0 = time.perf_counter()
-    _cli_run(["run", "-", root, "--max-frames", str(n_prof), "--profile", prof_dir,
-              "--out", os.path.join(tmp, "traj_prof.txt")])
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "larvio_tpu_torch.cli", "run", "-", root, "--max-frames",
+                           str(n_prof), "--profile", prof_dir, "--out", os.path.join(tmp, "traj_prof.txt")],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, f"cli run --profile: exit code {proc.returncode}: {proc.stderr[-2000:]}"
     run_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = trace_analyze.breakdown(trace_analyze.load(os.path.join(prof_dir, "trace.json")))
     _stage_gates(res, "cli run --profile")
-    assert res["captured"] is not None, "cli run --profile: no graph replay in the trace"
+    assert res["captured"] is not None and not res["rows"]["unmapped"], \
+        f"cli run --profile: replays not mapped onto the eager steps ({res['note']})"
     how = _replays_line(res)
-    print(f"cli run --profile ({n_prof} frames, {run_s:.3f} s; trace analysed in "
+    print(f"cli run --profile ({n_prof} frames, a process of its own, {run_s:.3f} s; trace analysed in "
           f"{time.perf_counter() - t0:.3f} s): {res['eager']['frames']} eager warm-up steps, "
           f"{100 * res['eager']['attributed_share']:.1f}% of their device time in the twelve stages, ms/frame "
           f"{_stages_line(res['eager'])}; {how}; on {card}", flush=True)
@@ -1858,21 +2019,24 @@ def phase_profile(cfg, frames, ps0, graph, label: str, card: str, tmp: str, mode
         else:
             sec = res["captured"]
             what = _replays_line(res, stages=False)
+            assert not res["rows"]["unmapped"], f"profile {label} (captured): {res['note']}"
         print(f"stages {label} ({mode}, frames {lo}-{hi - 1}; {what}; gaps {res['gaps_ms']:.3f} ms; "
               f"analysed in {time.perf_counter() - t0:.1f} s), device ms per frame: {_stages_line(sec)} "
               f"on {card}", flush=True)
 
 
 class _PhaseClock:
-    """Host seconds of each phase: ``clock(name)`` closes the span since the
-    previous call (or the clock's start) under ``name``."""
+    """Host seconds and ``CACHE`` captures of each phase: ``clock(name)``
+    closes the span since the previous call (or the clock's start) under
+    ``name``."""
 
     def __init__(self):
-        self.spans, self._t = {}, time.perf_counter()
+        self.spans, self.captures, self._t, self._n = {}, {}, time.perf_counter(), CACHE.captures
 
     def __call__(self, name: str) -> None:
         t = time.perf_counter()
         self.spans[name], self._t = t - self._t, t
+        self.captures[name], self._n = CACHE.captures - self._n, CACHE.captures
 
 
 def main() -> int:
@@ -1907,6 +2071,10 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} on the card in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
+    phase_jit(dev, cfg, data, FrameInput(image=imgs, t=g["t_img"], imu=ImuBatch(
+        t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"])), card)
+    clock("3k")
     launches, ate, main_frames, main_graph = phase_main_path(dev, cfg, data, imgs, card)
     clock("3")
     phase_flexible(dev, cfg, card)
@@ -1955,6 +2123,12 @@ def main() -> int:
     clock("5 profiles")
     tmp_dir.cleanup()
     print("command time per phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in clock.spans.items()), flush=True)
+    assert CACHE.captures == len(CACHE), f"{CACHE.captures} captures for {len(CACHE)} signatures"
+    print("cache captures per phase: " + ", ".join(f"{k} {v}" for k, v in clock.captures.items())
+          + f"; {CACHE.captures} in the whole script for {len(CACHE)} distinct signatures (plus 3k's 3 explicit "
+          f"captures and 4c's captured NCCL step_fn, outside the cache); memory reserved after the last phase "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB (max {torch.cuda.max_memory_reserved() / 2 ** 30:.3f})",
+          flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"command time {time.perf_counter() - t_start:.1f} s after the kernel build", flush=True)

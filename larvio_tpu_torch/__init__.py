@@ -19,6 +19,10 @@ point: ``python -m larvio_tpu_torch.cli {run,sim,export-sim}`` (EuRoC reader
 with its own PNG codec, TUM output, checkpoint/resume, the host's in-motion
 initializer, ``--plot`` / ``--live`` figures drawn by a numpy rasteriser,
 ``--debug-nans``), ``api.py`` and ``pipeline.run_image_sequence_flexible``;
+the jitted entry points (``pipeline.jit_pipeline_step``, ``api.step``,
+``parallel/fleet.py::jit_fleet_step``) and every runner replaying one CUDA
+graph per signature from ``core/graph.py::CACHE``, jit's compile-once
+cache;
 the sharded fleet over ``torch.distributed`` (its step replayed as one CUDA
 graph on NCCL); the diagnostics: the twelve stage regions of the step
 (``core/stages.py``, summed per stage by ``tools/torch_trace_analyze.py``)

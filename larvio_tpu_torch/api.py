@@ -1,10 +1,12 @@
 """Top-level feature-level API (port of ``larvio_tpu/api.py``).
 
-  * ``step``: one filter step (streaming / online use).
+  * ``step``: one filter step (streaming / online use), the JAX package's
+    jitted ``step``: on the card one replay of the step captured once per
+    (configuration, shapes) in ``core/graph.py::CACHE``; the eager step on
+    the CPU.
   * ``run_sequence``: the filter over a whole sequence, one step per frame:
-    on the card one replay per frame of the step captured as a CUDA graph
-    (``core/graph.py``), where the JAX package runs one compiled
-    ``lax.scan``; the eager loop on the CPU.
+    on the card one replay per frame of the same cached graph, where the JAX
+    package runs one compiled ``lax.scan``; the eager loop on the CPU.
 
 These take pre-extracted feature tracks (from the image front-end or the
 simulator); the image-level entry points (front-end + filter) are in
@@ -18,7 +20,7 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import resolve_device
-from larvio_tpu_torch.core.graph import scan
+from larvio_tpu_torch.core.graph import call, scan
 from larvio_tpu_torch.core.tree import tree_map
 from larvio_tpu_torch.models.msckf import FrameFeatures, VioState, filter_step, init_vio_state
 from larvio_tpu_torch.models.propagation import ImuBatch
@@ -39,20 +41,34 @@ def make_frame_inputs(batch: dict, k=None, device="cuda"):
     return feats, imu
 
 
-# One frame of the filter: (cfg, state, FrameFeatures, ImuBatch) -> (state,
-# StepOutput). The JAX package jits it; here it is the eager step itself
-# (one call per frame gains nothing from a capture).
-step = filter_step
+def _entry(cfg: VioConfig):
+    """``filter_step``'s key in ``core.graph.CACHE`` (with ``cfg`` static)."""
+    return "filter_step", cfg
+
+
+def _step(cfg: VioConfig):
+    return lambda s, x: filter_step(cfg, s, *x)
+
+
+def step(cfg: VioConfig, vs: VioState, feats: FrameFeatures, imu: ImuBatch):
+    """One frame of the filter (streaming mode), the JAX package's jitted
+    ``step``: on the card ``CACHE``'s captured ``filter_step`` for this
+    (``cfg``, shapes and dtypes) is loaded with ``vs``, replayed, and its
+    new state and outputs returned as new tensors (``vs`` is not modified);
+    the first call of a signature captures. On the CPU the eager step.
+    Returns (state, StepOutput)."""
+    return call(_entry(cfg), _step(cfg), vs, (feats, imu))
 
 
 def run_sequence(cfg: VioConfig, vs: VioState, seq_feats: FrameFeatures, seq_imu: ImuBatch,
                  graph=None):
     """The filter over inputs with a leading time axis. Returns (final state,
     StepOutput with a leading time axis). ``graph`` as in
-    ``core/graph.py::scan``: None replays a step captured for this call on
-    the card and runs the eager loop on the CPU; False forces the eager loop;
-    True forces capture (raises on the CPU)."""
-    return scan(lambda s, x: filter_step(cfg, s, *x), vs, (seq_feats, seq_imu), graph=graph)
+    ``core/graph.py::scan``: None replays ``CACHE``'s step on the card
+    (``step``'s graph; a second call of one signature captures nothing) and
+    runs the eager loop on the CPU; False forces the eager loop; True takes
+    ``CACHE``'s step and raises on the CPU."""
+    return scan(_entry(cfg), _step(cfg), vs, (seq_feats, seq_imu), graph=graph)
 
 
 def run_feature_sequence(cfg: VioConfig, batch: dict, device="cuda", dtype=torch.float32):

@@ -16,8 +16,10 @@ mirroring the reference's non-ROS app ``larvio <config.yaml> <euroc_dir>``.
 The trajectory is written in the reference's TUM format
 ``t x y z qx qy qz qw``. Every command runs on the card (``--device cuda``,
 the default) and raises where there is none, unless ``--device cpu`` asks for
-the CPU. On the card the step is captured as a CUDA graph at the first frame
-and replayed for every frame (the JAX CLI's jitted step); ``--chunk K``
+the CPU. On the card the step captured as a CUDA graph is replayed for every
+frame (the JAX CLI's jitted step), taken from the cache of captured steps
+(``core/graph.py::CACHE``: captured at the first frame of the first run of
+its signature in the process); ``--chunk K``
 stages K frames per upload, as the JAX CLI's compiled scan per chunk does.
 PNGs are read and written by ``data/png.py``, and the ``--plot`` and
 ``--live`` figures drawn by ``data/visualize.py``: the CLI needs neither cv2
@@ -46,7 +48,7 @@ from larvio_tpu_torch.data.visualize import plot_run
 from larvio_tpu_torch.init import FlexibleInitializer
 from larvio_tpu_torch.init.flexible import inject_init_result
 from larvio_tpu_torch.models.propagation import ImuBatch
-from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state,
+from larvio_tpu_torch.pipeline import (FrameInput, cached_pipeline_step, init_pipeline_state,
                                        pipeline_step)
 from larvio_tpu_torch.utils.checkpoint import restore_state, save_state
 
@@ -139,9 +141,11 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
                    init_mode="auto", resume=None, budget: bool = False, chunk: int = 1,
                    live=None, live_every: int = 40, debug_nans: bool = False):
     """Host loop: one ``pipeline_step`` per frame of a frame stream. On the
-    card the step is captured as a CUDA graph at the first frame
-    (``pipeline.capture_pipeline_step``) and every frame is one replay; on
-    the CPU every frame is an eager step.
+    card the step's graph comes from the cache of captured steps at the
+    first frame (``pipeline.cached_pipeline_step``: captured then, unless an
+    earlier run in this process captured the signature), the state is
+    loaded into it, and every frame is one replay; on the CPU every frame is
+    an eager step.
 
     init_mode: "static" keeps only the on-device static initializer;
     "auto"/"dynamic" also run the host FlexibleInitializer (window SfM +
@@ -269,7 +273,8 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
             if stager is None and chunk > 1:
                 stager = _ChunkStager(host, chunk, dev)  # pinned before the capture
             if graph is None and dev.type == "cuda" and check is None:
-                graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host))
+                graph = cached_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host))
+                graph.load(ps)
             if initialized and chunk > 1:
                 pending.append(host)
                 timers["stack"] += time.perf_counter() - t0

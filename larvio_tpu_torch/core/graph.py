@@ -1,5 +1,6 @@
-"""One frame step captured as a CUDA graph and replayed in place: the port's
-counterpart of ``jax.jit`` on a step function.
+"""One frame step captured as a CUDA graph and replayed in place, and the
+cache of such steps: the port's counterpart of ``jax.jit`` on a step
+function (its capture is jit's compile, ``CACHE`` its compile-once cache).
 
 ``CapturedStep(fn, state, inputs)`` takes a step ``fn(state, inputs) ->
 (state, outputs)`` over trees of CUDA tensors with fixed shapes
@@ -26,13 +27,29 @@ replay. A replay is one launch on the host; the kernel wrappers' counters
 tick only while capturing, and ``launches_per_replay`` records what they
 counted then, so the launches of a run are ``replays`` times that.
 
-Nothing falls back to eager execution: a CPU device raises, and a failed
-capture or replay raises to the caller. Every factorization must run in
-cuSOLVER (``core/device.py::card_numerics``): PyTorch's MAGMA paths for
-batched factorizations synchronize the host and cannot be captured.
+Calling a ``CapturedStep`` (``step(state, inputs)``) is the functional
+form: it loads ``state``, replays, and returns clones of the new state and
+the outputs, so the caller's tensors are never written and nothing it holds
+is overwritten by a later call.
+
+``CACHE`` holds one ``CapturedStep`` per signature, the key ``jax.jit``
+keeps: the entry (the step's name and its static arguments, e.g.
+``("pipeline_step", cfg)``; step functions are made per call, so their
+identity cannot serve), the device, the tree structure of (state, inputs)
+and every leaf's shape and dtype. The first call of a signature captures;
+every later one replays that graph. ``CACHE.captures`` counts the captures,
+``CACHE.clear()`` drops every step and frees the graphs' memory pools. On
+the CPU nothing is cached: the eager step runs.
+
+Nothing falls back to eager execution on the card: a CPU device raises, and
+a failed capture or replay raises to the caller. Every factorization must
+run in cuSOLVER (``core/device.py::card_numerics``): PyTorch's MAGMA paths
+for batched factorizations synchronize the host and cannot be captured.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -151,27 +168,104 @@ class CapturedStep:
         self.replays += 1
         return self._out
 
+    def __call__(self, state, inputs):
+        """One step as a function: load ``state``, replay, and return clones
+        of (the new state, the outputs)."""
+        self.load(state)
+        out = self.replay(inputs)
+        return self.state(), tree_map(torch.clone, out)
 
-def scan(step, carry, xs, graph=None):
+
+def _structure(tree):
+    """A hashable description of a tree's containers (its treedef)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree), tuple((f.name, _structure(getattr(tree, f.name))) for f in dataclasses.fields(tree))
+    if isinstance(tree, dict):
+        return dict, tuple((k, _structure(v)) for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        return type(tree), tuple(_structure(x) for x in tree)
+    return None
+
+
+def signature(entry, tree) -> tuple:
+    """The cache key of a call with arguments ``tree`` (see the module
+    docstring): ``entry``, the device, the tree structure, and each leaf's
+    shape and dtype."""
+    return (entry, _device(tree), _structure(tree), tuple((tuple(t.shape), t.dtype) for t in leaves(tree)))
+
+
+class StepCache:
+    """One ``CapturedStep`` per signature (see the module docstring)."""
+
+    def __init__(self):
+        self._steps = {}
+        self.captures = 0
+
+    def step(self, entry, fn, state, inputs) -> CapturedStep:
+        """The captured step of ``fn`` for this signature: captured now if
+        the cache has none (raises for CPU tensors), else the cached one,
+        whatever state it holds (load one before replaying it)."""
+        key = signature(entry, (state, inputs))
+        if key not in self._steps:
+            self._steps[key] = CapturedStep(fn, state, inputs)
+            self.captures += 1
+        return self._steps[key]
+
+    def graphs(self) -> list:
+        return list(self._steps.values())
+
+    def __len__(self) -> int:
+        return len(self._steps)
+
+    def clear(self) -> None:
+        """Drop every captured step; their graphs' memory pools go back to
+        the card."""
+        self._steps.clear()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+
+
+CACHE = StepCache()
+
+
+def select(graph, entry, fn, state, inputs):
+    """The ``CapturedStep`` that ``graph`` picks for calls of ``fn`` on
+    arguments like (``state``, ``inputs``), or None for the eager step:
+    False: None; None: ``CACHE``'s on the card, None on the CPU; True:
+    ``CACHE``'s (raises on the CPU); a ``CapturedStep``: itself."""
+    if graph is False or (graph is None and _device((state, inputs)).type != "cuda"):
+        return None
+    if isinstance(graph, CapturedStep):
+        return graph
+    return CACHE.step(entry, fn, state, inputs)
+
+
+def call(entry, fn, state, inputs, graph=None):
+    """``fn(state, inputs)`` through the step ``graph`` selects (``select``):
+    the jitted entry points' call. Returns (state, outputs), new tensors."""
+    g = select(graph, entry, fn, state, inputs)
+    return fn(state, inputs) if g is None else g(state, inputs)
+
+
+def scan(entry, step, carry, xs, graph=None):
     """``core.tree.scan(step, carry, xs)``, one replay of a captured ``step``
     per element of the leading (time) axis of ``xs``.
 
-    ``graph``: None captures when the tensors lie on the card and runs the
-    eager loop (``core.tree.scan``) on the CPU; False always runs the eager
-    loop; True always captures, and raises on the CPU; a ``CapturedStep``
-    of ``step`` is loaded with ``carry`` and replayed as it is.
+    ``graph`` (``select``): None replays ``CACHE``'s step for ``entry`` and
+    this signature on the card (captured at its first call) and runs the
+    eager loop on the CPU; False always runs the eager loop; True takes
+    ``CACHE``'s step and raises on the CPU; a ``CapturedStep`` of ``step``
+    is replayed as it is. The step is loaded with ``carry`` first.
 
     Each replay's outputs are copied into a preallocated (T, ...) buffer on
     the device (``buf[k]`` is a view made on the host: the loop reads
     nothing back). Returns (final carry, outputs with a leading time axis),
     equal bit for bit to the eager loop's on the same device."""
-    if graph is False or (graph is None and _device((carry, xs)).type != "cuda"):
+    graph = select(graph, entry, step, carry, tree_map(lambda a: a[0], xs))
+    if graph is None:
         return tree_scan(step, carry, xs)
     n = next(iter(leaves(xs))).shape[0]
-    if isinstance(graph, CapturedStep):
-        graph.load(carry)
-    else:
-        graph = CapturedStep(step, carry, tree_map(lambda a: a[0], xs))
+    graph.load(carry)
     bufs = None
     for k in range(n):
         out = graph.replay(tree_map(lambda a: a[k], xs))

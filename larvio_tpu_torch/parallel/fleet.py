@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from larvio_tpu_torch.api import run_sequence
+from larvio_tpu_torch.api import step as api_step
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import resolve_device
 from larvio_tpu_torch.core.graph import CapturedStep
@@ -55,6 +56,11 @@ def init_fleet_state(cfg: VioConfig, n_instances: int, device, dtype=torch.float
 # the JAX package's name is an alias. (B, ...) state and inputs ->
 # (state, StepOutput (B, ...)).
 fleet_step = filter_step
+
+# ``fleet_step`` through the cache of captured steps, the JAX package's
+# ``jit_fleet_step``: ``api.step`` takes the instance axis (B is part of the
+# signature, so each fleet width captures once), so this is an alias.
+jit_fleet_step = api_step
 
 
 # ``filter_step`` over (T, B, ...) inputs: ``api.run_sequence`` takes the

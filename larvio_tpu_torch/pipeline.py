@@ -1,10 +1,11 @@
 """Image-level pipeline: front-end + filter, one frame per call (port of
-``larvio_tpu/pipeline.py``). On the card ``capture_pipeline_step`` (the JAX
-package's ``jit_pipeline_step``) captures the step as a CUDA graph
-(``core/graph.py``) and ``run_image_sequence`` replays it once per frame,
-in place of the JAX package's compiled ``lax.scan``; on the CPU it runs the
-eager loop. ``run_image_sequence_flexible`` adds the host's in-motion
-initializer (``init/flexible.py``) in front of it.
+``larvio_tpu/pipeline.py``). On the card ``jit_pipeline_step`` replays the
+step captured as a CUDA graph, once per (configuration, shapes), from the
+cache of captured steps (``core/graph.py::CACHE``, jit's cache), and
+``run_image_sequence`` replays the same graph once per frame, in place of
+the JAX package's compiled ``lax.scan``; on the CPU both run the eager step.
+``run_image_sequence_flexible`` adds the host's in-motion initializer
+(``init/flexible.py``) in front of it.
 
 Every leaf may carry a leading instance axis B: ``pipeline_step`` then steps
 a fleet of B independent instances at once (the JAX package's
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from larvio_tpu_torch.config import VioConfig
-from larvio_tpu_torch.core.graph import CapturedStep, scan
+from larvio_tpu_torch.core.graph import CACHE, CapturedStep, call, scan
 from larvio_tpu_torch.core.stages import STEP, stage
 from larvio_tpu_torch.core.tree import Struct, tree_map
 from larvio_tpu_torch.init.flexible import FlexibleInitializer, inject_init_result
@@ -64,13 +65,39 @@ def pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput, check=No
     return PipelineState(tracker=tracker, vio=vio), out
 
 
+def _entry(cfg: VioConfig):
+    """``pipeline_step``'s key in ``core.graph.CACHE`` (with ``cfg`` static)."""
+    return "pipeline_step", cfg
+
+
+def _step(cfg: VioConfig):
+    return lambda p, f: pipeline_step(cfg, p, f)
+
+
+def jit_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput):
+    """``pipeline_step`` as the JAX package's ``jit_pipeline_step``: on the
+    card the step captured once per (``cfg``, shapes and dtypes of ``ps``
+    and ``frame``) in ``core.graph.CACHE`` is loaded with ``ps``, replayed,
+    and its new state and outputs returned as new tensors (``ps`` is not
+    modified); the first call of a signature captures. On the CPU the eager
+    step. Returns (state, StepOutput)."""
+    return call(_entry(cfg), _step(cfg), ps, frame)
+
+
+def cached_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput) -> CapturedStep:
+    """``CACHE``'s captured ``pipeline_step`` for states like ``ps`` and
+    frames like ``frame`` (one frame: no time axis; its image dtype is part
+    of the signature), captured now if it has none. The graph is shared with
+    every other caller of the signature: load a state before replaying it.
+    Raises for tensors on the CPU."""
+    return CACHE.step(_entry(cfg), _step(cfg), ps, frame)
+
+
 def capture_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput) -> CapturedStep:
-    """``pipeline_step`` captured as a CUDA graph for states like ``ps`` and
-    frames like ``frame`` (one frame: no time axis; its image dtype is
-    captured too, so a uint8 and a float32 stream need one capture each).
-    The counterpart of the JAX package's ``jit_pipeline_step``; raises for
-    tensors on the CPU."""
-    return CapturedStep(lambda p, f: pipeline_step(cfg, p, f), ps, frame)
+    """A new captured ``pipeline_step`` for states like ``ps`` and frames
+    like ``frame``, owned by the caller, outside ``CACHE`` (a tool that
+    compares captures). Raises for tensors on the CPU."""
+    return CapturedStep(_step(cfg), ps, frame)
 
 
 def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput, graph=None):
@@ -78,29 +105,32 @@ def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput, gr
     state's instance axis if any). Returns (final state, StepOutput with a
     leading time axis).
 
-    ``graph`` (``core/graph.py::scan``): None replays a step captured for
-    this call on the card and runs the eager loop on the CPU; False forces
-    the eager loop; True forces capture (raises on the CPU); a
-    ``capture_pipeline_step`` result is loaded with ``ps`` and replayed."""
-    return scan(lambda p, frame: pipeline_step(cfg, p, frame), ps, frames, graph=graph)
+    ``graph`` (``core/graph.py::scan``): None replays ``CACHE``'s step on
+    the card (``jit_pipeline_step``'s graph; a second call of one signature
+    captures nothing) and runs the eager loop on the CPU; False forces the
+    eager loop; True takes ``CACHE``'s step and raises on the CPU; a
+    ``CapturedStep`` of ``pipeline_step`` is loaded with ``ps`` and
+    replayed."""
+    return scan(_entry(cfg), _step(cfg), ps, frames, graph=graph)
 
 
 def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: FrameInput,
                                 max_init_frames: int = 128, init_chunk: int = 32, graph=None):
     """``run_image_sequence`` with FLEXIBLE initialization, for one instance.
 
-    The head steps frame by frame while feeding the host
-    ``FlexibleInitializer`` (window SfM + visual-inertial alignment) from the
-    tracker's table, until the filter is initialized: by the on-device static
-    initializer, or by injecting a dynamic result. Each head frame reads
-    ``initialized`` and the table back to the host (one sync per frame, only
-    while uninitialized). The tail runs ``run_image_sequence`` over the rest
-    (with ``graph``: on the card, replays of a step captured on the head's
-    final state).
+    The head steps frame by frame (``jit_pipeline_step``, as the JAX
+    package's head) while feeding the host ``FlexibleInitializer`` (window
+    SfM + visual-inertial alignment) from the tracker's table, until the
+    filter is initialized: by the on-device static initializer, or by
+    injecting a dynamic result. Each head frame reads ``initialized`` and the
+    table back to the host (one sync per frame, only while uninitialized).
+    The tail runs ``run_image_sequence`` over the rest. ``graph`` as there,
+    for the head too: on the card head and tail replay one graph (None:
+    ``CACHE``'s, so at most one capture per signature); False steps eagerly.
 
     ``init_chunk`` is kept for the JAX package's signature: there it aligns
-    the handoff so that few tail lengths compile; here every frame is the
-    same call, so where the head ends changes no result.
+    the handoff so that few tail lengths compile; here every frame is a call
+    of the same captured step, so where the head ends changes no result.
 
     Returns (final PipelineState, StepOutput over ALL frames).
     """
@@ -113,7 +143,7 @@ def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: Frame
     k = 0
     while k < min(max_init_frames, T):
         frame = tree_map(lambda a: a[k], frames)
-        ps, out = pipeline_step(cfg, ps, frame)
+        ps, out = call(_entry(cfg), _step(cfg), ps, frame, graph=graph)
         outs.append(out)
         k += 1
         if bool(out.initialized):

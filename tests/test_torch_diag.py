@@ -244,6 +244,31 @@ def test_trace_analyzer_maps_replays_by_position_only_where_names_match():
     assert res["eager"] is None and res["captured"]["stages"]["fe.orb"]["ops"] == 1
 
 
+def test_trace_analyzer_maps_a_replay_short_of_records():
+    """A replay that lacks a run of records, every other one in order, maps
+    onto a full replay of the same graph, its missing records counted with
+    the device records of other launches inside its span; a replay with a
+    foreign record in place of its own stays unmapped."""
+    step = [("pyr_k", "fe.pyramid"), ("lk_track_kernel", "fe.lk"), ("glue", None),
+            ("orb_describe_kernel", "fe.orb"), ("qr", "filt.marginalize"), ("zupt_k", "filt.zupt")]
+    names = [n for n, _ in step] + ["copy", "copy"]
+    short = names[:1] + names[3:]  # two records missing at operation 1
+    ev = _device_trace(step, [names, short, names])
+    res = ta.breakdown(ev)
+    assert not res["rows"]["unmapped"] and res["captured"]["frames"] == 3
+    assert res["short"] == [(1, 1, 2, 0)] and "replay 1 mapped short of 2 records at operation 1" in res["note"]
+    assert ta.kernel_stages(res, "orb_describe_kernel", "captured") == {"fe.orb": 3}
+    assert ta.kernel_stages(res, "lk_track_kernel", "captured") == {"fe.lk": 2}
+    # a record of another launch inside the short replay's span is counted
+    lo = min(e["ts"] for e in ev if e["name"] == "orb_describe_kernel" and e["ts"] > 5000.0 + 10 * len(step) + 10 * len(names))
+    ev.append({"ph": "X", "cat": "kernel", "name": "stray", "pid": 1, "tid": 7, "ts": lo + 1.0, "dur": 1.0,
+               "args": {"correlation": 10_000}})
+    assert ta.breakdown(ev)["short"] == [(1, 1, 2, 1)]
+    odd = names[:1] + ["other"] + names[3:]
+    res = ta.breakdown(_device_trace(step, [names, odd]))
+    assert res["note"].startswith("1 of 2 replays not mapped") and not res["short"]
+
+
 def test_nan_check_holds_outputs_under_their_masks():
     chk = NanCheck()
     x = torch.tensor([[1.0, float("nan")], [2.0, 3.0]])

@@ -17,7 +17,11 @@ host call (``cudaGraphLaunch``), so its operations carry no stage: they are
 mapped by position onto an eager step's operations, and only where the
 replay's sequence starts with that step's sequence name for name (the rest
 of a replay is the graph's own tail: the output clones and the copy into
-the static state). Names are compared after folding the variants one
+the static state). A replay whose records match a step's except for a run
+of missing ones (the rest in order) is mapped too, the missing ones
+counted with the device records of other launches that lie inside its
+span: none there means the profiler dropped them, not that they went to
+another launch. Names are compared after folding the variants one
 operation launches as (``op_key``): a copy or fill is a graph node
 (``memcpy32_post``, ``memset32``) in a replay and a runtime call (``Memcpy
 DtoD``, ``Memset``) in an eager step, and an elementwise kernel's vector
@@ -56,6 +60,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from larvio_tpu_torch.core.stages import STAGES, STEP  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+MAX_GAP = 64  # the longest run of missing records a replay is mapped across
 HOST_API = "cuda_"  # category prefix of the host's CUDA API calls (runtime and lower level)
 GRAPH_LAUNCH = ("cudaGraphLaunch", "cuGraphLaunch")
 UNATTRIBUTED = "unattributed"
@@ -163,10 +168,21 @@ def _host_breakdown(events) -> dict:
     return {"mode": "host", "eager": sec, "rows": {"eager": rows}}
 
 
+def _gap(names: list, full: list):
+    """(position, count) of the one run of records that ``names`` (a
+    replay's) lacks against ``full`` (a mapped replay's of the same graph,
+    its tail included), every other record in order, or None."""
+    d = len(full) - len(names)
+    if not 0 < d <= MAX_GAP:
+        return None
+    i = next((j for j, (a, b) in enumerate(zip(names, full)) if a != b), len(names))
+    return (i, d) if names[i:] == full[i + d:] else None
+
+
 def breakdown(events, references=None) -> dict:
     """Per-stage totals of a trace's events (``load``). Returns ``{"mode":
     "device" or "host", "eager": section, "captured": section or None,
-    "outside_ms", "gaps_ms", "references", "note", "rows"}``; a section holds
+    "outside_ms", "gaps_ms", "references", "note", "short", "rows"}``; a section holds
     per-frame ``ms``, ``ops``, ``attributed_share`` and ``stages`` ({stage:
     {"ms", "ops", "share"}}, with ``unattributed`` and, for replays, ``graph
     tail``), over the mapped replays where any map; ``rows`` holds the
@@ -203,17 +219,35 @@ def breakdown(events, references=None) -> dict:
     if references is None:
         references = [[(r[0], r[1]) for r in sorted(steps[k], key=lambda r: r[2])]
                       for k in sorted(steps, key=lambda k: min(r[2] for r in steps[k]))]
-    captured, note = None, ""
+    captured, note, short = None, "", []
     mapped, unmapped, first_diff = [], [], ""
     if replays:
         ref_keys = [[op_key(n) for n, _ in r] for r in references]
-        for corr in sorted(replays, key=lambda c: min(op[1] for op in replays[c])):
-            ops = sorted(replays[corr], key=lambda op: op[1])
-            names = [op_key(op[0]) for op in ops]
+        order = sorted(replays, key=lambda c: min(op[1] for op in replays[c]))
+        seqs = [sorted(replays[c], key=lambda op: op[1]) for c in order]
+        keys = [[op_key(op[0]) for op in ops] for ops in seqs]
+        stages = {}  # replay index -> the stage of each of its records
+        for idx, names in enumerate(keys):
             ref = next((r for r, k in zip(references, ref_keys) if names[:len(k)] == k), None)
             if ref is not None:
-                stages = [st for _, st in ref] + [GRAPH_TAIL] * (len(ops) - len(ref))
-                mapped.append([(n, s, ts, dur) for (n, ts, dur), s in zip(ops, stages)])
+                stages[idx] = [st for _, st in ref] + [GRAPH_TAIL] * (len(names) - len(ref))
+        full = [(keys[i], stages[i]) for i in sorted(stages)]
+        starts = sorted(float(e["ts"]) for e in dev)
+        for idx, names in enumerate(keys):
+            if idx in stages:
+                continue
+            for tmpl, tmpl_stages in full:  # a replay short of a run of records
+                gap = _gap(names, tmpl)
+                if gap:
+                    i, d = gap
+                    lo, hi = seqs[idx][0][1], max(ts + dur for _, ts, dur in seqs[idx])
+                    inside = bisect.bisect_right(starts, hi) - bisect.bisect_left(starts, lo) - len(names)
+                    short.append((idx, i, d, inside))
+                    stages[idx] = tmpl_stages[:i] + tmpl_stages[i + d:]
+                    break
+        for idx, (ops, names) in enumerate(zip(seqs, keys)):
+            if idx in stages:
+                mapped.append([(n, s, ts, dur) for (n, ts, dur), s in zip(ops, stages[idx])])
                 continue
             unmapped.append([(n, UNATTRIBUTED, ts, dur) for n, ts, dur in ops])
             if not first_diff and references:
@@ -226,6 +260,10 @@ def breakdown(events, references=None) -> dict:
             note = (f"{len(unmapped)} of {len(replays)} replays not mapped onto an eager step"
                     + (first_diff or ": no eager step to map them onto")
                     + ("; the stages of the replays are those of the mapped ones" if mapped else ""))
+        if short:
+            note += ("; " if note else "") + "; ".join(
+                f"replay {i} mapped short of {d} records at operation {p} (every other record in order; "
+                f"{n} device records of other launches inside its span)" for i, p, d, n in short)
         # the mapped replays alone, where there are any (a replay whose records
         # came short or misattributed matches no step)
         chosen = mapped or unmapped
@@ -237,7 +275,7 @@ def breakdown(events, references=None) -> dict:
     return {"mode": "device", "eager": _section(eager_rows, len(steps)) if steps else None,
             "captured": captured, "outside_ms": sum(o[2] for o in outside) / 1e3 / n_frames,
             "gaps_ms": _gaps_us([r for v in rows.values() for r in v]) / 1e3 / n_frames,
-            "references": references, "note": note, "rows": rows}
+            "references": references, "note": note, "short": short, "rows": rows}
 
 
 def kernel_stages(res: dict, fragment: str, section: str = "eager") -> Counter:
