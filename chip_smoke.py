@@ -111,7 +111,18 @@ Phases, each raising on failure (the script then exits non-zero):
    every lane's health, lane 0's SLAM engagement and its ATE against the
    single path's, that the NaN lane holds no SLAM slot on its reset frames,
    the fleet metrics and that every frame launched K3 and the batched
-   describe kernel once for all lanes, and no one-lane kernel;
+   describe kernel once for all lanes, ``lane_mm`` and ``lane_trsm`` once
+   per call of ``core/linalg.py::mm_lanes`` and ``solve_tri_lanes``
+   (``LANE_LAUNCHES_PER_STEP``), and no one-lane kernel;
+4d. the fleet at 256 lanes: phase 4's workload for ``B_WIDE`` = 256
+   instances (lane b with the image noise of seed b, the last lane with the
+   NaN accelerometer samples), captured once, with phase 4's gates on every
+   lane and its launch gate; lanes 0-6 against phase 4's lanes 0-6 within
+   the sharded-vs-vmapped bands (ROADMAP F5: batched cuBLAS products that
+   fold the lanes with the slots round a lane by the fleet's width), the
+   first frame that differs printed; ms per batched frame, instance-frames/s, the capture and the
+   reserved memory, and (last of all) one profile window of the captured
+   step: device operations and busy ms per batched frame;
 4b. the pure-MSCKF configuration (``max_slam_features=0``, D = 142): the
    single path of phase 3 and the 8-lane fleet of phase 4 with the same
    gates, SLAM aside, one captured run each;
@@ -128,10 +139,16 @@ Phases, each raising on failure (the script then exits non-zero):
    metrics and the ``all_reduce`` in one graph) against its eager one over
    the last 10 frames, bit for bit, with both times per frame;
 5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
-   version at the same shapes; then host launch calls per frame, device
+   version at the same shapes; ``lane_mm`` and ``lane_trsm`` on the
+   operands of every call of one eager fleet step (frame 60) at 8 and at
+   256 lanes, each call held to its plain version (the per-lane cuBLAS
+   loop; f32 tolerance ``LANE_RTOL``), the kernel, the plain version and the
+   library call (``torch.matmul``, ``torch.linalg.solve_triangular``) timed
+   as captured graphs of one frame's calls, the kernel's device time per
+   call site; then host launch calls per frame, device
    busy time and idle share of the eager main path and fleet, square-root
    and Joseph, and of the captured square-root ones, under
-   ``torch.profiler`` over frames 60-64, reached by replays (last: a
+   ``torch.profiler`` over frames 60-62, reached by replays (last: a
    process that has run ``torch.profiler`` launches every later kernel more
    slowly); each eager window's device time per stage
    (``tools/torch_trace_analyze.py``, the gates of 3j's profile), the
@@ -144,8 +161,9 @@ reserved memory. On the card every path but the eager runs of phases 3,
 3g and 4 replays a captured step, so a kernel's wrapper runs only while a
 step is captured (and in the capture's eager warm-up steps); ``launches``
 in the kernels line is the main path's (phase 3's, phase 4's for the
-batched kernels) captured run: its replays times the launches its capture
-recorded.
+batched kernels, phase 4's and 4d's for ``lane_mm`` / ``lane_trsm`` and
+their ``_b256`` rows) captured run: its replays times the launches its
+capture recorded.
 
 Each kernel's line carries its own device time per launch (``ms``, from
 ``torch.profiler``'s device events of its ``__global__`` over 100-200
@@ -154,6 +172,10 @@ launches), the time a caller pays per wrapper call, host work included
 (the larger of the bytes it must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs) and
 ``library_ms`` (null: no one PyTorch call computes LK or the descriptor).
+The lane kernels' rows are one batched frame's calls: ``ms`` the sum of the
+kernel's device time over them, ``call_ms``, ``plain_ms`` and
+``library_ms`` the replay of one frame's calls captured as a graph, the
+bound from their summed bytes and operations.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -167,8 +189,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -191,6 +214,8 @@ from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.ops import cuda_lib
 from larvio_tpu_torch.ops.cuda_lib import kernel_launches
+from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
+from larvio_tpu_torch.core import linalg
 from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
 from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
@@ -221,6 +246,8 @@ PATCH, ITERS, PREC = 15, 12, 0.01
 PAETH_MS_GATE = 10.0  # ms per 752x480 Paeth-row frame on the card's host
 F_MAIN = 200
 B_FLEET = 8
+B_WIDE = 256  # phase 4d: the fleet at the width the north star names (BASELINE.json:5)
+SHARD_BAND_HEAD, SHARD_BAND = 1.5e-2, 3e-2  # m, frames < 60 and all (tests/test_fleet.py:133-134)
 ATE_GATE = 0.05  # m; see PERF.md for the reference figures behind it
 TRACKS_GATE = 80  # mean tracked features over initialized frames (of 200 slots)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth
@@ -636,16 +663,231 @@ def phase_timing(timings):
     return [t.row for t in timings]
 
 
+LANE_FRAME = 60  # the fleet frame whose lane_mm / lane_trsm operands phase 5 records (initialized, no NaN yet)
+LANE_RTOL = 1e-5  # lane_mm: of |A| @ |B|; lane_trsm: of |A^-1| |A| |X| (twice: two backward-stable solves)
+
+
+@dataclass
+class _LaneCall:
+    """One ``mm_lanes`` / ``solve_tri_lanes`` call of a fleet step: the
+    kernel, its call site, the operands (as the step passed them: broadcast
+    and transposed views kept) and the upper flag of a solve."""
+
+    kernel: str
+    site: str
+    a: torch.Tensor
+    b: torch.Tensor
+    lanes: int
+    upper: bool = False
+
+    def run(self):
+        if self.kernel == "lane_mm":
+            return lane_mm(self.a, self.b, self.lanes)
+        return lane_solve_triangular(self.a, self.b, self.upper, self.lanes)
+
+    def plain(self):
+        """The per-lane cuBLAS loop (``mm_per_lane``) or one
+        ``solve_triangular`` per lane."""
+        if self.kernel == "lane_mm":
+            return linalg.mm_per_lane(self.a, self.b, self.lanes)
+        a, b = self.a.expand(*self.b.shape[:-2], *self.a.shape[-2:]), self.b
+        return torch.stack([torch.linalg.solve_triangular(x, y, upper=self.upper)
+                            for x, y in zip(a.unbind(0), b.unbind(0))])
+
+    def library(self):
+        """One PyTorch call: ``torch.matmul`` (cuBLAS batched) or
+        ``torch.linalg.solve_triangular``."""
+        if self.kernel == "lane_mm":
+            return torch.matmul(self.a, self.b)
+        return torch.linalg.solve_triangular(self.a, self.b, upper=self.upper)
+
+    def work(self):
+        """(bytes, f32 operations): each distinct operand element read once
+        (a broadcast axis once, a solve's triangle only), the output written
+        once; 2 M N K per product, n^2 W per solve."""
+        def distinct(t):
+            return int(np.prod([n for n, st in zip(t.shape, t.stride()) if st != 0]))
+        if self.kernel == "lane_mm":
+            M, K, N = self.a.shape[-2], self.a.shape[-1], self.b.shape[-1]
+            batch = int(np.prod(torch.broadcast_shapes(self.a.shape[:-2], self.b.shape[:-2])))
+            return 4 * (distinct(self.a) + distinct(self.b) + batch * M * N), 2 * batch * M * N * K
+        n, W = self.b.shape[-2:]
+        batch = int(np.prod(self.b.shape[:-2]))
+        return 4 * (batch * n * (n + 1) // 2 + distinct(self.b) + batch * n * W), batch * n * n * W
+
+    def gate(self, got, plain) -> float:
+        """Holds ``got`` to ``plain`` (LANE_RTOL, both finite where the plain
+        one is); returns max |got - plain| over those elements."""
+        ok = torch.isfinite(plain)
+        assert torch.isfinite(got[ok]).all().item(), f"{self.kernel} at {self.site}: non-finite where the plain is finite"
+        if self.kernel == "lane_mm":
+            scale = torch.matmul(self.a.double().abs(), self.b.double().abs())
+        else:  # Skeel's bound of two backward-stable solves: 2 |A^-1| |A| |X|
+            A = self.a.double().expand(*self.b.shape[:-2], *self.a.shape[-2:])
+            eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape)
+            A_inv = torch.linalg.solve_triangular(A, eye, upper=self.upper)
+            scale = 2 * A_inv.abs() @ (A.abs() @ plain.double().abs())
+        d = (got.double() - plain.double()).abs()
+        bad = ok & ~(d <= LANE_RTOL * scale)
+        assert not bad.any().item(), (f"{self.kernel} at {self.site}: {int(bad.sum())} elements beyond "
+                                      f"{LANE_RTOL} of the plain version's scale (max |d| {float(d[ok].max()):.3e})")
+        return float(d[ok].max()) if ok.any().item() else 0.0
+
+
+def _record_lane_calls(cfg, run: FleetRun, k: int = LANE_FRAME) -> list:
+    """Every ``lane_mm`` / ``lane_trsm`` call of the eager fleet step at
+    frame ``k`` of ``run``'s frames (from the state its captured step
+    reaches there), with its operands."""
+    start = run.state_at(k)
+    calls = []
+
+    def site():  # the caller of mm_lanes / solve_tri_lanes
+        f = [f for f in traceback.extract_stack() if os.path.basename(f.filename) != "chip_smoke.py"
+             and f.name not in ("mm_lanes", "solve_tri_lanes", "mm_per_lane", "solve_tri_plain", "<lambda>")][-1]
+        return f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+
+    def rec_mm(a, b, lanes):
+        calls.append(_LaneCall("lane_mm", site(), a, b, lanes))
+        return lane_mm(a, b, lanes)
+
+    def rec_trsm(A, B, upper, lanes):
+        calls.append(_LaneCall("lane_trsm", site(), A, B, lanes, upper))
+        return lane_solve_triangular(A, B, upper, lanes)
+
+    linalg.lane_mm, linalg.lane_solve_triangular = rec_mm, rec_trsm
+    try:
+        pipeline_step(cfg, start, tree_map(lambda a: a[k], run.frames))
+    finally:
+        linalg.lane_mm, linalg.lane_solve_triangular = lane_mm, lane_solve_triangular
+    torch.cuda.synchronize()
+    return calls
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time per call of fn() without the host: ``reps`` calls
+    captured as one CUDA graph, its replay timed with CUDA events (the gaps
+    between launches included)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / reps
+
+
+def _lane_device_ms(calls: list, kernel: str, reps: int = 20) -> list:
+    """Device time per launch of each call's ``__global__`` (``kernel``):
+    every call launched once per round, ``reps`` rounds under
+    ``torch.profiler``, the device events matched to the calls by their
+    order on the stream (a window that lost events is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        for c in calls:
+            c.run()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for c in calls:
+                    c.run()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name),
+                     key=lambda e: e.time_range.start)
+        if len(evs) == reps * len(calls):
+            n = len(calls)
+            return [sum(e.time_range.elapsed_us() for e in evs[i::n]) / 1e3 / reps for i in range(n)]
+    raise RuntimeError(f"profiler saw {len(evs)} launches of {kernel}, {reps * len(calls)} made")
+
+
+def phase_lane_kernels(runs: dict, card: str) -> list:
+    """Phase 5's ``lane_mm`` and ``lane_trsm``: the operands of every call of
+    one eager fleet step (frame ``LANE_FRAME``) at each width of ``runs``
+    ({B: FleetRun}), each call held to its plain version (the per-lane
+    loop) with ``LANE_RTOL``, then timed: the kernel, the plain version and
+    the library call (``torch.matmul``, ``torch.linalg.solve_triangular``)
+    each as a captured graph of one frame's calls (``_graph_ms``: device
+    time, no host). Returns each (kernel, width)'s JSON row and its
+    per-call rows, whose device times ``lane_device_rows`` fills in after
+    the CUDA-event windows of every kernel (the profiler slows later
+    launches)."""
+    out = []
+    for B, run in runs.items():
+        calls = _record_lane_calls(run.cfg, run)
+        for kernel in ("lane_mm", "lane_trsm"):
+            cs = [c for c in calls if c.kernel == kernel]
+            assert len(cs) == LANE_LAUNCHES_PER_STEP[run.cfg][kernel], f"{kernel}: {len(cs)} calls in a step"
+            err = 0.0
+            for c in cs:
+                got, plain = c.run(), c.plain()
+                torch.cuda.synchronize()
+                err = max(err, c.gate(got, plain))
+            n_bytes, n_ops = (sum(x) for x in zip(*(c.work() for c in cs)))
+            bound_ms, bound_by = _bound(n_bytes, n_ops)
+            row = {"name": kernel if B == B_FLEET else f"{kernel}_b{B}", "route": "cuda",
+                   "source": "larvio_tpu_torch/csrc/lane_mm.cu",
+                   "replaces": ("larvio_tpu/core/linalg.py:22" if kernel == "lane_mm" else "larvio_tpu/core/linalg.py:282"),
+                   "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "call_ms": _graph_ms(lambda: [c.run() for c in cs], 10),
+                   "plain_ms": _graph_ms(lambda: [c.plain() for c in cs], 2 if B > B_FLEET else 5),
+                   "library_ms": _graph_ms(lambda: [c.library() for c in cs], 10),
+                   "launches": run.launches[kernel]}
+            per = []
+            for c in cs:
+                b_, o_ = c.work()
+                per.append({"site": c.site, "shape": f"{tuple(c.a.shape)} {tuple(c.b.shape)}",
+                            "library_ms": _graph_ms(c.library, 10), "bound_ms": _bound(b_, o_)[0]})
+            out.append((B, kernel, row, cs, per))
+            print(f"{row['name']} (B = {B}): {len(cs)} calls per batched frame, each within {LANE_RTOL} of its "
+                  f"plain version (max |d| {err:.3e}); per frame: kernel {row['call_ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms (captured graphs); bound "
+                  f"{bound_ms:.6f} ms ({bound_by}); on {card}", flush=True)
+    return out
+
+
+def lane_device_rows(lane: list, card: str) -> list:
+    """The device times of ``phase_lane_kernels``' calls (``ms``: the sum
+    over one frame's calls), one line per call site; returns the JSON rows."""
+    rows = []
+    for B, kernel, row, cs, per in lane:
+        dev_ms = _lane_device_ms(cs, f"{kernel}_kernel")
+        row["ms"] = sum(dev_ms)
+        for p, ms in zip(per, dev_ms):
+            print(f"  {row['name']} at {p['site']} {p['shape']}: kernel {ms:.5f} ms per launch, "
+                  f"library {p['library_ms']:.5f} ms, bound {p['bound_ms']:.6f} ms", flush=True)
+        print(f"{row['name']}: kernel {row['ms']:.4f} ms on the device per batched frame ({len(cs)} launches), "
+              f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}) on {card}", flush=True)
+        rows.append(row)
+    return rows
+
+
 def _reset_counts():
     lk_track_cuda.launches = lk_track_cuda.launches_batched = 0
     describe.launches = describe.launches_batched = 0
+    lane_mm.launches = lane_solve_triangular.launches = 0
 
 
-def _launch_gate(launches: dict, T: int, label: str, batched: bool = False) -> None:
-    """One launch per frame of the path's two kernels, none of the other two."""
+def _launch_gate(launches: dict, T: int, label: str, batched: bool = False, cfg=None) -> None:
+    """One launch per frame of the path's two front-end kernels, none of the
+    other two; a fleet path (``batched``, configuration ``cfg``) launches
+    ``lane_mm`` and ``lane_trsm`` once per call of ``mm_lanes`` and
+    ``solve_tri_lanes`` (``LANE_LAUNCHES_PER_STEP`` per batched frame), a
+    single path neither."""
     names = ("lk_track_batched", "orb_describe_batched") if batched else ("lk_track", "orb_describe")
+    lanes = LANE_LAUNCHES_PER_STEP[cfg] if batched else {}
     for name, n in launches.items():
-        want = T if name in names else 0
+        want = T if name in names else T * lanes.get(name, 0)
         assert n == want, f"{label}: {name} {n} kernel launches in {T} frames ({want} expected)"
 
 
@@ -713,7 +955,7 @@ def _eager_vs_captured(cfg, ps, frames, label: str, batched: bool = False,
         else:
             res, wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames, graph=graph))
             captured = launches
-        _launch_gate(launches, T, f"{label} ({mode})", batched)
+        _launch_gate(launches, T, f"{label} ({mode})", batched, cfg)
         ref = res if ref is None else ref
         assert _bits_equal(res, ref), f"{label}: a {mode} run differs from the first {order[0]} run"
         ms[mode].append(1e3 * wall / T)
@@ -1286,7 +1528,31 @@ def phase_diagnostics(dev, cfg, card, tmp: str, root: str, traj: str, frames, gr
     print(f"native CSV loader: the tree's three CSVs ({rows} rows) equal np.loadtxt bit for bit", flush=True)
 
 
-def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path", compare=True):
+@dataclass
+class FleetRun:
+    """What a fleet phase leaves for later phases: its configuration and
+    initial state, the launches of its captured run, its (T, B, ...) frames,
+    the captured step, the outputs, the final state and the states
+    ``state_at`` reached."""
+
+    cfg: VioConfig
+    ps0: object
+    launches: dict
+    frames: FrameInput
+    graph: object
+    outs: object
+    state: object
+    at: dict = field(default_factory=dict)
+
+    def state_at(self, k: int):
+        """The state before frame ``k`` (``_state_at``), kept for the next caller."""
+        if k not in self.at:
+            self.at[k] = _state_at(self.graph, self.ps0, self.frames, k)
+        return self.at[k]
+
+
+def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path",
+                compare=True) -> FleetRun:
     """B instances through one batched image step per frame. ``compare``:
     one eager and one captured run, equal bit for bit (the NaN lane
     included; phase 3i's turns time the fleet eager and captured); else one
@@ -1321,8 +1587,9 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
         graph = _capture(cfg, ps, frames)
         (_, outs), wall, launches = _replayed(graph, lambda: run_fleet_image_sequence(cfg, ps, frames,
                                                                                       graph=graph))
-        _launch_gate(launches, T, label, batched=True)
+        _launch_gate(launches, T, label, batched=True, cfg=cfg)
         how = f"captured {1e3 * wall / T:.3f} ms per batched frame"
+    state = graph.state()  # after the captured run's last frame
 
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}  # (T, B, ...)
     gt_p = data["gt_p"]
@@ -1347,15 +1614,57 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
     assert np.array_equal(fm["n_initialized"], o["initialized"].astype(np.int64).sum(1))
     assert np.array_equal(fm["n_resets"], o["did_reset"].astype(np.int64).sum(1))
     assert np.array_equal(fm["mean_tracks"], o["n_tracks"].astype(np.int64).sum(1))
-    print(f"{label}: {B} lanes x {T} frames; lanes 0-{B - 2}: 0 resets, ATE "
-          f"{', '.join(f'{x:.5f}' for x in ates)} m, mean n_tracks "
-          f"{', '.join(f'{x:.1f}' for x in tracks)}{slam}; lane 0 vs single-instance ATE "
+    if B > B_FLEET:
+        ate_s = f"{min(ates):.5f}-{max(ates):.5f} (mean {np.mean(ates):.5f})"
+        tracks_s = f"{min(tracks):.1f}-{max(tracks):.1f}"
+    else:
+        ate_s, tracks_s = ", ".join(f"{x:.5f}" for x in ates), ", ".join(f"{x:.1f}" for x in tracks)
+    print(f"{label}: {B} lanes x {T} frames; lanes 0-{B - 2}: 0 resets, ATE {ate_s} m, mean n_tracks "
+          f"{tracks_s}{slam}; lane 0 vs single-instance ATE "
           f"{abs(ates[0] - single_ate):.6f} m; lane {B - 1} (NaN accel): {n_resets_bad} resets, "
           f"no SLAM slot on them, {n_init_bad} initialized frames, finite; fleet metrics match",
           flush=True)
+    per = LANE_LAUNCHES_PER_STEP[cfg]
     print(f"{label} throughput: {B * T / wall:.3f} instance-frames/s aggregate (captured); {how}; one "
-          f"K3 and one batched describe launch per frame, no one-lane launch; on {card}", flush=True)
-    return launches, frames, graph
+          f"K3 and one batched describe launch per frame, {per['lane_mm']} lane_mm and {per['lane_trsm']} "
+          f"lane_trsm, no one-lane launch; on {card}", flush=True)
+    return FleetRun(cfg, ps, launches, frames, graph, outs, state)
+
+
+def phase_fleet_wide(dev, cfg, data, imgs, single_ate, card, narrow: FleetRun) -> FleetRun:
+    """Phase 4d: ``B_WIDE`` lanes of phase 4's workload (lane b with the
+    image noise of seed b, the last lane with NaN accelerometer samples),
+    captured, with phase 4's gates for every lane. Lanes 0-6 see phase 4's
+    lanes' frames. ROADMAP F5: batched cuBLAS products whose batch folds the
+    lanes with the slots round a lane by its width and place, so they are
+    held to the sharded-vs-vmapped bands (``tests/test_fleet.py:133-143``:
+    masks equal, positions within 1.5e-2 m over the first 60 frames and
+    3e-2 m after), and the first frame that differs is printed."""
+    t0 = time.perf_counter()
+    n0, mem0 = CACHE.captures, torch.cuda.memory_reserved()
+    run = phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_WIDE, label=f"fleet B = {B_WIDE}",
+                      compare=False)
+    peak = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()  # the eager warm-up steps' blocks: the graph's pool and the live tensors stay
+    k = B_FLEET - 1  # phase 4's lanes 0-6; its lane 7 is its NaN lane
+    wide, ref = ({key: getattr(o, key)[:, :k].cpu().numpy() for key in _OUT_KEYS} for o in (run.outs, narrow.outs))
+    for key in ("initialized", "did_reset"):
+        assert np.array_equal(wide[key], ref[key]), f"fleet B = {B_WIDE}: lanes 0-{k - 1}' {key} differs from phase 4's"
+    d = np.abs(wide["p"] - ref["p"])
+    head, worst = float(d[:60].max()), float(d.max())
+    assert head < SHARD_BAND_HEAD and worst < SHARD_BAND, \
+        f"fleet B = {B_WIDE}: lanes 0-{k - 1} {head:.3e} m (first 60 frames) / {worst:.3e} m from phase 4's"
+    same = [t for t in range(d.shape[0]) if not all(np.array_equal(wide[key][t], ref[key][t]) for key in _OUT_KEYS)]
+    bits = ("equal bit for bit" if not same else
+            f"equal bit for bit up to frame {same[0] - 1}, then within the bands (ROADMAP F5)")
+    print(f"fleet B = {B_WIDE} (phase 4d): lanes 0-{k - 1} against the {B_FLEET}-lane fleet's: masks equal, "
+          f"max |dp| {head:.3e} m (first 60 frames), {worst:.3e} m (all; bands {SHARD_BAND_HEAD}, {SHARD_BAND}); "
+          f"{bits}; {CACHE.captures - n0} capture; memory reserved {peak / 2 ** 30:.3f} GiB after the run "
+          f"({(peak - mem0) / 2 ** 30:+.3f}), {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB without the cached "
+          f"free blocks ({(torch.cuda.memory_reserved() - mem0) / 2 ** 30:+.3f}: the frames, the outputs and the "
+          f"graph's pool), max {torch.cuda.max_memory_reserved() / 2 ** 30:.3f}; {time.perf_counter() - t0:.1f} s "
+          f"on {card}", flush=True)
+    return run
 
 
 def _image_run(dev, cfg, frames, label: str):
@@ -1628,6 +1937,13 @@ def phase_f2(dev, card):
 # Phase 3i: the Joseph (dense covariance) path, FilterConfig(sqrt_form=False)
 # (bench.py --joseph's configuration), full width, single and fleet.
 JOSEPH = VioConfig(filter=FilterConfig(sqrt_form=False))
+PURE = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM slots
+# lane_mm and lane_trsm launches per batched frame: one per
+# core/linalg.py::mm_lanes and solve_tri_lanes call of a fleet step
+# (tests/test_torch_lane_mm.py counts the calls on the CPU)
+LANE_LAUNCHES_PER_STEP = {VioConfig(): {"lane_mm": 30, "lane_trsm": 4},
+                          PURE: {"lane_mm": 18, "lane_trsm": 3},
+                          JOSEPH: {"lane_mm": 80, "lane_trsm": 4}}
 PARITY_REL = 0.3  # |ATE_sqrt - ATE_joseph| < 0.3 max(ATE_joseph, 0.01) (tests/test_sqrt_filter.py:97-100)
 PARITY_ATE_GATE = 0.2  # m, both forms (tests/test_sqrt_filter.py:95)
 STD_RATIO = (0.75, 1.35)  # median sqrt/Joseph p_std and v_std, last 60 frames (tests/test_sqrt_filter.py:106-116)
@@ -1758,9 +2074,9 @@ def phase_joseph(dev, data, imgs, sqrt_ate, card):
     print(f"Joseph main path ATE {ate:.5f} m beside the square-root main path's {sqrt_ate:.5f} m: "
           f"|d| {abs(sqrt_ate - ate):.5f} m < {PARITY_REL} x max(ATE_joseph, 0.01); the captured step "
           f"holds a dense ({D}, {D}) P", flush=True)
-    _, fleet_frames, fleet_graph = phase_fleet(dev, cfg, data, imgs, ate, card, label="Joseph fleet",
-                                               compare=False)
-    assert fleet_graph.state().vio.filter.P.shape == (B_FLEET, D, D)
+    fleet = phase_fleet(dev, cfg, data, imgs, ate, card, label="Joseph fleet", compare=False)
+    fleet_frames, fleet_graph = fleet.frames, fleet.graph
+    assert fleet.state.vio.filter.P.shape == (B_FLEET, D, D)
     phase_bench(dev, card, joseph=True)
     figs = run_joseph_features(dev)
     parity_check(figs["parity"])
@@ -1817,7 +2133,6 @@ def phase_turns(runs: dict, card: str):
             + f" (eager over frames {lo}-{hi - 1}) on {card}", flush=True)
 
 
-SHARD_BAND_HEAD, SHARD_BAND = 1.5e-2, 3e-2  # m, frames < 60 and all (tests/test_fleet.py:133-134)
 SHARD_GT_GATE = 0.25  # m from each lane's own ground truth (tests/test_fleet.py:143)
 
 
@@ -1940,7 +2255,7 @@ def phase_sharded_graph(dev, cfg, data, ref_outs, card):
 _REGIONS = frozenset((*STAGES, STEP))
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                       "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
-PROFILE_WINDOW = (60, 65)  # frames profiled, after the filter initialized
+PROFILE_WINDOW = (60, 63)  # frames profiled, after the filter initialized
 
 
 def _profile_window(step, lo: int, hi: int, trace: str | None = None):
@@ -1970,6 +2285,19 @@ def _profile_window(step, lo: int, hi: int, trace: str | None = None):
     busy = sum(e.time_range.elapsed_us() for e in ops)
     span = max(e.time_range.end for e in ops) - min(e.time_range.start for e in ops)
     return len(host) / n, len(ops) / n, busy / 1e3 / n, 1.0 - busy / max(span, 1e-9)
+
+
+def phase_profile_wide(run: FleetRun, card: str) -> None:
+    """Phase 4d's device figures, last: the captured ``B_WIDE``-lane step
+    over ``PROFILE_WINDOW`` under ``torch.profiler`` (host launch calls,
+    device operations, busy ms and idle share per batched frame)."""
+    lo, hi = PROFILE_WINDOW
+    run.graph.load(run.state_at(lo))
+    host, ops, busy, idle = _profile_window(lambda k: run.graph.replay(tree_map(lambda a: a[k], run.frames)), lo, hi)
+    dev_part = (f"{ops:.1f} device operations, device busy {busy:.3f} ms, idle share {idle:.4f}"
+                if busy is not None else "no device events recorded (device time not measured)")
+    print(f"profile fleet B = {B_WIDE} (captured, frames {lo}-{hi - 1}): {host:.1f} host launch calls, "
+          f"{dev_part} per batched frame on {card}", flush=True)
 
 
 def phase_profile(cfg, frames, ps0, graph, label: str, card: str, tmp: str, modes=("eager", "captured")):
@@ -2093,17 +2421,19 @@ def main() -> int:
     clock("3h")
     j_main, j_fleet = phase_joseph(dev, data, imgs, ate, card)
     clock("3i")
-    fleet_launches, fleet_frames, fleet_graph = phase_fleet(dev, cfg, data, imgs, ate, card)
+    fleet = phase_fleet(dev, cfg, data, imgs, ate, card)
     clock("4")
-    launches.update({k: v for k, v in fleet_launches.items() if k.endswith("_batched")})
-    ps_single, ps_fleet = init_pipeline_state(cfg, dev), init_fleet_pipeline_state(cfg, B_FLEET, dev)
+    wide = phase_fleet_wide(dev, cfg, data, imgs, ate, card, fleet)
+    clock("4d")
+    launches.update({k: v for k, v in fleet.launches.items() if k.endswith("_batched")})
+    ps_single = init_pipeline_state(cfg, dev)
     runs = {("single", "sqrt"): (cfg, ps_single, main_frames, main_graph),
             ("single", "Joseph"): (JOSEPH, init_pipeline_state(JOSEPH, dev), *j_main),
-            ("fleet B = 8", "sqrt"): (cfg, ps_fleet, fleet_frames, fleet_graph),
+            ("fleet B = 8", "sqrt"): (cfg, fleet.ps0, fleet.frames, fleet.graph),
             ("fleet B = 8", "Joseph"): (JOSEPH, init_fleet_pipeline_state(JOSEPH, B_FLEET, dev), *j_fleet)}
     phase_turns(runs, card)
     clock("3i turns")
-    pure = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM slots
+    pure = PURE
     # one captured run each: the default configuration's phases compared
     # eager and captured runs (keeps the command under 600 s)
     _, pure_ate, _, _ = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", compare=False)
@@ -2111,7 +2441,10 @@ def main() -> int:
     clock("4b")
     phase_sharded(dev, card)
     clock("4c")
+    lane = phase_lane_kernels({B_FLEET: fleet, B_WIDE: wide}, card)
+    torch.cuda.empty_cache()
     kernels = phase_timing(timings)
+    kernels += lane_device_rows(lane, card)
     clock("5 kernels")
     phase_cli_profile(card, tmp, tree)
     clock("3j profile")
@@ -2120,6 +2453,7 @@ def main() -> int:
     for (width, form), (cfg_, ps0, frames_, graph_) in runs.items():
         phase_profile(cfg_, frames_, ps0, graph_, f"{form} {'main path' if width == 'single' else 'fleet path'}",
                       card, tmp, modes=("eager", "captured") if form == "sqrt" else ("eager",))
+    phase_profile_wide(wide, card)
     clock("5 profiles")
     tmp_dir.cleanup()
     print("command time per phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in clock.spans.items()), flush=True)
@@ -2130,7 +2464,7 @@ def main() -> int:
           f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB (max {torch.cuda.max_memory_reserved() / 2 ** 30:.3f})",
           flush=True)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k.setdefault("launches", launches.get(k["name"]))
     print(f"command time {time.perf_counter() - t_start:.1f} s after the kernel build", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,13 +14,16 @@ every select stays on the device.
 
 The Joseph (dense covariance) path's pieces, ``qr_compress`` and
 ``joseph_update``, take one instance or a fleet: ``lanes`` counts the
-leading lane axes, and the products whose batch would fold them run per
-lane (``mm_lanes``), so a lane's bits do not depend on the fleet's width.
+leading lane axes, and the products and triangular solves whose batch would
+fold them keep the lanes apart (``mm_lanes``, ``solve_tri_lanes``), so a
+lane's bits do not depend on the fleet's width.
 """
 
 from __future__ import annotations
 
 import torch
+
+from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -41,16 +44,27 @@ def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def mm_lanes(a: torch.Tensor, b: torch.Tensor, lanes: int) -> torch.Tensor:
-    """``mm`` as one product per index of the first ``lanes`` axes (a
-    fleet's lane axis; 0 for one instance, which is one ``mm``). Both
-    operands carry those axes; the other leading axes broadcast as in
-    ``mm``. cuBLAS picks a batched product's kernel, and how it splits a
-    long sum, by the batch count, and ``mm`` folds the lanes into the batch:
-    a lane's bits would change with the number of lanes beside it (a fleet
-    of 8 against two ranks of 4). Per lane, every call has one instance's
-    shape, so every lane gets the bits of a single instance."""
+    """``mm`` with the first ``lanes`` axes (a fleet's lane axes; 0 for one
+    instance, which is one ``mm``) kept apart: a lane's bits do not depend
+    on the number of lanes beside it. Both operands carry those axes; the
+    other leading axes broadcast as in ``mm``. cuBLAS picks a batched
+    product's kernel, and how it splits a long sum, by the batch count, so
+    folding the lanes into ``mm``'s batch would change a lane's bits with
+    the fleet's width (a fleet of 8 against two ranks of 4, ROADMAP F4).
+    CUDA tensors take one ``lane_mm`` launch for all lanes (every element
+    summed in a fixed order, ``csrc/lane_mm.cu``); CPU tensors take the
+    plain version, ``mm_per_lane``."""
     if lanes == 0:
         return mm(a, b)
+    if a.device.type == "cpu":
+        return mm_per_lane(a, b, lanes)
+    return lane_mm(a, b, lanes)
+
+
+def mm_per_lane(a: torch.Tensor, b: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``mm_lanes``'s plain version: one ``mm`` per index of the first
+    ``lanes`` axes, so every call has one instance's shape and every lane
+    gets a single instance's bits."""
     lane_shape = a.shape[:lanes]
     if b.shape[:lanes] != lane_shape:
         raise ValueError(f"mm_lanes: lane axes {tuple(lane_shape)} and {tuple(b.shape[:lanes])}")
@@ -58,6 +72,28 @@ def mm_lanes(a: torch.Tensor, b: torch.Tensor, lanes: int) -> torch.Tensor:
     b = b.reshape(-1, *b.shape[lanes:])
     out = torch.stack([mm(x, y) for x, y in zip(a.unbind(0), b.unbind(0))])
     return out.reshape(*lane_shape, *out.shape[1:])
+
+
+def solve_tri_lanes(A: torch.Tensor, B: torch.Tensor, upper: bool, lanes: int) -> torch.Tensor:
+    """``torch.linalg.solve_triangular(A, B, upper=upper)`` with the first
+    ``lanes`` axes kept apart, as ``mm_lanes``: PyTorch loops cuBLAS's trsm
+    over at most 8 matrices of 64 rows or more and calls the batched trsm
+    above 8, so a lane's bits would change between 8 lanes and 256. CUDA
+    tensors of a fleet take one ``lane_solve_triangular`` launch (one fixed
+    substitution order, ``csrc/lane_mm.cu``); one instance takes
+    ``torch.linalg.solve_triangular``, CPU tensors the plain version,
+    ``solve_tri_plain``."""
+    if lanes == 0:
+        return torch.linalg.solve_triangular(A, B, upper=upper)
+    if A.device.type == "cpu":
+        return solve_tri_plain(A, B, upper)
+    return lane_solve_triangular(A, B, upper, lanes)
+
+
+def solve_tri_plain(A: torch.Tensor, B: torch.Tensor, upper: bool) -> torch.Tensor:
+    """``solve_tri_lanes``'s plain version: ``torch.linalg.solve_triangular``
+    (on the CPU each matrix is solved on its own, whatever the batch)."""
+    return torch.linalg.solve_triangular(A, B, upper=upper)
 
 
 def symmetrize(P: torch.Tensor) -> torch.Tensor:
@@ -180,7 +216,8 @@ def psd_factor(M: torch.Tensor) -> torch.Tensor:
 
     Jacobi-normalized CholeskyQR2 on M^T, exactly as the JAX version. B is
     kept MATERIALIZED: the Gram-domain shortcut squares the conditioning and
-    measured noisy-20s ATE 0.043 -> 0.156 in the JAX package.
+    measured noisy-20s ATE 0.043 -> 0.156 in the JAX package. The leading
+    axes are a fleet's lanes (``solve_tri_lanes``).
     """
     D = M.shape[-2]
     G = symmetrize(mm(M, M.transpose(-1, -2)))
@@ -190,7 +227,7 @@ def psd_factor(M: torch.Tensor) -> torch.Tensor:
     eye = _eye_like(D, M)
     N = G / (ds[..., :, None] * ds[..., None, :])
     L1 = _chol_or_eye(symmetrize(N) + 3e-5 * eye)
-    B = torch.linalg.solve_triangular(L1, M / ds[..., :, None], upper=False)
+    B = solve_tri_lanes(L1, M / ds[..., :, None], False, M.dim() - 2)
     G2 = symmetrize(mm(B, B.transpose(-1, -2)))
     L2 = _chol_or_eye(G2 + 1e-6 * eye)
     S = ds[..., :, None] * mm(L1, L2)
@@ -242,14 +279,14 @@ def qr_compress(H: torch.Tensor, r: torch.Tensor, mode: str = "cholqr2", lanes: 
         # measurably degraded f32 filter accuracy in the JAX package
         # (noisy-20s ATE 0.043 -> 0.156). The N-wide solve and product below
         # are the price of the accuracy: B stays materialized.
-        Bt = torch.linalg.solve_triangular(R1.transpose(-1, -2), Ht, upper=False)  # (..., D, N) = B^T
+        Bt = solve_tri_lanes(R1.transpose(-1, -2), Ht, False, lanes)  # (..., D, N) = B^T
         G2 = symmetrize(mm_lanes(Bt, Bt.transpose(-1, -2), lanes))
         R2 = chol_nan(G2 + 1e-6 * eye).transpose(-1, -2)
         R2 = torch.where(torch.isnan(R2), eye, R2)
         H_c = mm_lanes(R2, R1, lanes)  # H = Q2 H_c with Q2 near-orthonormal
         # r_c = Q2^T r = R2^{-T} B^T r
         Btr = mm_lanes(Bt, r[..., None], lanes)  # (..., D, 1)
-        r_c = torch.linalg.solve_triangular(R2.transpose(-1, -2), Btr, upper=False)[..., 0]
+        r_c = solve_tri_lanes(R2.transpose(-1, -2), Btr, False, lanes)[..., 0]
         bad = (torch.isnan(r_c).any(dim=-1) | torch.isnan(H_c).flatten(-2).any(dim=-1))
         H_c = torch.where(bad[..., None, None], safe1, H_c)
         r_c = torch.where(bad[..., None], 0.0, r_c)
@@ -263,7 +300,7 @@ def qr_compress(H: torch.Tensor, r: torch.Tensor, mode: str = "cholqr2", lanes: 
     safe = torch.diag_embed(torch.sqrt(torch.clamp(dG, min=0.0) + eps[..., 0]))
     L = torch.where(torch.isnan(L), safe, L)
     Htr = mm_lanes(Ht, r[..., None], lanes)
-    r_c = torch.linalg.solve_triangular(L, Htr, upper=False)[..., 0]
+    r_c = solve_tri_lanes(L, Htr, False, lanes)[..., 0]
     r_c = torch.where(torch.isnan(r_c), 0.0, r_c)
     return L.transpose(-1, -2), r_c
 

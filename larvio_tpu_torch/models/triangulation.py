@@ -10,7 +10,7 @@ from typing import NamedTuple
 import torch
 
 from larvio_tpu_torch.config import VioConfig
-from larvio_tpu_torch.core.linalg import solve3
+from larvio_tpu_torch.core.linalg import mm_lanes, solve3
 from larvio_tpu_torch.core.quaternion import quat_to_rotation
 from larvio_tpu_torch.core.tree import take, take1
 
@@ -27,7 +27,8 @@ def camera_window(fs) -> CameraWindow:
     R_ci = quat_to_rotation(fs.q_ci)
     R_wi = quat_to_rotation(clones.q)
     R_cw = R_ci[..., None, :, :] @ R_wi
-    p_ic = -(R_ci.transpose(-1, -2) @ fs.t_ci[..., None])[..., 0]
+    # (lanes, 3, 3) x (lanes, 3, 1): cuBLAS's batched product rounds it by the fleet's width
+    p_ic = -mm_lanes(R_ci.transpose(-1, -2), fs.t_ci[..., None], fs.t_ci.dim() - 1)[..., 0]
     p_cw = clones.p + (R_wi.transpose(-1, -2) @ p_ic[..., None, :, None])[..., 0]
     return CameraWindow(R_cw=R_cw, p_cw=p_cw, valid=clones.valid)
 

@@ -18,7 +18,7 @@ import torch
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.chi2 import chi2_inv
 from larvio_tpu_torch.core.linalg import (chol_nan, householder_eliminate, inv_quadform, joseph_update, mm,
-                                         mm_lanes, psd_factor, qr_compress, symmetrize)
+                                         mm_lanes, psd_factor, qr_compress, solve_tri_lanes, symmetrize)
 from larvio_tpu_torch.core.quaternion import quat_multiply, quat_to_rotation, small_angle_quat
 from larvio_tpu_torch.core.so3 import skew
 from larvio_tpu_torch.core.tree import all_finite, take, where
@@ -233,7 +233,8 @@ def sqrt_update(S, H, r):
     T = mm(H, S)
     Tt = T.transpose(-1, -2)
     n = H.shape[-2]
-    Sy = mm(T, Tt) + torch.eye(n, dtype=S.dtype, device=S.device)
+    # (lanes, n, n): cuBLAS's batched product rounds it by the fleet's width
+    Sy = mm_lanes(T, Tt, T.dim() - 2) + torch.eye(n, dtype=S.dtype, device=S.device)
     chol = chol_nan(symmetrize(Sy))
     PHt = mm(S, Tt)  # (D, n)
     K = torch.cholesky_solve(PHt.transpose(-1, -2), chol).transpose(-1, -2)  # (D, n)
@@ -251,7 +252,7 @@ def sqrt_update_gram(S, Hw, rw, refactor: bool):
     A = symmetrize(mm(Tt, T)) + torch.eye(W, dtype=S.dtype, device=S.device)
     L = chol_nan(A)
     g = mm_lanes(Tt, rw[..., None], Tt.dim() - 2)  # (W, 1)
-    Y = torch.linalg.solve_triangular(L, torch.cat([S.transpose(-1, -2), g], dim=-1), upper=False)
+    Y = solve_tri_lanes(L, torch.cat([S.transpose(-1, -2), g], dim=-1), False, L.dim() - 2)
     Sn = Y[..., :D].transpose(-1, -2)
     dx = mm_lanes(Sn, Y[..., D:], Sn.dim() - 2)[..., 0]
     if refactor:

@@ -91,17 +91,31 @@ def library() -> ctypes.CDLL:
             vp, vp, i32, vp, vp, vp,  # pos, valid, n_feat per lane, pattern, out, stream
         ]
         lib.larvio_orb_describe.restype = i32
+        i64 = ctypes.c_longlong
+        lib.larvio_lane_mm.argtypes = [
+            vp, vp, vp, i32, vp, vp, vp,  # A, B, C, leading axes: sizes, A's strides, B's strides
+            i32, i32, i32, i64, i64, i64, i64,  # M, N, K, A's row/col strides, B's row/col strides
+            i32, i32, vp,  # the block's tile bm x bn, stream
+        ]
+        lib.larvio_lane_mm.restype = i32
+        lib.larvio_lane_trsm.argtypes = [
+            vp, vp, vp, i32, vp, vp, vp,  # A, B, X, leading axes: sizes, A's strides, B's strides
+            i32, i32, i32, i64, i64, i64, i64, vp,  # n, W, upper, A's and B's row/col strides, stream
+        ]
+        lib.larvio_lane_trsm.restype = i32
         _lib = lib
     return _lib
 
 
 def kernel_launches() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
+    from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
     from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
     from larvio_tpu_torch.ops.orb import describe
 
     return {"lk_track": lk_track_cuda.launches, "lk_track_batched": lk_track_cuda.launches_batched,
-            "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched}
+            "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched,
+            "lane_mm": lane_mm.launches, "lane_trsm": lane_solve_triangular.launches}
 
 
 def check(code: int, name: str) -> None:
@@ -116,3 +130,7 @@ def ptr_array(tensors):
 
 def int_array(values):
     return (ctypes.c_int * len(values))(*[int(v) for v in values])
+
+
+def int64_array(values):
+    return (ctypes.c_longlong * max(len(values), 1))(*[int(v) for v in values])

@@ -1,0 +1,163 @@
+"""The lane-batched float32 product and triangular solve on the card
+(``csrc/lane_mm.cu``).
+
+``lane_mm(a, b, lanes)`` is ``core/linalg.py::mm_lanes`` for CUDA tensors:
+``a`` (L..., b..., M, K) times ``b`` (L..., b..., K, N), the first ``lanes``
+axes (a fleet's lanes) on both operands, the other leading axes broadcast as
+in ``torch.matmul``, in ONE launch for all lanes. Each output element is
+summed over k in ascending order in one accumulator (see the kernel's
+header), so a lane's bits do not depend on the number of lanes beside it or
+its place among them (ROADMAP F4), as one cuBLAS call per lane promised
+before at a launch per lane. The plain version is that per-lane loop
+(``core/linalg.py::mm_per_lane``): on the card it sums in cuBLAS's order, so
+the two agree to float32 rounding, not bit for bit.
+
+``lane_solve_triangular(A, B, upper, lanes)`` is ``core/linalg.py::
+solve_tri_lanes`` for CUDA tensors: X = A^{-1} B for triangular A (lead...,
+n, n), B (lead..., n, W), one launch for all lanes, each element of X in one
+fixed order of substitution. PyTorch's ``solve_triangular`` loops cuBLAS's
+trsm for batches of at most 8 matrices of 64 rows or more and calls the
+batched trsm above 8, so a fleet's D x D solves gave a lane other bits at 8
+lanes than at 256. Its plain version is ``torch.linalg.solve_triangular``.
+
+Broadcast axes are passed as stride 0 and transposed views as they are:
+nothing is copied. The launch goes on the current stream with its arguments
+by value, so it can be captured in a CUDA graph. ``lane_mm.launches`` and
+``lane_solve_triangular.launches`` count the launches (they tick when the
+wrapper runs: in eager steps and while a step is captured, never in a
+replay). Non-CUDA or non-float32 operands are
+refused with an error; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from larvio_tpu_torch.ops import cuda_lib
+
+MAX_DIMS = 8  # LMM_MAX_DIMS in csrc/lane_mm.cu
+THREADS = 256  # LMM_THREADS
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def tile(M: int, N: int) -> tuple[int, int]:
+    """The block's (bm, bn) tile of C: powers of two covering M and N, halved
+    (the larger first) until bm * bn <= 256 threads. Depends on one lane's
+    shapes only, and the sum order does not depend on it at all."""
+    bm, bn = min(_pow2_at_least(M), THREADS), min(_pow2_at_least(N), THREADS)
+    while bm * bn > THREADS:
+        if bm >= bn:
+            bm //= 2
+        else:
+            bn //= 2
+    return bm, bn
+
+
+def _lead_dims(shape, sa, sb):
+    """(size, stride of A, stride of B) of the leading axes, axes of size 1
+    dropped and neighbours that one stride walks merged (fewer index
+    divisions in the kernel; the offsets are the same)."""
+    dims = []
+    for n, x, y in zip(shape, sa, sb):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == x * n and dims[-1][2] == y * n:
+            dims[-1] = (dims[-1][0] * n, x, y)
+        else:
+            dims.append((n, x, y))
+    return dims
+
+
+def _check_card(a, b, what: str) -> None:
+    for name, t in (("a", a), ("b", b)):
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be a float32 CUDA tensor, got {t.dtype} on {t.device}")
+
+
+def _lead(a, b, lanes, what: str):
+    """The leading axes of (a, b) broadcast, the views of both expanded to
+    them (stride 0 where broadcast), and those axes as ``_lead_dims``."""
+    for name, t in (("a", a), ("b", b)):
+        if t.dim() < lanes + 2:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} has no matrix after {lanes} lane axes")
+    if a.device != b.device:
+        raise ValueError(f"{what}: operands on {a.device} and {b.device}")
+    if lanes < 1 or a.shape[:lanes] != b.shape[:lanes]:
+        raise ValueError(f"{what}: lane axes {tuple(a.shape[:lanes])} and {tuple(b.shape[:lanes])} "
+                         f"({lanes} lane axes)")
+    lead = (*a.shape[:lanes], *torch.broadcast_shapes(a.shape[lanes:-2], b.shape[lanes:-2]))
+    ae, be = a.expand(*lead, *a.shape[-2:]), b.expand(*lead, *b.shape[-2:])
+    nl = len(lead)
+    dims = _lead_dims(lead, ae.stride()[:nl], be.stride()[:nl])
+    if len(dims) > MAX_DIMS:
+        raise ValueError(f"{what}: {len(dims)} leading axes after merging, at most {MAX_DIMS}")
+    return lead, ae, be, dims
+
+
+def _args(a, b, lanes):
+    """(the output's shape, the views of A and B the kernel reads, the
+    leading axes as (size, stride of A, stride of B), (M, N, K), the matrix
+    strides (A's row, A's column, B's row, B's column), the tile (bm, bn)):
+    what ``lane_mm`` passes to the kernel."""
+    M, K = a.shape[-2:]
+    K2, N = b.shape[-2:]
+    if K != K2:
+        raise ValueError(f"lane_mm: inner sizes {tuple(a.shape)} @ {tuple(b.shape)}")
+    lead, ae, be, dims = _lead(a, b, lanes, "lane_mm")
+    return ((*lead, M, N), ae, be, dims, (M, N, K),
+            (ae.stride(-2), ae.stride(-1), be.stride(-2), be.stride(-1)), tile(M, N))
+
+
+def lane_mm(a: torch.Tensor, b: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``a @ b`` over ``lanes`` lane axes, one kernel launch; see the module
+    docstring."""
+    _check_card(a, b, "lane_mm")
+    shape, ae, be, dims, (M, N, K), strides, (bm, bn) = _args(a, b, lanes)
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    code = cuda_lib.library().larvio_lane_mm(
+        ae.data_ptr(), be.data_ptr(), out.data_ptr(), len(dims),
+        *(cuda_lib.int64_array([d[i] for d in dims]) for i in range(3)), M, N, K, *strides, bm, bn,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_lib.check(code, "lane_mm")
+    lane_mm.launches += 1
+    return out
+
+
+lane_mm.launches = 0
+
+
+def _trsm_args(A, B, lanes):
+    """(X's shape, the views of A and B the kernel reads, the leading axes,
+    the matrix strides): what ``lane_solve_triangular`` passes to the
+    kernel."""
+    n = A.shape[-1]
+    if A.shape[-2] != n or B.shape[-2] != n:
+        raise ValueError(f"lane_solve_triangular: A {tuple(A.shape)} must be square and match B {tuple(B.shape)}")
+    lead, ae, be, dims = _lead(A, B, lanes, "lane_solve_triangular")
+    return ((*lead, n, B.shape[-1]), ae, be, dims,
+            (ae.stride(-2), ae.stride(-1), be.stride(-2), be.stride(-1)))
+
+
+def lane_solve_triangular(A: torch.Tensor, B: torch.Tensor, upper: bool, lanes: int) -> torch.Tensor:
+    """``torch.linalg.solve_triangular(A, B, upper=upper)`` over ``lanes``
+    lane axes, one kernel launch; see the module docstring."""
+    _check_card(A, B, "lane_solve_triangular")
+    shape, ae, be, dims, strides = _trsm_args(A, B, lanes)
+    out = torch.empty(shape, dtype=torch.float32, device=A.device)
+    if out.numel() == 0:
+        return out
+    code = cuda_lib.library().larvio_lane_trsm(
+        ae.data_ptr(), be.data_ptr(), out.data_ptr(), len(dims),
+        *(cuda_lib.int64_array([d[i] for d in dims]) for i in range(3)), shape[-2], shape[-1], int(upper),
+        *strides, torch.cuda.current_stream(A.device).cuda_stream)
+    cuda_lib.check(code, "lane_solve_triangular")
+    lane_solve_triangular.launches += 1
+    return out
+
+
+lane_solve_triangular.launches = 0

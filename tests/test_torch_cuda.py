@@ -238,7 +238,8 @@ def test_wrappers_reject_bad_inputs(dev):
 def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
     """Two lanes (the second with seeded image noise) through the fleet step,
     captured and replayed per frame: one K3 and one batched describe launch
-    per frame (replays times what the capture counted), no one-lane launch."""
+    per frame (replays times what the capture counted), no one-lane launch,
+    and the eager step's ``lane_mm`` and ``lane_trsm`` launches per frame."""
     data, imgs = seq
     B, T = 2, imgs.shape[0]
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -248,13 +249,19 @@ def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
     frames = FrameInput(image=bimgs, t=lanes("t_img"),
                         imu=ImuBatch(t=lanes("imu_t"), w=lanes("imu_w"), a=lanes("imu_a"), valid=lanes("imu_valid")))
     ps = init_fleet_pipeline_state(CFG, B, dev)
+    n0 = kernel_launches()
+    pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
+    # the eager step's lane_mm and lane_trsm launches
+    per_step = {k: kernel_launches()[k] - n0[k] for k in ("lane_mm", "lane_trsm")}
     graph = capture_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
     counts = kernel_launches()
     _, outs = run_fleet_image_sequence(CFG, ps, frames, graph=graph)
     torch.cuda.synchronize()
     assert kernel_launches() == counts  # the replays run no wrapper
     launches = {k: v * graph.replays for k, v in graph.launches_per_replay.items()}
-    assert launches == {"lk_track": 0, "lk_track_batched": T, "orb_describe": 0, "orb_describe_batched": T}
+    assert per_step["lane_mm"] > 0 and per_step["lane_trsm"] > 0
+    assert launches == {"lk_track": 0, "lk_track_batched": T, "orb_describe": 0, "orb_describe_batched": T,
+                        **{k: T * v for k, v in per_step.items()}}
     assert outs.p.shape == (T, B, 3) and torch.isfinite(outs.p).all().item()
     assert (outs.initialized.sum(0) >= 40).all().item() and int(outs.did_reset.sum()) == 0
 

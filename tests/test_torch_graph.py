@@ -19,7 +19,8 @@ The ``cuda`` cases need the card and skip here; there they hold the
 captured step to the eager one bit for bit over 40 frames (one instance and
 a fleet, with the launch accounting, in the square-root and the Joseph
 form), ``load`` / ``state`` and an injection mid-sequence, and a fleet lane
-at 8 and 4 lanes (both forms). They import no JAX:
+at 8 lanes against 4 (bit for bit) and against 256 (within the
+sharded-vs-vmapped bands, ROADMAP F5; both forms). They import no JAX:
 
     python -m pytest --noconftest tests/test_torch_graph.py -q -m cuda
 """
@@ -291,23 +292,29 @@ def card_frames(dev):
 def test_captured_equals_eager_on_card(dev, card_frames, lanes, form):
     """40 frames: the replayed step equals the eager step bit for bit, and
     the launches are the replays times what the capture counted (one K1 and
-    one describe per frame, or one K3 and one batched describe); in both
+    one describe per frame, or one K3 and one batched describe and the
+    eager step's ``lane_mm`` and ``lane_trsm`` launches, none for one
+    instance); in both
     covariance forms (the Joseph form's P a constant (D, D))."""
     cfg = FORMS[form]
     data, frames = card_frames
     ps = init_pipeline_state(cfg, dev)
     if lanes:
         frames, ps = _lanes(frames, lanes), init_fleet_pipeline_state(cfg, lanes, dev)
+    n0 = kernel_launches()
     eager = run_image_sequence(cfg, ps, frames, graph=False)
+    T = frames.t.shape[0]
+    # the eager step's lane_mm and lane_trsm launches
+    per_step = {k: (kernel_launches()[k] - n0[k]) // T for k in ("lane_mm", "lane_trsm")}
     graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
     before = kernel_launches()
     got = run_image_sequence(cfg, ps, frames, graph=graph)
     torch.cuda.synchronize()
     assert kernel_launches() == before  # replays do not run the wrappers
-    T = frames.t.shape[0]
     names = ("lk_track_batched", "orb_describe_batched") if lanes else ("lk_track", "orb_describe")
     per = {k: v for k, v in graph.launches_per_replay.items() if v}
-    assert per == dict.fromkeys(names, 1) and graph.replays == T
+    want = dict.fromkeys(names, 1) | {k: v for k, v in per_step.items() if v}
+    assert per == want and graph.replays == T and (per_step["lane_mm"] > 0) == bool(lanes)
     _assert_bits(got, eager)
     assert int(eager[1].initialized.sum()) >= 5 * max(lanes, 1)
 
@@ -338,17 +345,34 @@ def test_load_state_and_injection_on_card(dev, card_frames):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["sqrt", "joseph"])
-def test_fleet_lane_independent_of_width_on_card(dev, form):
-    """ROADMAP F4 on the card: lanes 0-3 of an 8-lane fleet equal a 4-lane
-    fleet bit for bit over 60 feature-level frames (the sharded fleet's 2
-    ranks of 4 against one process of 8), in both covariance forms."""
+@pytest.mark.parametrize("width", [4, 256])
+def test_fleet_lane_independent_of_width_on_card(dev, form, width):
+    """ROADMAP F4 on the card, over 60 feature-level frames of 8 seeded
+    sequences, in both covariance forms. ``width`` 4: lanes 0-3 of the
+    8-lane fleet equal a 4-lane fleet bit for bit (the sharded fleet's 2
+    ranks of 4 against one process of 8). ``width`` 256: the 8 sequences
+    tiled 32 times; ROADMAP F5 (batched cuBLAS products that fold the lanes
+    with the slots round a lane by the fleet's width and the lane's place)
+    holds every lane to the 8-lane fleet's lane of its sequence within the
+    sharded-vs-vmapped bands (``tests/test_fleet.py:133-134``: masks equal,
+    positions within 1.5e-2 m over the first 60 frames)."""
     cfg = FORMS[form]
     data = [Simulator(SimConfig(duration=3.0, pixel_noise=0.002, seed=100 + b), cfg).generate()
             for b in range(8)]
     feats, imu = make_frame_inputs({k: np.stack([d[k] for d in data], axis=1) for k in data[0]},
                                    device=dev)
     s8, o8 = run_sequence(cfg, init_fleet_state(cfg, 8, dev), feats, imu, graph=False)
-    s4, o4 = run_sequence(cfg, init_fleet_state(cfg, 4, dev),
-                          *tree_map(lambda a: a[:, :4].contiguous(), (feats, imu)), graph=False)
-    _assert_bits(tree_map(lambda a: a[:, :4], o8), o4)
-    _assert_bits(tree_map(lambda a: a[:4], s8), s4)
+    if width == 4:
+        s4, o4 = run_sequence(cfg, init_fleet_state(cfg, 4, dev),
+                              *tree_map(lambda a: a[:, :4].contiguous(), (feats, imu)), graph=False)
+        _assert_bits(tree_map(lambda a: a[:, :4], o8), o4)
+        _assert_bits(tree_map(lambda a: a[:4], s8), s4)
+        return
+    tiled = tree_map(lambda a: a.repeat(1, 32, *([1] * (a.dim() - 2))), (feats, imu))
+    _, o256 = run_sequence(cfg, init_fleet_state(cfg, 256, dev), *tiled, graph=False)
+    for j in range(32):
+        lanes = slice(8 * j, 8 * j + 8)
+        for key in ("initialized", "did_reset"):
+            assert torch.equal(getattr(o256, key)[:, lanes], getattr(o8, key)), f"copy {j}: {key}"
+        d = (o256.p[:, lanes] - o8.p).abs().max().item()
+        assert d < 1.5e-2, f"copy {j}: max |dp| {d:.3e} m"

@@ -1,6 +1,6 @@
 """The port's counterpart of ``bench.py``: the full image pipeline on one card.
 
-    python3 tools/torch_bench.py [--fleet B] [--joseph] [--device cuda]
+    python3 tools/torch_bench.py [--fleet B] [--frames N] [--joseph] [--device cuda]
 
 Prints ONE JSON line with ``bench.py``'s keys and metric names:
 ``{"metric": ..., "value": fps, "unit": "fps", "vs_baseline": fps / 200,
@@ -15,6 +15,11 @@ port's ``Renderer``, plus 2 gray levels of image noise (``2.0 * randn``).
 The noise comes from a seeded ``torch.Generator``: the same distribution as
 ``bench.py``'s ``jax.random`` draw, not the same numbers.
 
+``--frames N`` runs an N-frame workload (a simulation of N / 20 s) in
+place of 400: a fleet's frames are (N, B, 480, 752) float32 on the card,
+1.44 MB per instance-frame (at B = 256, 400 frames would be 148 GB; 100
+frames are 37 GB).
+
 ``--joseph`` benches the Joseph (dense covariance) form,
 ``FilterConfig(sqrt_form=False)``, as ``bench.py --joseph`` does: the same
 workload, ``_joseph`` appended to the metric's name.
@@ -28,7 +33,12 @@ host drifts within a call); ``value`` is the captured path's best fps (the
 default on the card), ``detail.eager_fps`` the eager path's, and the two
 runs' outputs must be equal bit for bit. On the CPU only the eager loop
 runs. One warm-up run first; best wall time of 3 per path (host clock
-around work that ends in a synchronize). The accuracy gate is
+around work that ends in a synchronize). On the card, last, one
+``torch.profiler`` window of 5 replays gives the device operations and
+busy ms per (batched) frame (``detail.device_ops_per_frame``,
+``detail.device_busy_ms_per_frame``), and ``detail`` carries the memory
+the process reserved (``memory_reserved_gib``, ``max_memory_reserved_gib``).
+The accuracy gate is
 ``bench.py``'s: ATE < 0.13 m, or the tool raises and prints no result.
 Needs a CUDA GPU unless ``--device cpu`` is asked for.
 """
@@ -49,6 +59,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from larvio_tpu_torch.config import FilterConfig, VioConfig  # noqa: E402
 from larvio_tpu_torch.core.device import card_numerics, resolve_device  # noqa: E402
+from larvio_tpu_torch.core.stages import STAGES, STEP  # noqa: E402
 from larvio_tpu_torch.core.tree import leaves, tree_map  # noqa: E402
 from larvio_tpu_torch.data.evaluate import ate_rmse  # noqa: E402
 from larvio_tpu_torch.data.render import render_sequence  # noqa: E402
@@ -97,12 +108,31 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_bench(fleet: int = 0, device="cuda", joseph: bool = False) -> dict:
+PROFILE_REPLAYS = 5
+
+
+def _profile_replays(graph, frames) -> tuple:
+    """(device operations, device busy ms) per replay of ``graph`` over the
+    first ``PROFILE_REPLAYS`` frames, under ``torch.profiler`` (the stage
+    regions' device-side spans are no operations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    regions = {*STAGES, STEP}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(PROFILE_REPLAYS):
+            graph.replay(tree_map(lambda a: a[k], frames))
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in regions]
+    return len(ops) / PROFILE_REPLAYS, sum(e.time_range.elapsed_us() for e in ops) / 1e3 / PROFILE_REPLAYS
+
+
+def run_bench(fleet: int = 0, device="cuda", joseph: bool = False, n_frames: int = N_FRAMES) -> dict:
     """The benchmark; returns ``bench.py``'s JSON object."""
     dev = resolve_device(device)
     card_numerics()
     cfg = VioConfig(filter=FilterConfig(sqrt_form=False)) if joseph else VioConfig()
-    data, frames = bench_workload(cfg, dev)
+    data, frames = bench_workload(cfg, dev, n_frames)
     T = frames.t.shape[0]
     if fleet:
         frames = tree_map(lambda a: a[:, None].expand(a.shape[0], fleet, *a.shape[1:]).contiguous(), frames)
@@ -136,12 +166,18 @@ def run_bench(fleet: int = 0, device="cuda", joseph: bool = False) -> dict:
         raise AssertionError(f"accuracy gate failed: ATE {ate}")
     wall = best["captured"] if graph else best["eager"]
     fps = (fleet or 1) * T / wall
+    extra = {}
+    if graph:  # last: a process that has run the profiler launches later kernels more slowly
+        ops, busy = _profile_replays(graph, frames)
+        extra = {"device_ops_per_frame": round(ops, 1), "device_busy_ms_per_frame": round(busy, 3),
+                 "memory_reserved_gib": round(torch.cuda.memory_reserved(dev) / 2 ** 30, 3),
+                 "max_memory_reserved_gib": round(torch.cuda.max_memory_reserved(dev) / 2 ** 30, 3)}
     metric = (f"synthetic_euroc_fleet_b{fleet}_aggregate_fps_per_chip" if fleet
               else "synthetic_euroc_image_pipeline_fps_per_chip") + ("_joseph" if joseph else "")
     return {"metric": metric, "value": round(fps, 2), "unit": "fps", "vs_baseline": round(fps / 200.0, 3),
             "detail": {"frames": int(T), "wall_s": round(wall, 3), "ate_m": round(float(ate), 4),
                        "noise": NOISE, "realtime_factor": round(fps / 20.0, 2), "captured": graph is not None,
-                       "eager_fps": round((fleet or 1) * T / best["eager"], 2),
+                       "eager_fps": round((fleet or 1) * T / best["eager"], 2), **extra,
                        "device": card_line() if dev.type == "cuda" else str(dev)}}
 
 
@@ -150,9 +186,11 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet", type=int, default=0, help="B instances through the batched step")
     ap.add_argument("--joseph", action="store_true",
                     help="the Joseph (dense covariance) form, as bench.py --joseph")
+    ap.add_argument("--frames", type=int, default=N_FRAMES,
+                    help=f"frames of the workload (default {N_FRAMES}; a fleet holds N x B frames on the card)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    print(json.dumps(run_bench(args.fleet, args.device, args.joseph)), flush=True)
+    print(json.dumps(run_bench(args.fleet, args.device, args.joseph, args.frames)), flush=True)
     return 0
 
 
