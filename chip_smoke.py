@@ -116,13 +116,14 @@ Phases, each raising on failure (the script then exits non-zero):
    (``LANE_LAUNCHES_PER_STEP``), and no one-lane kernel;
 4d. the fleet at 256 lanes: phase 4's workload for ``B_WIDE`` = 256
    instances (lane b with the image noise of seed b, the last lane with the
-   NaN accelerometer samples), captured once, with phase 4's gates on every
-   lane and its launch gate; lanes 0-6 against phase 4's lanes 0-6 within
-   the sharded-vs-vmapped bands (ROADMAP F5: batched cuBLAS products that
-   fold the lanes with the slots round a lane by the fleet's width), the
-   first frame that differs printed; ms per batched frame, instance-frames/s, the capture and the
-   reserved memory, and (last of all) one profile window of the captured
-   step: device operations and busy ms per batched frame;
+   NaN accelerometer samples, lane ``COPY_LANE`` with lane 0's frames),
+   captured once, with phase 4's gates on every lane and its launch gate;
+   lanes 0-6 equal phase 4's lanes 0-6 bit for bit (outputs and final
+   state: a lane's bits do not depend on the fleet's width, ROADMAP F5), and
+   the copy lane equals lane 0 bit for bit (nor on its place); ms per
+   batched frame, instance-frames/s, the capture and the reserved memory,
+   and (last of all) one profile window of the captured step: device
+   operations and busy ms per batched frame;
 4b. the pure-MSCKF configuration (``max_slam_features=0``, D = 142): the
    single path of phase 3 and the 8-lane fleet of phase 4 with the same
    gates, SLAM aside, one captured run each;
@@ -145,7 +146,7 @@ Phases, each raising on failure (the script then exits non-zero):
    loop; f32 tolerance ``LANE_RTOL``), the kernel, the plain version and the
    library call (``torch.matmul``, ``torch.linalg.solve_triangular``) timed
    as captured graphs of one frame's calls, the kernel's device time per
-   call site; then host launch calls per frame, device
+   call site (one line per site and shape); then host launch calls per frame, device
    busy time and idle share of the eager main path and fleet, square-root
    and Joseph, and of the captured square-root ones, under
    ``torch.profiler`` over frames 60-62, reached by replays (last: a
@@ -247,6 +248,7 @@ PAETH_MS_GATE = 10.0  # ms per 752x480 Paeth-row frame on the card's host
 F_MAIN = 200
 B_FLEET = 8
 B_WIDE = 256  # phase 4d: the fleet at the width the north star names (BASELINE.json:5)
+COPY_LANE = B_WIDE - 2  # phase 4d: a lane with lane 0's frames, far from it (the lane before the NaN lane)
 SHARD_BAND_HEAD, SHARD_BAND = 1.5e-2, 3e-2  # m, frames < 60 and all (tests/test_fleet.py:133-134)
 ATE_GATE = 0.05  # m; see PERF.md for the reference figures behind it
 TRACKS_GATE = 80  # mean tracked features over initialized frames (of 200 slots)
@@ -785,8 +787,9 @@ def _graph_ms(fn, reps: int) -> float:
 
 
 def _lane_device_ms(calls: list, kernel: str, reps: int = 20) -> list:
-    """Device time per launch of each call's ``__global__`` (``kernel``):
-    every call launched once per round, ``reps`` rounds under
+    """Device time per launch of each call's ``__global__`` (the events
+    whose name holds ``kernel``: each shape class's ``__global__`` carries
+    the wrapper's name): every call launched once per round, ``reps`` rounds under
     ``torch.profiler``, the device events matched to the calls by their
     order on the stream (a window that lost events is taken again)."""
     from torch.profiler import ProfilerActivity, profile
@@ -860,11 +863,16 @@ def lane_device_rows(lane: list, card: str) -> list:
     over one frame's calls), one line per call site; returns the JSON rows."""
     rows = []
     for B, kernel, row, cs, per in lane:
-        dev_ms = _lane_device_ms(cs, f"{kernel}_kernel")
+        dev_ms = _lane_device_ms(cs, kernel)
         row["ms"] = sum(dev_ms)
+        sites = {}  # (site, shapes) -> [calls, kernel ms, library ms, bound ms], in call order
         for p, ms in zip(per, dev_ms):
-            print(f"  {row['name']} at {p['site']} {p['shape']}: kernel {ms:.5f} ms per launch, "
-                  f"library {p['library_ms']:.5f} ms, bound {p['bound_ms']:.6f} ms", flush=True)
+            acc = sites.setdefault((p["site"], p["shape"]), [0, 0.0, 0.0, 0.0])
+            for i, x in enumerate((1, ms, p["library_ms"], p["bound_ms"])):
+                acc[i] += x
+        for (site, shape), (n, ms, lib, bound) in sites.items():
+            print(f"  {row['name']} at {site} {shape}: {n} calls, kernel {ms / n:.5f} ms per launch, "
+                  f"library {lib / n:.5f} ms, bound {bound / n:.6f} ms", flush=True)
         print(f"{row['name']}: kernel {row['ms']:.4f} ms on the device per batched frame ({len(cs)} launches), "
               f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
               f"({row['bound_by']}) on {card}", flush=True)
@@ -1552,15 +1560,17 @@ class FleetRun:
 
 
 def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet path",
-                compare=True) -> FleetRun:
+                compare=True, copies=()) -> FleetRun:
     """B instances through one batched image step per frame. ``compare``:
     one eager and one captured run, equal bit for bit (the NaN lane
     included; phase 3i's turns time the fleet eager and captured); else one
-    captured run."""
+    captured run. The lanes ``copies`` see lane 0's frames."""
     T = imgs.shape[0]
     bimgs = torch.empty((T, B, *imgs.shape[1:]), dtype=torch.float32, device=dev)
-    bimgs[:, 0] = imgs  # lane 0: the main path's frames unchanged
-    for b in range(1, B):  # 2-gray-level sensor noise of each lane's own seed
+    for b in range(B):  # lane 0: the main path's frames unchanged; the others with 2-gray-level
+        if b == 0 or b in copies:  # sensor noise of each lane's own seed
+            bimgs[:, b] = imgs
+            continue
         gen = torch.Generator(device=dev).manual_seed(b)
         bimgs[:, b] = imgs + 2.0 * torch.randn(imgs.shape, generator=gen, device=dev)
     a = np.repeat(data["imu_a"][:, None], B, axis=1)
@@ -1633,33 +1643,34 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
 
 def phase_fleet_wide(dev, cfg, data, imgs, single_ate, card, narrow: FleetRun) -> FleetRun:
     """Phase 4d: ``B_WIDE`` lanes of phase 4's workload (lane b with the
-    image noise of seed b, the last lane with NaN accelerometer samples),
-    captured, with phase 4's gates for every lane. Lanes 0-6 see phase 4's
-    lanes' frames. ROADMAP F5: batched cuBLAS products whose batch folds the
-    lanes with the slots round a lane by its width and place, so they are
-    held to the sharded-vs-vmapped bands (``tests/test_fleet.py:133-143``:
-    masks equal, positions within 1.5e-2 m over the first 60 frames and
-    3e-2 m after), and the first frame that differs is printed."""
+    image noise of seed b, the last lane with NaN accelerometer samples,
+    lane ``COPY_LANE`` with lane 0's frames), captured, with phase 4's gates
+    for every lane. Lanes 0-6 see phase 4's lanes' frames and must equal
+    them bit for bit, outputs and final state (a lane's bits do not depend
+    on the fleet's width: ROADMAP F5, closed); the copy lane must equal lane
+    0 bit for bit (nor on the lane's place)."""
     t0 = time.perf_counter()
     n0, mem0 = CACHE.captures, torch.cuda.memory_reserved()
     run = phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_WIDE, label=f"fleet B = {B_WIDE}",
-                      compare=False)
+                      compare=False, copies=(COPY_LANE,))
     peak = torch.cuda.memory_reserved()
     torch.cuda.empty_cache()  # the eager warm-up steps' blocks: the graph's pool and the live tensors stay
     k = B_FLEET - 1  # phase 4's lanes 0-6; its lane 7 is its NaN lane
-    wide, ref = ({key: getattr(o, key)[:, :k].cpu().numpy() for key in _OUT_KEYS} for o in (run.outs, narrow.outs))
-    for key in ("initialized", "did_reset"):
-        assert np.array_equal(wide[key], ref[key]), f"fleet B = {B_WIDE}: lanes 0-{k - 1}' {key} differs from phase 4's"
-    d = np.abs(wide["p"] - ref["p"])
-    head, worst = float(d[:60].max()), float(d.max())
-    assert head < SHARD_BAND_HEAD and worst < SHARD_BAND, \
-        f"fleet B = {B_WIDE}: lanes 0-{k - 1} {head:.3e} m (first 60 frames) / {worst:.3e} m from phase 4's"
-    same = [t for t in range(d.shape[0]) if not all(np.array_equal(wide[key][t], ref[key][t]) for key in _OUT_KEYS)]
-    bits = ("equal bit for bit" if not same else
-            f"equal bit for bit up to frame {same[0] - 1}, then within the bands (ROADMAP F5)")
-    print(f"fleet B = {B_WIDE} (phase 4d): lanes 0-{k - 1} against the {B_FLEET}-lane fleet's: masks equal, "
-          f"max |dp| {head:.3e} m (first 60 frames), {worst:.3e} m (all; bands {SHARD_BAND_HEAD}, {SHARD_BAND}); "
-          f"{bits}; {CACHE.captures - n0} capture; memory reserved {peak / 2 ** 30:.3f} GiB after the run "
+
+    def lanes(tree, sel, lead=1):  # lanes ``sel`` of (T, B, ...) outputs (lead 1) or (B, ...) states (lead 0)
+        return tree_map(lambda a: a[(slice(None),) * lead + (sel,)], tree)
+
+    for what, wide, ref in (("outputs", lanes(run.outs, slice(0, k)), lanes(narrow.outs, slice(0, k))),
+                            ("final state", lanes(run.state, slice(0, k), 0), lanes(narrow.state, slice(0, k), 0)),
+                            (f"lane {COPY_LANE}'s outputs", lanes(run.outs, COPY_LANE), lanes(run.outs, 0)),
+                            (f"lane {COPY_LANE}'s final state", lanes(run.state, COPY_LANE, 0), lanes(run.state, 0, 0))):
+        if not _bits_equal(wide, ref):
+            d = float((lanes(run.outs, slice(0, k)).p - lanes(narrow.outs, slice(0, k)).p).abs().max())
+            raise AssertionError(f"fleet B = {B_WIDE}: {what} differ from {'lane 0' if 'lane' in what else 'phase 4'}'s "
+                                 f"(lanes 0-{k - 1} against phase 4: max |dp| {d:.3e} m)")
+    print(f"fleet B = {B_WIDE} (phase 4d): lanes 0-{k - 1} equal the {B_FLEET}-lane fleet's bit for bit (outputs "
+          f"and final state), and lane {COPY_LANE} (lane 0's frames) equals lane 0 bit for bit; "
+          f"{CACHE.captures - n0} capture; memory reserved {peak / 2 ** 30:.3f} GiB after the run "
           f"({(peak - mem0) / 2 ** 30:+.3f}), {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB without the cached "
           f"free blocks ({(torch.cuda.memory_reserved() - mem0) / 2 ** 30:+.3f}: the frames, the outputs and the "
           f"graph's pool), max {torch.cuda.max_memory_reserved() / 2 ** 30:.3f}; {time.perf_counter() - t0:.1f} s "
@@ -1941,9 +1952,9 @@ PURE = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM s
 # lane_mm and lane_trsm launches per batched frame: one per
 # core/linalg.py::mm_lanes and solve_tri_lanes call of a fleet step
 # (tests/test_torch_lane_mm.py counts the calls on the CPU)
-LANE_LAUNCHES_PER_STEP = {VioConfig(): {"lane_mm": 30, "lane_trsm": 4},
-                          PURE: {"lane_mm": 18, "lane_trsm": 3},
-                          JOSEPH: {"lane_mm": 80, "lane_trsm": 4}}
+LANE_LAUNCHES_PER_STEP = {VioConfig(): {"lane_mm": 121, "lane_trsm": 4},
+                          PURE: {"lane_mm": 62, "lane_trsm": 3},
+                          JOSEPH: {"lane_mm": 166, "lane_trsm": 4}}
 PARITY_REL = 0.3  # |ATE_sqrt - ATE_joseph| < 0.3 max(ATE_joseph, 0.01) (tests/test_sqrt_filter.py:97-100)
 PARITY_ATE_GATE = 0.2  # m, both forms (tests/test_sqrt_filter.py:95)
 STD_RATIO = (0.75, 1.35)  # median sqrt/Joseph p_std and v_std, last 60 frames (tests/test_sqrt_filter.py:106-116)

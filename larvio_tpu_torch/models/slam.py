@@ -65,8 +65,10 @@ def _rot(R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _rot_each(R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """R_s x_s per row: R (..., S, 3, 3), x (..., S, 3)."""
-    return (R @ x[..., None])[..., 0]
+    """R_s x_s per row: R (..., S, 3, 3), x (..., S, 3); the axes before S
+    are a fleet's lanes, kept apart (``mm_lanes``: the batched product folds
+    them with the slots, ROADMAP F5)."""
+    return mm_lanes(R, x[..., None], R.dim() - 3)[..., 0]
 
 
 def slam_owned_rows(cfg: VioConfig, fs: FilterState) -> torch.Tensor:
@@ -318,7 +320,7 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
     P_idp_x = mm(T, P_fx - mm(A12, P_ae_rows[..., None, :, :]))  # (..., K, 3, W)
     Wn = mm(T, Rf_inv)  # noise-injection factor (sqrt of sigma2 W W^T)
     if sqrt:
-        P_idp = mm(P_idp_x, P_idp_x.transpose(-1, -2)) + sigma2 * mm(Wn, Wn.transpose(-1, -2))
+        P_idp = mm_lanes(P_idp_x, P_idp_x.transpose(-1, -2), nl) + sigma2 * mm(Wn, Wn.transpose(-1, -2))
     else:
         # dense: P_ff = E P E^T + sigma2 Rf^-1 Rf^-T (P_fx = -E P), then the
         # idp congruence T (P_ff - P_fae A^T - A P_fae^T + A P_aaee A^T) T^T

@@ -26,10 +26,11 @@ def camera_window(fs) -> CameraWindow:
     clones = fs.clones
     R_ci = quat_to_rotation(fs.q_ci)
     R_wi = quat_to_rotation(clones.q)
-    R_cw = R_ci[..., None, :, :] @ R_wi
-    # (lanes, 3, 3) x (lanes, 3, 1): cuBLAS's batched product rounds it by the fleet's width
-    p_ic = -mm_lanes(R_ci.transpose(-1, -2), fs.t_ci[..., None], fs.t_ci.dim() - 1)[..., 0]
-    p_cw = clones.p + (R_wi.transpose(-1, -2) @ p_ic[..., None, :, None])[..., 0]
+    nl = fs.t_ci.dim() - 1  # a fleet's lane axes
+    # cuBLAS's batched products round these by the fleet's width and the lane's place (F4, F5)
+    R_cw = mm_lanes(R_ci[..., None, :, :], R_wi, nl)
+    p_ic = -mm_lanes(R_ci.transpose(-1, -2), fs.t_ci[..., None], nl)[..., 0]
+    p_cw = clones.p + mm_lanes(R_wi.transpose(-1, -2), p_ic[..., None, :, None], nl)[..., 0]
     return CameraWindow(R_cw=R_cw, p_cw=p_cw, valid=clones.valid)
 
 
@@ -41,11 +42,25 @@ class TriangulationResult(NamedTuple):
     resid: torch.Tensor  # (K, C) raw per-observation residual norm
 
 
+def _normal_equations(J, r, lanes: int):
+    """J^T J (..., K, 3, 3) and J^T r (..., K, 3) of the Gauss-Newton step,
+    J (..., K, C, 2, 3) and r (..., K, C, 2) summed over the 2C rows. One
+    instance keeps the einsums; a fleet takes them as products over the
+    flattened rows, per lane (``mm_lanes``), since the einsums' batched
+    products fold the lanes with the features (ROADMAP F5)."""
+    if lanes == 0:
+        return torch.einsum("...nij,...nik->...jk", J, J), torch.einsum("...nij,...ni->...j", J, r)
+    Jf = J.flatten(-3, -2)  # (..., K, 2C, 3)
+    Jt = Jf.transpose(-1, -2)
+    return mm_lanes(Jt, Jf, lanes), mm_lanes(Jt, r.flatten(-2)[..., None], lanes)[..., 0]
+
+
 def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch, valid_batch):
     """uv_batch (..., K, C, 2), valid_batch (..., K, C) -> TriangulationResult
     (batched); cams and clone_frame (..., C) carry the same leading axes."""
     fcfg = cfg.filter
     lead, (K, C) = valid_batch.shape[:-2], valid_batch.shape[-2:]
+    nl = cams.valid.dim() - 1  # a fleet's lane axes (0: one instance)
     dtype, dev = uv_batch.dtype, uv_batch.device
     obs_valid = valid_batch & cams.valid[..., None, :]
     n_obs = torch.sum(obs_valid, dim=-1)
@@ -59,13 +74,14 @@ def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch,
 
     # relative poses anchor cam -> each cam j: R_ja = R_cw[j] R_a^T, t_ja = R_cw[j](p_a - p_j)
     R_cw = cams.R_cw[..., None, :, :, :]
-    R_ja = R_cw @ R_a.transpose(-1, -2)[..., :, None, :, :]  # (..., K, C, 3, 3)
-    t_ja = (R_cw @ (p_a[..., :, None, :] - cams.p_cw[..., None, :, :])[..., None])[..., 0]  # (..., K, C, 3)
+    # every product below folds the lanes with the features and clones: per lane (mm_lanes, F5)
+    R_ja = mm_lanes(R_cw, R_a.transpose(-1, -2)[..., :, None, :, :], nl)  # (..., K, C, 3, 3)
+    t_ja = mm_lanes(R_cw, (p_a[..., :, None, :] - cams.p_cw[..., None, :, :])[..., None], nl)[..., 0]  # (..., K, C, 3)
 
     ones = torch.ones((*lead, K, 1), dtype=dtype, device=dev)
     za_h = torch.cat([z_a, ones], dim=-1)  # (..., K, 3)
     # checkMotion: baseline orthogonal to the anchor ray
-    ray_w = (R_a.transpose(-1, -2) @ za_h[..., None])[..., 0]
+    ray_w = mm_lanes(R_a.transpose(-1, -2), za_h[..., None], nl)[..., 0]
     ray_w = ray_w / torch.linalg.norm(ray_w, dim=-1, keepdim=True)
     trans = take(cams.p_cw, latest, -2) - p_a
     ortho = trans - torch.sum(trans * ray_w, dim=-1, keepdim=True) * ray_w
@@ -75,7 +91,7 @@ def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch,
     Rl = take1(R_ja, latest, -3)
     tl = take1(t_ja, latest, -2)
     uvl = take1(uv_batch, latest, -2)
-    m = (Rl @ za_h[..., None])[..., 0]
+    m = mm_lanes(Rl, za_h[..., None], nl)[..., 0]
     a_vec = torch.stack([m[..., 0] - uvl[..., 0] * m[..., 2], m[..., 1] - uvl[..., 1] * m[..., 2]], dim=-1)
     b_vec = torch.stack([uvl[..., 0] * tl[..., 2] - tl[..., 0], uvl[..., 1] * tl[..., 2] - tl[..., 1]], dim=-1)
     depth0 = torch.sum(a_vec * b_vec, dim=-1) / torch.clamp(torch.sum(a_vec * a_vec, dim=-1), min=1e-12)
@@ -86,7 +102,7 @@ def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch,
 
     def raw_residuals(x):
         ab1 = torch.cat([x[..., :2], ones], dim=-1)  # (..., K, 3)
-        h = (R_ja @ ab1[..., :, None, :, None])[..., 0] + x[..., :, None, 2:3] * t_ja  # (..., K, C, 3)
+        h = mm_lanes(R_ja, ab1[..., :, None, :, None], nl)[..., 0] + x[..., :, None, 2:3] * t_ja  # (..., K, C, 3)
         h3 = torch.where(torch.abs(h[..., 2]) < 1e-8, 1e-8, h[..., 2])
         pred = h[..., :2] / h3[..., None]
         r = torch.where(mask2, pred - uv_batch, 0.0)
@@ -103,7 +119,7 @@ def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch,
             dim=-2,
         )  # (K, C, 2, 3)
         dhdx = torch.cat([R_ja[..., :, :2], t_ja[..., :, None]], dim=-1)  # (K, C, 3, 3)
-        J = torch.where(obs_valid[..., None, None], dpdh @ dhdx, 0.0)
+        J = torch.where(obs_valid[..., None, None], mm_lanes(dpdh, dhdx, nl), 0.0)
         return r, J
 
     r, J = residuals_jac(x0)
@@ -112,8 +128,7 @@ def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch,
     lam = torch.full((*lead, K), 1e-3, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     for _ in range(fcfg.tri_max_iterations):
-        JtJ = torch.einsum("...nij,...nik->...jk", J, J)
-        Jtr = torch.einsum("...nij,...ni->...j", J, r)
+        JtJ, Jtr = _normal_equations(J, r, nl)
         A = JtJ + lam[..., None, None] * torch.diag_embed(torch.diagonal(JtJ, dim1=-2, dim2=-1)) + 1e-9 * eye3
         x_new = x - solve3(A, Jtr)
         # stay on the physical (positive inverse depth) branch
@@ -133,7 +148,7 @@ def triangulate_batch(cfg: VioConfig, cams: CameraWindow, clone_frame, uv_batch,
     rho = x[..., 2]
     depth = 1.0 / torch.where(torch.abs(rho) < 1e-8, 1e-8, rho)
     p_anchor = torch.cat([x[..., :2], ones], dim=-1) * depth[..., None]
-    p_w = (R_a.transpose(-1, -2) @ p_anchor[..., None])[..., 0] + p_a
+    p_w = mm_lanes(R_a.transpose(-1, -2), p_anchor[..., None], nl)[..., 0] + p_a
 
     mean_err = torch.sqrt(cost / torch.clamp(n_obs.to(dtype), min=1.0))
     depth_ok = (depth > fcfg.tri_min_depth) & (depth < fcfg.tri_max_depth)

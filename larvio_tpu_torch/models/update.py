@@ -75,10 +75,12 @@ def _pose_jacobians(cfg: VioConfig, fs: FilterState, p_w, q_lin, p_lin, q_cur, p
     t_ci = fs.t_ci[..., None, None, :]
     R_wi_lin = quat_to_rotation(q_lin)[..., None, :, :, :]  # (1, N, 3, 3)
     R_wi_cur = quat_to_rotation(q_cur)[..., None, :, :, :]
+    nl = fs.time.dim()  # a fleet's lane axes
 
     def to_cam(R_wi, p_i):
-        p_ij = (R_wi @ (p_w[..., :, None, :] - p_i[..., None, :, :])[..., None])[..., 0]  # (K, N, 3)
-        return p_ij, p_ij @ R_ciT + t_ci
+        # products that fold the lanes with the features and clones: per lane (mm_lanes, F5)
+        p_ij = mm_lanes(R_wi, (p_w[..., :, None, :] - p_i[..., None, :, :])[..., None], nl)[..., 0]  # (K, N, 3)
+        return p_ij, mm_lanes(p_ij, R_ciT, nl) + t_ci
 
     p_ij, p_cj = to_cam(R_wi_lin, p_lin)
     _, p_cj_cur = to_cam(R_wi_cur, p_cur)
@@ -168,8 +170,8 @@ def feature_block(cfg: VioConfig, fs: FilterState, p_w, uv, row_mask, tri_valid)
     nb = fs.time.dim()
     eye = torch.eye(2 * C, dtype=H_o.dtype, device=dev)
     if cfg.filter.sqrt_form:
-        T = mm(H_o, fs.P[..., None, :, :])  # H in the factor basis
-        S = mm(T, T.transpose(-1, -2)) + sigma2 * eye
+        T = mm_lanes(H_o, fs.P[..., None, :, :], nb)  # H in the factor basis
+        S = mm_lanes(T, T.transpose(-1, -2), nb) + sigma2 * eye
     else:
         PHt = mm_lanes(fs.P[..., None, :, :], H_o.transpose(-1, -2), nb)
         S = mm_lanes(H_o, PHt, nb) + sigma2 * eye

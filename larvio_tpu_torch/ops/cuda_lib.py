@@ -95,12 +95,13 @@ def library() -> ctypes.CDLL:
         lib.larvio_lane_mm.argtypes = [
             vp, vp, vp, i32, vp, vp, vp,  # A, B, C, leading axes: sizes, A's strides, B's strides
             i32, i32, i32, i64, i64, i64, i64,  # M, N, K, A's row/col strides, B's row/col strides
-            i32, i32, vp,  # the block's tile bm x bn, stream
+            i32, i32, i32, vp,  # the shape class, a tiled block's ty x tx threads, stream
         ]
         lib.larvio_lane_mm.restype = i32
         lib.larvio_lane_trsm.argtypes = [
             vp, vp, vp, i32, vp, vp, vp,  # A, B, X, leading axes: sizes, A's strides, B's strides
-            i32, i32, i32, i64, i64, i64, i64, vp,  # n, W, upper, A's and B's row/col strides, stream
+            i32, i32, i32, i64, i64, i64, i64,  # n, W, upper, A's and B's row/col strides
+            i32, vp,  # columns of X per block, stream
         ]
         lib.larvio_lane_trsm.restype = i32
         _lib = lib

@@ -29,6 +29,9 @@ same way against ``torch.linalg.solve_triangular``. They import no JAX:
     python -m pytest --noconftest tests/test_torch_lane_mm.py -q -m cuda
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -84,6 +87,22 @@ SHAPES = {
     "joseph": lambda g, B: (_r(g, B, 160, 160), _r(g, B, 160, 160), 1),
     # two lane axes
     "two_lane_axes": lambda g, B: (_r(g, B, 3, 5, 7), _r(g, B, 3, 7, 4), 2),
+    # F5: triangulation's 3 x 3 and 3 x 1 products at batch (B, K, C), broadcast both ways
+    "tri_rotations": lambda g, B: (_r(g, B, 1, 20, 3, 3), _r(g, B, 48, 1, 3, 3), 1),
+    "tri_points": lambda g, B: (_r(g, B, 48, 20, 3, 3), _r(g, B, 48, 1, 3, 1), 1),
+    "tri_jacobian": lambda g, B: (_r(g, B, 48, 20, 2, 3), _r(g, B, 48, 20, 3, 3), 1),
+    # the Gauss-Newton normal equations J^T J, J^T r over the flattened 2C rows (transposed views)
+    "tri_normal": lambda g, B: (_r(g, B, 48, 40, 3).transpose(-1, -2), _r(g, B, 48, 40, 3), 1),
+    "tri_normal_rhs": lambda g, B: (_r(g, B, 48, 40, 3).transpose(-1, -2), _r(g, B, 48, 40, 1), 1),
+    # a 1-row product with 3 columns (Householder v^T A) and to_cam's (C, 3) x (3, 3)
+    "row_1x3": lambda g, B: (_r(g, B, 24, 1, 40), _r(g, B, 24, 40, 3), 1),
+    "to_cam": lambda g, B: (_r(g, B, 24, 20, 3), _r(g, B, 3, 3).transpose(-1, -2)[:, None], 1),
+    # the sqrt update's T = H_o P (P broadcast over the slots) and S = T T^T, GEMM shapes
+    "feature_T": lambda g, B: (_r(g, B, 24, 40, 160), _r(g, B, 160, 175)[:, None], 1),
+    "feature_S": lambda g, B: (_r(g, B, 24, 40, 175), _r(g, B, 24, 40, 175).transpose(-1, -2), 1),
+    # promotion's P_idp_x P_idp_x^T and the conditional init's H3 dx (a row-major matrix-vector, 3 rows)
+    "slam_idp": lambda g, B: (_r(g, B, 12, 3, 160), _r(g, B, 12, 3, 160).transpose(-1, -2), 1),
+    "slam_cond": lambda g, B: (_r(g, B, 12, 3, 160), _r(g, B, 160, 1)[:, None], 1),
 }
 
 
@@ -105,38 +124,109 @@ def test_plain_is_matmul_per_lane(name):
     assert _f64_gate(got, a, b), name
 
 
-def _emulate(ae, be, dims, mnk, strides):
-    """The kernel's address arithmetic in float64: block ``bidx``'s operands
-    at the offsets its leading-axis loop computes."""
+def _offsets(dims, bidx):
+    """The leading-axis loop of the kernels: batch index -> the operands'
+    offsets (numpy, vectorized)."""
+    rem, off_a, off_b = bidx.copy(), np.zeros_like(bidx), np.zeros_like(bidx)
+    for n, sa, sb in reversed(dims):
+        off_a, off_b, rem = off_a + (rem % n) * sa, off_b + (rem % n) * sb, rem // n
+    return off_a, off_b
+
+
+def _grid(kind, batch, M, N, ty, tx):
+    """(blocks, threads per block) that ``larvio_lane_mm`` launches."""
+    if kind == lane_mm_cuda.FLAT:
+        return -(-batch * M * N // 256), 256
+    if kind == lane_mm_cuda.ROWS:
+        return batch * -(-M // 32), 256
+    return batch * -(-M // (ty * lane_mm_cuda.TM)) * -(-N // (tx * lane_mm_cuda.TN)), ty * tx
+
+
+def _written(kind, batch, M, N, ty, tx):
+    """(batch index, row, column) of every output element a launch writes,
+    one entry per write, from the block and thread mapping of each shape
+    class in ``csrc/lane_mm.cu``."""
+    blocks, threads = _grid(kind, batch, M, N, ty, tx)
+    assert 1 <= threads <= 256
+    if kind == lane_mm_cuda.FLAT:  # thread -> C's element, row-major
+        e = np.arange(blocks * threads)
+        e = e[e < batch * M * N]
+        return e // (M * N), e % (M * N) // N, e % N
+    if kind == lane_mm_cuda.ROWS:  # block -> (batch index, 32-row group), the first warp's lane -> row
+        groups = -(-M // 32)
+        blk, lane = (x.reshape(-1) for x in np.meshgrid(np.arange(blocks), np.arange(32), indexing="ij"))
+        row = blk % groups * 32 + lane
+        ok = row < M
+        return blk[ok] // groups, row[ok], np.zeros(int(ok.sum()), dtype=np.int64)
+    BM, BN = ty * lane_mm_cuda.TM, tx * lane_mm_cuda.TN
+    assert BM <= lane_mm_cuda.TILE_MAX and BN <= lane_mm_cuda.TILE_MAX
+    tiles_m, tiles_n = -(-M // BM), -(-N // BN)
+    blk, t, i, j = (x.reshape(-1) for x in np.meshgrid(np.arange(blocks), np.arange(threads),
+                                                       np.arange(lane_mm_cuda.TM), np.arange(lane_mm_cuda.TN),
+                                                       indexing="ij"))
+    row = blk // tiles_n % tiles_m * BM + t // tx * lane_mm_cuda.TM + i
+    col = blk % tiles_n * BN + t % tx * lane_mm_cuda.TN + j
+    ok = (row < M) & (col < N)
+    return blk[ok] // (tiles_n * tiles_m), row[ok], col[ok]
+
+
+def _storage(t):
+    return torch.as_strided(t, (t.untyped_storage().nbytes() // t.element_size(),), (1,), 0).double()
+
+
+def _emulate(ae, be, dims, mnk, strides, plan, n_check=4096):
+    """The kernel's launch emulated in float64: which elements it writes
+    (each exactly once?) and, for ``n_check`` of them, the sum over k of the
+    operands at the addresses its threads compute. Returns (write counts
+    per element of C, checked flat indices, their values)."""
     M, N, K = mnk
     a_sm, a_sk, b_sk, b_sn = strides
-    out = []
-    for bidx in range(int(np.prod([d[0] for d in dims], dtype=np.int64))):
-        rem, off_a, off_b = bidx, 0, 0
-        for n, sa, sb in reversed(dims):
-            off_a, off_b, rem = off_a + (rem % n) * sa, off_b + (rem % n) * sb, rem // n
-        A = torch.as_strided(ae, (M, K), (a_sm, a_sk), ae.storage_offset() + off_a)
-        B = torch.as_strided(be, (K, N), (b_sk, b_sn), be.storage_offset() + off_b)
-        out.append(A.double() @ B.double())
-    return torch.stack(out)
+    batch = int(np.prod([d[0] for d in dims], dtype=np.int64))
+    bidx, i, j = _written(*plan[:1], batch, M, N, *plan[1:])
+    flat = (bidx * M + i) * N + j
+    counts = np.bincount(flat, minlength=batch * M * N)
+    pick = np.random.default_rng(0).permutation(len(flat))[:n_check]
+    bidx, i, j = bidx[pick], i[pick], j[pick]
+    off_a, off_b = _offsets(dims, bidx)
+    k = np.arange(K)
+    ia = ae.storage_offset() + off_a[:, None] + i[:, None] * a_sm + k * a_sk
+    ib = be.storage_offset() + off_b[:, None] + j[:, None] * b_sn + k * b_sk
+    vals = (_storage(ae)[torch.as_tensor(ia)] * _storage(be)[torch.as_tensor(ib)]).sum(-1)
+    return counts, flat[pick], vals
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 @pytest.mark.parametrize("B", [1, 3])
 def test_kernel_addressing(name, B):
     """What the wrapper passes (merged leading axes, stride 0 for broadcast
-    axes, the operands' own strides) reads every block's operands: the
-    emulated kernel equals float64 ``torch.matmul``; the tile covers the
-    output with at most 256 threads."""
+    axes, the operands' own strides, the shape class and tile of ``plan``)
+    makes the kernel write every output element exactly once, from the right
+    operands: the launch's block and thread mapping emulated in float64
+    equals float64 ``torch.matmul``."""
     a, b, lanes = SHAPES[name](torch.Generator().manual_seed(4), B)
-    shape, ae, be, dims, mnk, strides, (bm, bn) = lane_mm_cuda._args(a, b, lanes)
+    shape, ae, be, dims, mnk, strides, plan = lane_mm_cuda._args(a, b, lanes)
     want = torch.matmul(a.double(), b.double())
     assert tuple(shape) == tuple(want.shape) and len(dims) <= lane_mm_cuda.MAX_DIMS
-    got = _emulate(ae, be, dims, mnk, strides).reshape(shape)
-    assert torch.allclose(got, want, rtol=1e-12, atol=1e-12), name
-    M, N, _ = mnk
-    assert bm * bn <= 256 and bm & (bm - 1) == 0 and bn & (bn - 1) == 0
-    assert bm >= min(M, 256 // bn) and bn >= min(N, 256 // bm)
+    counts, flat, vals = _emulate(ae, be, dims, mnk, strides, plan)
+    assert (counts == 1).all(), (name, int(counts.min()), int(counts.max()))
+    assert torch.allclose(vals, want.reshape(-1)[torch.as_tensor(flat)], rtol=1e-12, atol=1e-12), name
+
+
+def test_plan_shape_classes():
+    """Each call-site shape takes its class: tiny, one-row, short and thin
+    products FLAT, matrix-vector products with K >= 128 ROWS, GEMMs TILED
+    with at most 256 threads and tiles of at most 128; the class depends on
+    one lane's shapes and strides alone (the batch is not an argument)."""
+    want = {"tri_rotations": 0, "tri_points": 0, "tri_jacobian": 0, "tri_normal": 0, "tri_normal_rhs": 0,
+            "row_1x3": 0, "householder": 0, "to_cam": 0, "gram_rhs": 1, "slam_idp": 0, "augment": 0,
+            "matvec": 0, "slam_cond": 1, "feature_T": 2, "feature_S": 2, "joseph": 2, "slam_gate": 0}
+    for name, kind in want.items():
+        *_, (got, ty, tx) = lane_mm_cuda._args(*SHAPES[name](torch.Generator().manual_seed(0), 2))
+        assert got == kind, name
+        if kind == lane_mm_cuda.TILED:
+            assert 1 <= ty * tx <= 256 and ty * lane_mm_cuda.TM <= 128 and tx * lane_mm_cuda.TN <= 128
+    assert lane_mm_cuda.plan(40, 175, 160, 160, 1) == (lane_mm_cuda.TILED, 10, 22)
+    assert lane_mm_cuda.plan(160, 160, 160, 160, 1) == (lane_mm_cuda.TILED, 14, 14)
 
 
 def test_lead_dims_merge_and_broadcast():
@@ -208,15 +298,32 @@ def test_tiled_fleet_lanes_equal_bit_for_bit():
     assert n_init == 3  # every lane initialized: the update paths ran
 
 
+# The F5 call sites: (file, function) of every mm_lanes call that took a
+# product whose batch folds the lanes with the slots, clones or observations
+# (camera_window's rotations, triangulation's products and normal equations,
+# the update's to_cam, T = H_o P and T T^T, promotion's P_idp_x P_idp_x^T,
+# the SLAM rotations of each slot's point)
+F5_SITES = {("triangulation.py", "camera_window"), ("triangulation.py", "triangulate_batch"),
+            ("triangulation.py", "raw_residuals"), ("triangulation.py", "residuals_jac"),
+            ("triangulation.py", "_normal_equations"), ("update.py", "to_cam"), ("update.py", "feature_block"),
+            ("slam.py", "promote_features"), ("slam.py", "_rot_each")}
+SLAM_ONLY = {("slam.py", "promote_features"), ("slam.py", "_rot_each")}
+
+
 def test_lane_calls_per_fleet_step(monkeypatch):
     """A fleet filter step of each configuration ``chip_smoke.py`` runs makes
     the ``mm_lanes`` and ``solve_tri_lanes`` calls (on the card: ``lane_mm``
     and ``lane_trsm`` launches) it expects per batched frame; a single
-    instance makes none with a lane axis."""
+    instance makes none with a lane axis. Every F5 site passes its lane
+    count: 1 in a fleet, 0 for one instance (which keeps ``torch.matmul``;
+    the normal equations keep their einsums there, so they call no
+    ``mm_lanes``)."""
     import chip_smoke
+    from larvio_tpu_torch.models import slam, triangulation, update
 
     calls = {"lane_mm": 0, "lane_trsm": 0}
     plain_mm, plain_tri = linalg.mm_per_lane, linalg.solve_tri_plain
+    seen = set()  # (file, function, lanes) of the F5 modules' mm_lanes calls
 
     def counted_mm(a, b, lanes):
         calls["lane_mm"] += 1
@@ -226,19 +333,56 @@ def test_lane_calls_per_fleet_step(monkeypatch):
         calls["lane_trsm"] += 1
         return plain_tri(A, B, upper)
 
+    def recorded(a, b, lanes):
+        f = sys._getframe(1)
+        seen.add((os.path.basename(f.f_code.co_filename), f.f_code.co_name, lanes))
+        return linalg.mm_lanes(a, b, lanes)
+
     # every mm_lanes / solve_tri_lanes call with a lane axis on the CPU
     monkeypatch.setattr(linalg, "mm_per_lane", counted_mm)
     monkeypatch.setattr(linalg, "solve_tri_plain", counted_tri)
+    for mod in (slam, triangulation, update):
+        monkeypatch.setattr(mod, "mm_lanes", recorded)
     for cfg, want in chip_smoke.LANE_LAUNCHES_PER_STEP.items():
         data = Simulator(SimConfig(duration=1.0), cfg).generate()
         feats, imu = make_frame_inputs({k: np.stack([data[k]] * 2, axis=1) for k in data
                                         if np.shape(data[k])[:1] == np.shape(data["t_img"])}, device="cpu")
         calls.update(lane_mm=0, lane_trsm=0)
+        seen.clear()
         fleet_step(cfg, init_fleet_state(cfg, 2, "cpu"), *tree_map(lambda a: a[0], (feats, imu)))
         assert calls == want, (cfg.filter, calls)
+        f5 = F5_SITES - (set() if cfg.filter.max_slam_features else SLAM_ONLY)
+        if not cfg.filter.sqrt_form:  # promotion's P_idp_x P_idp_x^T is the sqrt form's
+            f5 = f5 - {("slam.py", "promote_features")}
+        assert {(f, fn, 1) for f, fn in f5} <= seen and not any(n == 0 for *_, n in seen), seen
         calls.update(lane_mm=0, lane_trsm=0)
+        seen.clear()
         filter_step(cfg, init_vio_state(cfg, "cpu"), *tree_map(lambda a: a[0, 0], (feats, imu)))
         assert calls == {"lane_mm": 0, "lane_trsm": 0}
+        assert {(f, fn, 0) for f, fn in f5 if fn != "_normal_equations"} <= seen, seen
+        assert not any(n for *_, n in seen) and not any(fn == "_normal_equations" for _, fn, _ in seen)
+
+
+def test_width_check_names_a_planted_reduction():
+    """``tools/torch_width_check.py`` on the CPU, at feature level (11 lanes,
+    frame 40, initialized): the fleet step alone makes no operation differ; a reduction
+    across the lanes planted after it (each lane's position less the
+    fleet's mean) is named, at its line, as depending on the width."""
+    from tools import torch_width_check as wc
+
+    step, args = wc._feature_run(CFG, 11, 40, torch.device("cpu"))
+    clean = wc.check_step(step, args, 11, k=3)
+    assert clean.aligned > 1000 and not clean.findings, [f.line() for f in clean.findings.values()]
+
+    def planted(state, feats, imu):
+        state, out = step(state, feats, imu)
+        return out.p - out.p.mean(dim=0)  # mixes the lanes
+
+    line = planted.__code__.co_firstlineno + 2
+    found = wc.check_step(planted, args, 11, k=3).findings
+    assert list(found) == [("aten::mean", f"tests/test_torch_lane_mm.py:{line}")], list(found)
+    f = found["aten::mean", f"tests/test_torch_lane_mm.py:{line}"]
+    assert f.width and not f.known and f.max_abs > 0
 
 
 def _tri(g, *lead, n=40, W=7, upper=False):
@@ -266,37 +410,62 @@ def _trsm_gate(got, A, B, upper):
     return bool(((got.double() - ref).abs() <= RTOL * scale).all())
 
 
-def _emulate_trsm(ae, be, dims, nw, strides, upper):
-    """The trsm kernel's addressing and substitution order in float64."""
+def _emulate_trsm(ae, be, dims, nw, strides, upper, wt):
+    """The trsm kernel in float64: per block (batch index, wt columns) the
+    triangle staged as the lower (upper: index-reversed) matrix, the
+    columns' accumulators loaded from B, the right-looking substitution, and
+    each row written once, by its lane when it is solved. Returns (X, write
+    counts per element of X)."""
     n, W = nw
     a_sr, a_sc, b_sr, b_sc = strides
-    out = []
-    for bidx in range(int(np.prod([d[0] for d in dims], dtype=np.int64))):
-        rem, off_a, off_b = bidx, 0, 0
-        for size, sa, sb in reversed(dims):
-            off_a, off_b, rem = off_a + (rem % size) * sa, off_b + (rem % size) * sb, rem // size
-        A = torch.as_strided(ae, (n, n), (a_sr, a_sc), ae.storage_offset() + off_a).double()
-        B = torch.as_strided(be, (n, W), (b_sr, b_sc), be.storage_offset() + off_b).double()
-        X = torch.zeros(n, W, dtype=torch.float64)
-        for i in (range(n - 1, -1, -1) if upper else range(n)):
-            ks = range(i + 1, n) if upper else range(i)
-            X[i] = (B[i] - sum((A[i, k] * X[k] for k in ks), torch.zeros(W, dtype=torch.float64))) / A[i, i]
-        out.append(X)
-    return torch.stack(out)
+    batch = int(np.prod([d[0] for d in dims], dtype=np.int64))
+    tiles = -(-W // wt)
+    X = torch.full((batch, n, W), float("nan"), dtype=torch.float64)
+    counts = torch.zeros(batch, n, W, dtype=torch.int64)
+    sa, sb = _storage(ae), _storage(be)
+    rev = torch.arange(n - 1, -1, -1) if upper else torch.arange(n)  # staged row r' -> A's row
+    for blk in range(batch * tiles):
+        bidx, tw = divmod(blk, tiles)
+        off_a, off_b = (int(x[0]) for x in _offsets(dims, np.array([bidx])))
+        L = sa[ae.storage_offset() + off_a + rev[:, None] * a_sr + rev[None, :] * a_sc].tril()
+        cols = torch.arange(tw * wt, tw * wt + wt)
+        live = cols < W
+        Y = torch.zeros(n, wt, dtype=torch.float64)
+        Y[:, live] = sb[be.storage_offset() + off_b + rev[:, None] * b_sr + cols[live][None, :] * b_sc]
+        for i in range(n):
+            xi = Y[i] / L[i, i]
+            X[bidx, rev[i], cols[live]] = xi[live]
+            counts[bidx, rev[i], cols[live]] += 1
+            Y[i + 1:] -= L[i + 1:, i, None] * xi
+    return X, counts
 
 
 @pytest.mark.parametrize("name", sorted(TRSM))
 def test_trsm_addressing(name):
-    """The solve's launch arguments read each lane's operands: the emulated
-    substitution equals float64 ``solve_triangular``; on the CPU
-    ``solve_tri_lanes`` is ``torch.linalg.solve_triangular`` bit for bit."""
+    """The solve's launch arguments read each lane's operands and write every
+    element of X once: the emulated blocks equal float64 ``solve_triangular``;
+    on the CPU ``solve_tri_lanes`` is ``torch.linalg.solve_triangular`` bit
+    for bit."""
     A, B, upper, lanes = TRSM[name](torch.Generator().manual_seed(10), 2)
-    shape, ae, be, dims, strides = lane_mm_cuda._trsm_args(A, B, lanes)
-    got = _emulate_trsm(ae, be, dims, shape[-2:], strides, upper).reshape(shape)
+    shape, ae, be, dims, strides, wt = lane_mm_cuda._trsm_args(A, B, lanes)
+    got, counts = _emulate_trsm(ae, be, dims, shape[-2:], strides, upper, wt)
+    assert (counts == 1).all(), name
     want = torch.linalg.solve_triangular(A.double(), B.double(), upper=upper)
-    assert torch.allclose(got, want, rtol=1e-9, atol=1e-9), name
+    assert torch.allclose(got.reshape(shape), want, rtol=1e-9, atol=1e-9), name
     assert torch.equal(linalg.solve_tri_lanes(A, B, upper, lanes), torch.linalg.solve_triangular(A, B, upper=upper))
     assert _trsm_gate(linalg.solve_tri_lanes(A, B, upper, lanes), A, B, upper)
+
+
+def test_trsm_columns_per_block():
+    """``wt`` is 64 columns (8 per warp), halved down to 8 while the lanes
+    would not give the card's 132 SMs 4 blocks each; a triangle that does
+    not fit a block's shared memory is refused."""
+    for n, W, batch, want in ((175, 161, 8, 8), (175, 161, 256, 64), (160, 175, 8, 8), (160, 175, 256, 64),
+                              (160, 1, 8, 8), (160, 1, 256, 8), (33, 5, 2, 8), (160, 300, 256, 64),
+                              (160, 175, 64, 16)):
+        assert lane_mm_cuda.trsm_columns(n, W, batch) == want, (n, W, batch)
+    with pytest.raises(ValueError, match="shared memory"):
+        lane_mm_cuda.trsm_columns(400, 8, 1)
 
 
 def test_trsm_refuses_cpu_and_bad_shapes():
