@@ -30,14 +30,24 @@ Phases, each raising on failure (the script then exits non-zero):
    (``core/graph.py::CACHE``): first the re-capture turns
    (``tools/torch_recapture.py``: the main path's step captured explicitly,
    outside the cache, G1 the process's first capture, G2 while G1 is alive,
-   G1 again, G3 after G1 is released, G2 again, each over phase 3's 160
-   frames with the host's time per graph launch and, behind a spin kernel,
-   the host's and the card's time per replay apart); then a second
-   ``run_image_sequence`` of one signature makes no capture, and
+   G1 again, G3 after G1 is released, G2 again, each over phase 3's first
+   ``RECAPTURE_FRAMES`` frames with the host's time per graph launch and,
+   behind a spin kernel, the host's and the card's time per replay apart);
+   then a second ``run_image_sequence`` of one signature makes no capture, and
    ``jit_pipeline_step``, ``api.step`` and ``jit_fleet_step`` (8 lanes, one
    with NaN accelerometer samples) called per frame equal the captured
    scans of their signatures bit for bit (outputs and final state), each
    timed per call against its eager step over frames 60-64, in turns;
+3r. (run after phase 4) two processes: a child process (``chip_smoke.py
+   --repro-child``, a fresh interpreter that first holds an allocation of an
+   odd size, renders and drops a frame and warms cuBLAS) renders phase 3's
+   160 frames and phase 3c's 200, runs the captured main path over phase
+   3's and the captured 8-lane fleet of phase 4 (lane noise, NaN lane) and
+   prints digests of the frames, the outputs per frame and the final
+   states; each must equal this process's bit for bit (ROADMAP F6; on
+   failure the first frame that differs and the command of
+   ``tools/torch_repro_check.py`` to locate it); before phase 3k, phase 3's
+   sequence rendered twice in this process is equal bit for bit;
 3c. flexible moving start: 200 rendered frames (10 s, no static lead-in,
    gyro bias) through ``run_image_sequence_flexible`` (head through
    ``jit_pipeline_step``, tail through ``run_image_sequence``: one graph, at
@@ -210,9 +220,8 @@ from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.data import png
 from larvio_tpu_torch.data.euroc import EurocSequence
 from larvio_tpu_torch.data.evaluate import ate_rmse
-from larvio_tpu_torch.data.render import Renderer
+from larvio_tpu_torch.data.render import Renderer, render_frames
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
-from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.ops import cuda_lib
 from larvio_tpu_torch.ops.cuda_lib import kernel_launches
 from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
@@ -241,6 +250,7 @@ from larvio_tpu_torch.pipeline import PipelineState
 from larvio_tpu_torch.utils import native
 from tools import torch_recapture, torch_trace_analyze as trace_analyze
 from tools.torch_bench import ATE_GATE as BENCH_ATE_GATE, bench_workload, card_line
+from tools.torch_repro_check import digest, fleet_frames, frame_digests, other_history, single_frames
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PATCH, ITERS, PREC = 15, 12, 0.01
@@ -434,18 +444,6 @@ def _check_parity(ref, got, valid, n):
     return agree, frac, float(d.max())
 
 
-def _frame_pose(sim, t):
-    R_ci, t_ci = np.asarray(sim.R_ci), np.asarray(sim.t_ci)
-    p_w, R_wi = sim.pose(np.asarray(t + sim.cfg.time_offset))
-    return (R_ci @ R_wi).T, p_w + R_wi.T @ (-R_ci.T @ t_ci)
-
-
-def _render(dev, sim, rend, t):
-    R_wc_T, p_cam = _frame_pose(sim, t)
-    return rend(torch.as_tensor(R_wc_T, dtype=torch.float32, device=dev),
-                torch.as_tensor(p_cam, dtype=torch.float32, device=dev))
-
-
 def _lk_table(img0, dev, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2):
     """Up to min(F - 16, 20 per_cell) corners (at least ``min_n``) of the
     port's own detector (a 4x5 grid, ``per_cell`` per cell), padded with
@@ -478,7 +476,7 @@ def _slab_positions(rng, H, W, F):
 def phase_kernels(dev, sim, rend, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2, label=""):
     """K1 and the one-lane describe against their plain versions on frames of
     ``rend`` with an F-slot table (at most 20 ``per_cell`` live corners)."""
-    img0, img1 = _render(dev, sim, rend, 6.0), _render(dev, sim, rend, 6.05)
+    img0, img1 = render_frames(rend, sim, [6.0, 6.05])
     H, W = img0.shape
     pos, valid, n = _lk_table(img0, dev, F, per_cell, min_n)
 
@@ -552,7 +550,7 @@ def phase_kernels(dev, sim, rend, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2, labe
 def phase_kernels_batched(dev, sim, rend):
     """K3 and the batched describe kernel on B_FLEET lanes, each with its own data."""
     B = B_FLEET
-    pairs = [(_render(dev, sim, rend, 6.0 + 0.25 * b), _render(dev, sim, rend, 6.05 + 0.25 * b))
+    pairs = [tuple(render_frames(rend, sim, [6.0 + 0.25 * b, 6.05 + 0.25 * b]))
              for b in range(B)]
     tables = [_lk_table(p[0], dev) for p in pairs]
     n_lane = [t[2] for t in tables]
@@ -1005,11 +1003,10 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
     """The single path over the rendered frames. ``compare``: eager and
     captured runs in ``order``, equal bit for bit (``_eager_vs_captured``);
     else one captured run. The health gates read the captured run. Returns
-    (launches of a captured run, ATE, the frames, the captured step)."""
+    (launches of a captured run, ATE, the frames, the captured step, its
+    outputs)."""
     T = imgs.shape[0]
-    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
-    frames = FrameInput(image=imgs, imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]),
-                        t=g["t_img"])
+    frames = single_frames(data, imgs)
     ps = init_pipeline_state(cfg, dev)
     if compare:
         outs, launches, ms, graph = _eager_vs_captured(cfg, ps, frames, label, order=order)
@@ -1025,12 +1022,15 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
     if cfg.filter.max_slam_features:
         slam = f", n_slam max {_slam_gate(o, label)} mean {o['n_slam'][o['initialized']].mean():.2f}"
     print(f"{label}: {T} frames, {n_init} initialized, 0 resets, mean n_tracks "
-          f"{mean_tracks:.2f}{slam}, ATE {ate:.5f} m (gate {ATE_GATE}); one K1 and one describe launch "
+          f"{mean_tracks:.2f}{slam}, ATE {ate:.7f} m (gate {ATE_GATE}); one K1 and one describe launch "
           f"per frame; {how} on {card}", flush=True)
-    return launches, ate, frames, graph
+    return launches, ate, frames, graph, outs
 
 
 JIT_WINDOW = (60, 65)  # frames of the per-call timing turns, after the filter initialized
+# frames of each re-capture turn (phase 3's 160 before phase 3r came, cut to keep the script within its
+# time); the launch split replays frames 60-62
+RECAPTURE_FRAMES = 80
 
 
 def _per_frame(fn, state, xs):
@@ -1071,8 +1071,8 @@ def phase_jit(dev, cfg, data, frames, card) -> None:
     captures outside the cache, before the cache holds the main path's
     step): G1, the process's first capture of the step, G2 captured while
     G1 is alive, G1 again, G3 after G1 is released, G2 again, each over
-    phase 3's 160 frames with the host's time per graph launch. Then the
-    cache: ``run_image_sequence`` twice (the second makes no capture),
+    phase 3's first ``RECAPTURE_FRAMES`` frames with the host's time per
+    graph launch. Then the cache: ``run_image_sequence`` twice (the second makes no capture),
     ``jit_pipeline_step`` per frame (no capture, one K1 and one describe
     launch per frame through the replays), ``api.step`` per frame on phase
     3's feature-level data and ``jit_fleet_step`` per frame on 8 lanes of it
@@ -1082,9 +1082,9 @@ def phase_jit(dev, cfg, data, frames, card) -> None:
     timed per call against its eager step over ``JIT_WINDOW``, in turns."""
     t_start = time.perf_counter()
     ps0 = init_pipeline_state(cfg, dev)
-    rows, _ = torch_recapture.turns(cfg, ps0, frames)
+    rows, _ = torch_recapture.turns(cfg, ps0, tree_map(lambda a: a[:RECAPTURE_FRAMES], frames))
     first = rows[0][1]
-    print("re-capture turns (explicit captures, phase 3's frames): " + "; ".join(
+    print(f"re-capture turns (explicit captures, phase 3's first {RECAPTURE_FRAMES} frames): " + "; ".join(
         f"{what} {ms:.3f} ms/frame (host {launch:.3f} ms per graph launch; behind a spin the host {h:.3f} ms per "
         f"launch, the card {c:.3f} ms per replay)" for what, ms, _, launch, (h, c) in rows)
         + "; each later turn against the first: " + ", ".join(f"{100 * (ms / first - 1):+.1f}%" for _, ms, *_ in rows[1:])
@@ -1142,17 +1142,20 @@ FLEX_INIT_GATE = 175  # initialized frames of 200 (the same test)
 RESUME_TOL = 1e-4  # m; resume against uninterrupted (tests/test_data_utils.py)
 
 
-def phase_flexible(dev, cfg, card):
-    """Phase 3c: a moving start (the platform moves from the first frame, so
-    the on-device static initializer never fires) through
-    ``run_image_sequence_flexible``."""
+def flexible_workload(dev, cfg):
+    """Phase 3c's workload: (sim data, its 200 frames rendered on ``dev``)."""
     sim = Simulator(SimConfig(duration=10.0, static_lead_in=0.0, gyro_bias=(0.01, -0.02, 0.015)), cfg)
     data = sim.generate()
     rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
-    imgs = torch.stack([_render(dev, sim, rend, t) for t in data["t_img"]])
-    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
-    frames = FrameInput(image=imgs, imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]),
-                        t=g["t_img"])
+    return data, render_frames(rend, sim, data["t_img"])
+
+
+def phase_flexible(dev, cfg, card):
+    """Phase 3c: a moving start (the platform moves from the first frame, so
+    the on-device static initializer never fires) through
+    ``run_image_sequence_flexible``. Returns its frames' digests."""
+    data, imgs = flexible_workload(dev, cfg)
+    frames = single_frames(data, imgs)
     T = imgs.shape[0]
     injected = []
     real = pipeline_mod.inject_init_result
@@ -1204,10 +1207,11 @@ def phase_flexible(dev, cfg, card):
     print(f"flexible moving start: {T} frames, dynamic initialization at frame {first} "
           f"(t={injected[0].time:.2f} s, |v|={np.linalg.norm(injected[0].v):.3f} m/s), {int(m.sum())} "
           f"initialized, 0 resets, mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max "
-          f"{int(o['n_slam'].max())}, ATE {ate:.5f} m (gate {FLEX_ATE_GATE}); head and tail replay one graph "
+          f"{int(o['n_slam'].max())}, ATE {ate:.7f} m (gate {FLEX_ATE_GATE}); head and tail replay one graph "
           f"({captures} captures), one K1 and one describe launch per frame; {n_head} head frames "
           f"(jit_pipeline_step) {1e3 * sum(head_s) / n_head:.3f} ms per frame against the eager step's "
           f"{eager_ms:.3f} on the same frames; {1e3 * wall / T:.3f} ms/frame in all on {card}", flush=True)
+    return frame_digests(imgs)
 
 
 def _paeth_png(img: np.ndarray) -> bytes:
@@ -1566,27 +1570,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
     included; phase 3i's turns time the fleet eager and captured); else one
     captured run. The lanes ``copies`` see lane 0's frames."""
     T = imgs.shape[0]
-    bimgs = torch.empty((T, B, *imgs.shape[1:]), dtype=torch.float32, device=dev)
-    for b in range(B):  # lane 0: the main path's frames unchanged; the others with 2-gray-level
-        if b == 0 or b in copies:  # sensor noise of each lane's own seed
-            bimgs[:, b] = imgs
-            continue
-        gen = torch.Generator(device=dev).manual_seed(b)
-        bimgs[:, b] = imgs + 2.0 * torch.randn(imgs.shape, generator=gen, device=dev)
-    a = np.repeat(data["imu_a"][:, None], B, axis=1)
-    a[80:100, B - 1] = np.nan  # last lane: NaN accelerometer for 1 s mid-sequence
-
-    def lanes(x):
-        x = np.asarray(x)
-        return torch.as_tensor(np.ascontiguousarray(np.broadcast_to(x[:, None], (T, B, *x.shape[1:]))),
-                               device=dev)
-
-    frames = FrameInput(
-        image=bimgs,
-        imu=ImuBatch(t=lanes(data["imu_t"]), w=lanes(data["imu_w"]), a=torch.as_tensor(a, device=dev),
-                     valid=lanes(data["imu_valid"])),
-        t=lanes(data["t_img"]),
-    )
+    frames = fleet_frames(data, imgs, B, copies)
     ps = init_fleet_pipeline_state(cfg, B, dev)
     if compare:
         outs, launches, ms, graph = _eager_vs_captured(cfg, ps, frames, label, batched=True,
@@ -1631,7 +1615,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
         ate_s, tracks_s = ", ".join(f"{x:.5f}" for x in ates), ", ".join(f"{x:.1f}" for x in tracks)
     print(f"{label}: {B} lanes x {T} frames; lanes 0-{B - 2}: 0 resets, ATE {ate_s} m, mean n_tracks "
           f"{tracks_s}{slam}; lane 0 vs single-instance ATE "
-          f"{abs(ates[0] - single_ate):.6f} m; lane {B - 1} (NaN accel): {n_resets_bad} resets, "
+          f"{abs(ates[0] - single_ate):.7f} m; lane {B - 1} (NaN accel): {n_resets_bad} resets, "
           f"no SLAM slot on them, {n_init_bad} initialized frames, finite; fleet metrics match",
           flush=True)
     per = LANE_LAUNCHES_PER_STEP[cfg]
@@ -1678,6 +1662,73 @@ def phase_fleet_wide(dev, cfg, data, imgs, single_ate, card, narrow: FleetRun) -
     return run
 
 
+REPRO_TOOL = "python3 tools/torch_repro_check.py --frames 160"  # the command that locates a difference
+
+
+def _run_digests(phase: str, outs, state) -> dict:
+    """Phase 3r's digests of one captured run: its outputs, one digest per
+    frame, and its final state."""
+    T = next(iter(leaves(outs))).shape[0]
+    return {f"{phase} outputs": [digest(tree_map(lambda a: a[t], outs)) for t in range(T)],
+            f"{phase} final state": digest(state)}
+
+
+def repro_child(dev=torch.device("cuda:0")) -> int:
+    """Phase 3r's child (``chip_smoke.py --repro-child``): after another
+    history than the parent's (``torch_repro_check.other_history``), phase
+    3's and phase 3c's frames, the captured main path over phase 3's and the
+    captured 8-lane fleet of phase 4; prints their digests as the last
+    line (phase 3's and 3c's frames, one digest each; ``_run_digests`` of the
+    two runs)."""
+    card_numerics()
+    cfg = VioConfig()
+    sim = Simulator(SimConfig(duration=8.0), cfg)
+    rend = Renderer(cfg, np.asarray(sim.landmarks), device=dev)
+    held = other_history(dev, sim, rend)
+    data = sim.generate()
+    imgs = render_frames(rend, sim, data["t_img"])
+    got = {"3 frames": frame_digests(imgs), "3c frames": frame_digests(flexible_workload(dev, cfg)[1])}
+    frames = single_frames(data, imgs)
+    ps = init_pipeline_state(cfg, dev)
+    state, outs = run_image_sequence(cfg, ps, frames, graph=_capture(cfg, ps, frames))
+    got.update(_run_digests("3", outs, state))
+    frames = fleet_frames(data, imgs, B_FLEET)
+    ps = init_fleet_pipeline_state(cfg, B_FLEET, dev)
+    state, outs = run_fleet_image_sequence(cfg, ps, frames, graph=_capture(cfg, ps, frames))
+    got.update(_run_digests("4", outs, state))
+    del held
+    print(json.dumps(got), flush=True)
+    return 0
+
+
+def phase_repro(ref: dict, card: str) -> None:
+    """Phase 3r: one child process (a fresh interpreter with another history,
+    ``repro_child``) renders phase 3's and 3c's frames and runs the captured
+    main path and the captured 8-lane fleet; every digest must equal this
+    process's (``ref``) bit for bit (ROADMAP F6)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--repro-child"], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 3r: the child failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, want in ref.items():
+        if got[key] == want:
+            continue
+        tool = REPRO_TOOL + (f" --fleet {B_FLEET}" if key.startswith("4") else "")
+        if isinstance(want, list):
+            i = next((i for i, (x, y) in enumerate(zip(want, got[key])) if x != y), min(len(want), len(got[key])))
+            raise AssertionError(f"phase 3r: {key}: frame {i} is the first that differs between two processes; "
+                                 f"locate its first operation with `{tool}`")
+        raise AssertionError(f"phase 3r: the {key} differs between two processes; locate the first frame and "
+                             f"operation with `{tool}`")
+    print(f"two processes (phase 3r): a child with another history gives phase 3's {len(ref['3 frames'])} and "
+          f"phase 3c's {len(ref['3c frames'])} frames, the captured main path's outputs and final state and the "
+          f"captured {B_FLEET}-lane fleet's (NaN lane included) equal to this process's bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
 def _image_run(dev, cfg, frames, label: str):
     """``frames`` through the captured ``run_image_sequence`` once, from a
     fresh state; checks one K1 and one describe launch per frame (replays)
@@ -1715,7 +1766,7 @@ def phase_bench(dev, card, joseph: bool = False):
     print(f"{label} (bench.py{' --joseph' if joseph else ''}'s, {frames.image.shape[2]}x{frames.image.shape[1]}): "
           f"{T} frames, {int(m.sum())} initialized, 0 resets, "
           f"mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max {int(o['n_slam'].max())}, ATE "
-          f"{ate:.5f} m (gate {BENCH_ATE_GATE}; the JAX package: {jax}); one K1 and one "
+          f"{ate:.7f} m (gate {BENCH_ATE_GATE}; the JAX package: {jax}); one K1 and one "
           f"describe launch per frame; {1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
     return ate
 
@@ -1737,10 +1788,8 @@ def phase_fisheye(dev, card):
     phase_kernels(dev, sim, rend, F=fc.max_features, per_cell=fc.grid_max_feature_num,
                   min_n=FISHEYE_TRACKS_GATE, label=" (fisheye)")
     data = sim.generate()
-    imgs = torch.stack([_render(dev, sim, rend, t) for t in data["t_img"]])
-    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
-    frames = FrameInput(image=imgs, imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]),
-                        t=g["t_img"])
+    imgs = render_frames(rend, sim, data["t_img"])
+    frames = single_frames(data, imgs)
     T = imgs.shape[0]
     o, wall = _image_run(dev, cfg, frames, "fisheye")
     m = o["initialized"].astype(bool)
@@ -2077,8 +2126,8 @@ def phase_joseph(dev, data, imgs, sqrt_ate, card):
     cfg = JOSEPH
     D = state_dim(cfg)
     t0 = time.perf_counter()
-    _, ate, frames, graph = phase_main_path(dev, cfg, data, imgs, card, label="Joseph main path",
-                                            order=("eager", "captured"))
+    _, ate, frames, graph, _ = phase_main_path(dev, cfg, data, imgs, card, label="Joseph main path",
+                                               order=("eager", "captured"))
     assert graph.state().vio.filter.P.shape == (D, D), "Joseph main path: the captured P is not (D, D)"
     assert abs(sqrt_ate - ate) < PARITY_REL * max(ate, 0.01), \
         f"Joseph main path: ATE {ate:.5f} m against the square-root path's {sqrt_ate:.5f} m"
@@ -2405,18 +2454,26 @@ def main() -> int:
     clock("2")
 
     data = sim.generate()
-    t0 = time.perf_counter()
-    imgs = torch.stack([_render(dev, sim, rend, t) for t in data["t_img"]])
+    clock_s = [time.perf_counter()]
+    imgs = render_frames(rend, sim, data["t_img"])
     torch.cuda.synchronize()
-    print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} on the card in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
-    phase_jit(dev, cfg, data, FrameInput(image=imgs, t=g["t_img"], imu=ImuBatch(
-        t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"])), card)
+    clock_s.append(time.perf_counter())
+    again = render_frames(rend, sim, data["t_img"])
+    torch.cuda.synchronize()
+    clock_s.append(time.perf_counter())
+    assert _bits_equal(imgs, again), "phase 3's frames rendered twice in one process differ"
+    del again
+    print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} on the card in {clock_s[1] - clock_s[0]:.3f} s, "
+          f"again in {clock_s[2] - clock_s[1]:.3f} s, equal bit for bit (the blobs through an index_add, in no fixed "
+          f"order, took 0.281 s on an H100 80GB HBM3 at 700 W)", flush=True)
+    phase_jit(dev, cfg, data, single_frames(data, imgs), card)
     clock("3k")
-    launches, ate, main_frames, main_graph = phase_main_path(dev, cfg, data, imgs, card)
+    launches, ate, main_frames, main_graph, main_outs = phase_main_path(dev, cfg, data, imgs, card)
+    # phase 3r's digests; the graph's state is the captured run's final state until a later phase replays it
+    repro = {"3 frames": frame_digests(imgs), **_run_digests("3", main_outs, main_graph.state())}
+    del main_outs
     clock("3")
-    phase_flexible(dev, cfg, card)
+    repro["3c frames"] = phase_flexible(dev, cfg, card)
     clock("3c")
     tree, traj = phase_dataset(dev, cfg, card, tmp)
     clock("3d")
@@ -2434,6 +2491,8 @@ def main() -> int:
     clock("3i")
     fleet = phase_fleet(dev, cfg, data, imgs, ate, card)
     clock("4")
+    phase_repro({**repro, **_run_digests("4", fleet.outs, fleet.state)}, card)
+    clock("3r")
     wide = phase_fleet_wide(dev, cfg, data, imgs, ate, card, fleet)
     clock("4d")
     launches.update({k: v for k, v in fleet.launches.items() if k.endswith("_batched")})
@@ -2447,7 +2506,7 @@ def main() -> int:
     pure = PURE
     # one captured run each: the default configuration's phases compared
     # eager and captured runs (keeps the command under 600 s)
-    _, pure_ate, _, _ = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", compare=False)
+    _, pure_ate, *_ = phase_main_path(dev, pure, data, imgs, card, label="pure-MSCKF path", compare=False)
     phase_fleet(dev, pure, data, imgs, pure_ate, card, label="pure-MSCKF fleet", compare=False)
     clock("4b")
     phase_sharded(dev, card)
@@ -2485,4 +2544,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(repro_child() if sys.argv[1:] == ["--repro-child"] else main())

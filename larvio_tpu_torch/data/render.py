@@ -56,12 +56,9 @@ class Renderer(nn.Module):
         )
 
     @torch.no_grad()
-    def forward(self, R_wc_T: torch.Tensor, p_cam_w: torch.Tensor) -> torch.Tensor:
-        """Render one frame. R_wc_T: (3,3) = R_cw^T (cam->world), p_cam_w (3,)."""
-        cfg = self.cfg
-        H, W = cfg.camera.height, cfg.camera.width
-
-        # background: ray/plane intersection onto the fixed texture
+    def background(self, R_wc_T: torch.Tensor, p_cam_w: torch.Tensor) -> torch.Tensor:
+        """The textured plane seen from the pose, (H * W,) before the blobs."""
+        H, W = self.cfg.camera.height, self.cfg.camera.width
         rays_w = self.rays_cam @ R_wc_T.T
         denom = torch.where(torch.abs(rays_w[:, 2]) < 1e-6, 1e-6, rays_w[:, 2])
         s = (self.plane_z - p_cam_w[2]) / denom
@@ -82,9 +79,15 @@ class Renderer(nn.Module):
             + t[y1, x0] * (1 - fx) * fy
             + t[y1, x1] * fx * fy
         )
-        img = torch.where(s > 0, bg, 40.0).reshape(H, W)
+        return torch.where(s > 0, bg, 40.0).reshape(H * W)
 
-        # landmark blobs: a 9x9 subpixel Gaussian stamp per visible landmark
+    @torch.no_grad()
+    def blobs(self, R_wc_T: torch.Tensor, p_cam_w: torch.Tensor):
+        """The landmark blobs: a 9x9 subpixel Gaussian stamp per landmark,
+        as (N, 81) flat pixel indices and values (0 for a landmark out of
+        view), landmark-major: the JAX package's scatter's update order."""
+        cfg = self.cfg
+        H, W = cfg.camera.height, cfg.camera.width
         p_c = (self.landmarks - p_cam_w[None, :]) @ R_wc_T
         z = p_c[:, 2]
         uvn = p_c[:, :2] / torch.where(torch.abs(z) < 1e-6, 1e-6, z)[:, None]
@@ -99,14 +102,50 @@ class Renderer(nn.Module):
         xx = ix[:, None] + self.offs[None, :, 1]
         d2 = (yy.to(torch.float32) - cy[:, None]) ** 2 + (xx.to(torch.float32) - cx[:, None]) ** 2
         vals = torch.where(vis[:, None], self.amps[:, None] * torch.exp(-d2 / (2.0 * 1.6**2)), 0.0)
-        flat = torch.clamp(yy, 0, H - 1) * W + torch.clamp(xx, 0, W - 1)
-        img = img.reshape(-1).index_add(0, flat.reshape(-1), vals.reshape(-1)).reshape(H, W)
-        return torch.clamp(img, 0.0, 255.0)
+        return torch.clamp(yy, 0, H - 1) * W + torch.clamp(xx, 0, W - 1), vals
+
+    @torch.no_grad()
+    def forward(self, R_wc_T: torch.Tensor, p_cam_w: torch.Tensor) -> torch.Tensor:
+        """Render one frame. R_wc_T: (3,3) = R_cw^T (cam->world), p_cam_w (3,)."""
+        H, W = self.cfg.camera.height, self.cfg.camera.width
+        flat, vals = self.blobs(R_wc_T, p_cam_w)
+        img = add_in_order(self.background(R_wc_T, p_cam_w), flat.reshape(-1), vals.reshape(-1))
+        return torch.clamp(img.reshape(H, W), 0.0, 255.0)
 
 
-def render_sequence(cfg: VioConfig, sim, t_img: np.ndarray, device="cuda") -> torch.Tensor:
-    """Render all frames of a simulator run on ``device``: (T, H, W) float32."""
-    rend = Renderer(cfg, np.asarray(sim.landmarks), device=device)
+def add_in_order(img: torch.Tensor, index: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``img.index_add(0, index, vals)`` for a 1-D ``img``, with each
+    element's terms added to it one by one in the order they come in
+    ``index``: the order of a sequential scatter (the CPU's ``index_add``,
+    the JAX package's ``img.at[index].add(vals)``), on every device. On the
+    card ``index_add`` is an ``atomicAdd`` per term, and where terms meet
+    their order follows the warps' scheduling, so a frame's last bits would
+    change from one render to the next.
+
+    Zero terms are dropped (adding +0.0 changes no bit of a value that is
+    not -0.0). A stable sort by element keeps each element's terms in
+    order; each term's rank among its element's is its place in the sorted
+    run, and rank r is added to every element at once, r = 0, 1, ...: no
+    element comes twice in one pass, so nothing is left to race on. The
+    passes are as many as the most terms one element takes; reading their
+    sizes syncs the host once."""
+    keep = vals != 0
+    index, vals = index[keep], vals[keep]
+    index, order = torch.sort(index, stable=True)
+    vals = vals[order]
+    rank = torch.arange(index.numel(), device=index.device) - torch.searchsorted(index, index)
+    by_rank = torch.sort(rank, stable=True).indices
+    out = img.clone()
+    for sel in torch.split(by_rank, torch.bincount(rank).tolist()):
+        i = index[sel]
+        out[i] = out[i] + vals[sel]
+    return out
+
+
+def render_frames(rend: Renderer, sim, t_img) -> torch.Tensor:
+    """The frames of a simulator run at the times ``t_img`` through ``rend``,
+    on its device: (T, H, W) float32."""
+    dev = rend.landmarks.device
     R_ci = np.asarray(sim.R_ci)
     t_ci = np.asarray(sim.t_ci)
     frames = []
@@ -115,7 +154,12 @@ def render_sequence(cfg: VioConfig, sim, t_img: np.ndarray, device="cuda") -> to
         R_cw = R_ci @ R_wi
         p_cam = p_w + R_wi.T @ (-R_ci.T @ t_ci)
         frames.append(rend(
-            torch.as_tensor(R_cw.T, dtype=torch.float32, device=device),
-            torch.as_tensor(p_cam, dtype=torch.float32, device=device),
+            torch.as_tensor(R_cw.T, dtype=torch.float32, device=dev),
+            torch.as_tensor(p_cam, dtype=torch.float32, device=dev),
         ))
     return torch.stack(frames)
+
+
+def render_sequence(cfg: VioConfig, sim, t_img: np.ndarray, device="cuda") -> torch.Tensor:
+    """Render all frames of a simulator run on ``device``: (T, H, W) float32."""
+    return render_frames(Renderer(cfg, np.asarray(sim.landmarks), device=device), sim, t_img)

@@ -376,13 +376,15 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
     took = sel & (torch.cumsum(sel.to(torch.int32), dim=-1) <= n_free[..., None])
     free_order = torch.sort(sl.valid.to(torch.int32), dim=-1, stable=True).indices
     rank = torch.cumsum(took.to(torch.int32), dim=-1) - 1
-    slot_for_cand = torch.where(took, take(free_order, torch.clamp(rank, 0, S - 1), -1), S)
-    # inverse map: which candidate took slot s. Untaken candidates scatter
-    # into the extra entry S, which is dropped (mode="drop" in the JAX package)
-    cand = torch.arange(K, device=dev).expand(slot_for_cand.shape)
-    cand_of_slot = torch.zeros((*lead, S + 1), dtype=torch.int64, device=dev).scatter(
+    # inverse map: which candidate took slot s. Untaken candidate k scatters
+    # into an extra entry S + k of its own, which is dropped (mode="drop" in
+    # the JAX package): no entry is written twice, so no entry's value
+    # depends on which of the card's threads writes last
+    cand = torch.arange(K, device=dev).expand(took.shape)
+    slot_for_cand = torch.where(took, take(free_order, torch.clamp(rank, 0, S - 1), -1), S + cand)
+    cand_of_slot = torch.zeros((*lead, S + K), dtype=torch.int64, device=dev).scatter(
         -1, slot_for_cand, cand)[..., :S]
-    tk = torch.zeros((*lead, S + 1), dtype=torch.bool, device=dev).scatter(
+    tk = torch.zeros((*lead, S + K), dtype=torch.bool, device=dev).scatter(
         -1, slot_for_cand, took)[..., :S]
 
     # slot bookkeeping

@@ -18,7 +18,9 @@ equal, none more than 8 bits apart (the blur is bit-exact; the moments are
 summed in another order than ``torch.sum``, so a rotated sample may round
 the other way); invalid slots are 0; each batched lane equals its one-lane
 launch bit for bit. The sharded fleet's dry run runs with two ``gloo`` ranks
-sharing the card.
+sharing the card. A sequence rendered twice on the card is equal bit for bit
+(the blobs' fixed order) and within ``tests/test_torch_render.py``'s
+tolerance of the CPU's frames.
 """
 
 import numpy as np
@@ -294,3 +296,16 @@ def test_sharded_dryrun_on_card_with_gloo(dev):
     res = multichip.dryrun_multichip(2, device="cuda", backend="gloo")
     assert res["backend"] == "gloo" and all(d.startswith("cuda:") for d in res["devices"])
     assert res["slam_engaged"] >= 1 and res["p"].shape[1] == 4
+
+
+def test_render_sequence_repeats_on_card(dev):
+    """One sequence rendered twice on the card is equal bit for bit, and
+    within ``tests/test_torch_render.py``'s tolerance of the CPU's frames
+    (99% of pixels within 1e-3 gray levels, every pixel within 5e-3)."""
+    sim = Simulator(SimConfig(duration=8.0), CFG)
+    t_img = np.linspace(0.05, 7.5, 40).astype(np.float32)
+    a = render_sequence(CFG, sim, t_img, device=dev).cpu()
+    b = render_sequence(CFG, sim, t_img, device=dev).cpu()
+    np.testing.assert_array_equal(a.view(torch.int32).numpy(), b.view(torch.int32).numpy())
+    d = np.abs(a.numpy() - render_sequence(CFG, sim, t_img, device="cpu").numpy())
+    assert np.quantile(d, 0.99) <= 1e-3 and d.max() <= 5e-3, (np.quantile(d, 0.99), d.max())

@@ -382,7 +382,7 @@ def test_width_check_names_a_planted_reduction():
     found = wc.check_step(planted, args, 11, k=3).findings
     assert list(found) == [("aten::mean", f"tests/test_torch_lane_mm.py:{line}")], list(found)
     f = found["aten::mean", f"tests/test_torch_lane_mm.py:{line}"]
-    assert f.width and not f.known and f.max_abs > 0
+    assert f.width and f.max_abs > 0
 
 
 def _tri(g, *lead, n=40, W=7, upper=False):

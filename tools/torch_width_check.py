@@ -24,18 +24,15 @@ A lane's bits are its own if no operation differs.
 The tool prints one line per operation that differs (its site, the file and
 line in the repository that called it; max |d| over the finite elements;
 whether it depends on the width, the place or both), a summary and, last,
-a JSON line. The overflow column of the ``scatter`` in
-``models/slam.py::promote_features`` (duplicate writes to the dropped entry S,
-which nothing reads) is listed apart as known. Operations whose re-run
-raises (a size argument that names the width) are counted as not checked,
-and so are the cut re-runs of indexing operations whose index along the
-leading axis points past the cut operand;
+a JSON line. Operations whose re-run raises (a size argument that names the
+width) are counted as not checked, and so are the cut re-runs of indexing
+operations whose index along the leading axis points past the cut operand;
 the permutation skips operations given an integer tensor of the width (an
 index whose values may name lanes). Views, empty allocations and random
 draws are not re-run. The kernels bound through ``ctypes`` (``lane_mm``,
 K3, describe) are not aten operations: their own tests hold their lanes.
-Exits 1 if an operation other than the known one differs. Needs a CUDA GPU
-unless ``--device cpu`` is asked for.
+Exits 1 if an operation differs. Needs a CUDA GPU unless ``--device cpu`` is
+asked for.
 """
 
 from __future__ import annotations
@@ -44,7 +41,6 @@ import argparse
 import json
 import os
 import sys
-import traceback
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,11 +55,9 @@ from larvio_tpu_torch.config import VioConfig  # noqa: E402
 from larvio_tpu_torch.core.device import card_numerics, resolve_device  # noqa: E402
 from larvio_tpu_torch.core.tree import tree_map  # noqa: E402
 
-_SELF = os.path.abspath(__file__)
-_TORCH = os.path.dirname(os.path.abspath(torch.__file__))
+_TOOLS = os.path.join(REPO, "tools") + os.sep
 _NOT_RERUN = ("aten::empty", "aten::new_empty", "aten::empty_like", "aten::empty_strided",
               "aten::new_empty_strided", "aten::resize_", "aten::set_", "aten::_local_scalar_dense")
-KNOWN = "the dropped overflow column of the promotion's scatter (ROADMAP F4)"
 
 
 @dataclass
@@ -74,22 +68,23 @@ class Finding:
     max_abs: float = 0.0
     width: bool = False
     place: bool = False
-    known: bool = False
 
     def line(self) -> str:
         dep = " and ".join(x for x, on in (("the width", self.width), ("the place", self.place)) if on)
-        return (f"{self.site}: {self.op} differs ({self.count}x), max |d| {self.max_abs:.3e}, depends on {dep}"
-                + (f" [known: {KNOWN}]" if self.known else ""))
+        return f"{self.site}: {self.op} differs ({self.count}x), max |d| {self.max_abs:.3e}, depends on {dep}"
 
 
-def _site() -> str:
-    """The deepest caller inside the repository (outside torch and this
-    tool), as path:line relative to the repository."""
-    for f in reversed(traceback.extract_stack()):
-        path = os.path.abspath(f.filename)
-        if path.startswith(REPO) and path != _SELF and not path.startswith(_TORCH):
-            return f"{os.path.relpath(path, REPO)}:{f.lineno}"
-    return "?"
+def _site(depth: int = 1) -> str:
+    """The deepest caller inside the repository outside ``tools/`` (the
+    port's code, or a test's), as path:line relative to the repository;
+    ``depth`` > 1 adds its callers there, joined by " < "."""
+    sites, f = [], sys._getframe(1)
+    while f is not None and len(sites) < depth:
+        path = os.path.abspath(f.f_code.co_filename)
+        if path.startswith(REPO + os.sep) and not path.startswith(_TOOLS):
+            sites.append(f"{os.path.relpath(path, REPO)}:{f.f_lineno}")
+        f = f.f_back
+    return " < ".join(sites) or "?"
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -193,19 +188,13 @@ class WidthCheck(TorchDispatchMode):
                 if want.shape != g.shape or want.dtype != g.dtype or torch.equal(_bits(want), _bits(g)):
                     continue
                 site = site or _site()
-                f = self.findings.setdefault((name, site), Finding(name, site, known=True))
+                f = self.findings.setdefault((name, site), Finding(name, site))
                 f.count += 1
                 setattr(f, mode, True)
                 if want.is_floating_point():
                     ok = torch.isfinite(want) & torch.isfinite(g)
                     d = (want.double() - g.double()).abs()[ok]
                     f.max_abs = max(f.max_abs, float(d.max()) if d.numel() else 0.0)
-                    ne = ~((want == g) | (torch.isnan(want) & torch.isnan(g)))
-                else:
-                    ne = want != g
-                f.known = f.known and (name.startswith("aten::scatter") and ne.dim() >= 1
-                                       and site.startswith("larvio_tpu_torch/models/slam.py")
-                                       and not ne[..., :-1].any().item())
         return out
 
 
@@ -267,7 +256,7 @@ def _image_run(cfg, width: int, frame: int, dev):
 def run(width: int = 256, frame: int = 60, k: int = 8, features: bool = False, device="cuda",
         cfg: VioConfig | None = None) -> dict:
     """The check; returns the JSON summary (``findings``: every operation that
-    differs, ``known`` among them)."""
+    differs)."""
     dev = resolve_device(device)
     card_numerics()
     cfg = cfg or VioConfig()
@@ -275,14 +264,12 @@ def run(width: int = 256, frame: int = 60, k: int = 8, features: bool = False, d
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     mode = check_step(step, args, width, k)
-    found = sorted(mode.findings.values(), key=lambda f: (f.known, f.site))
+    found = sorted(mode.findings.values(), key=lambda f: f.site)
     for f in found:
         print(f.line(), flush=True)
-    unknown = [f for f in found if not f.known]
     print(f"width {width}, frame {frame}, {'feature' if features else 'image'} level, k = {k}: {mode.ops} aten "
           f"operations, {mode.aligned} given the lanes and re-run ({mode.not_checked} re-runs raised); "
-          f"{len(unknown)} differ{'' if unknown else ': every lane bit for bit its own'}"
-          f"{f', {len(found) - len(unknown)} known' if len(found) > len(unknown) else ''}", flush=True)
+          f"{len(found)} differ{'' if found else ': every lane bit for bit its own'}", flush=True)
     return {"width": width, "frame": frame, "k": k, "level": "feature" if features else "image",
             "ops": mode.ops, "rerun": mode.aligned, "not_checked": mode.not_checked,
             "findings": [vars(f) for f in found], "device": str(dev) if dev.type != "cuda"
@@ -299,7 +286,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     res = run(args.width, args.frame, args.k, args.features, args.device)
     print(json.dumps(res), flush=True)
-    return 1 if any(not f["known"] for f in res["findings"]) else 0
+    return 1 if res["findings"] else 0
 
 
 if __name__ == "__main__":
