@@ -24,7 +24,11 @@ stages K frames per upload, as the JAX CLI's compiled scan per chunk does.
 PNGs are read and written by ``data/png.py``, and the ``--plot`` and
 ``--live`` figures drawn by ``data/visualize.py``: the CLI needs neither cv2
 nor matplotlib. ``--profile DIR`` writes a ``torch.profiler`` trace whose
-stages ``tools/torch_trace_analyze.py DIR/trace.json`` sums.
+stages ``tools/torch_trace_analyze.py DIR/trace.json`` sums, and beside it
+the tracer's spans (``DIR/spans.json``: ``core/stages.py::Tracer.export``,
+stamps on the trace's clock). The host loop's phases are spans of that
+tracer (``cli.decode``, ``cli.stack``, ``cli.upload``, ``cli.dispatch``,
+``cli.compute``), which ``--budget`` sums.
 ``--debug-nans`` (the JAX CLI's ``jax_debug_nans``) holds every stage's
 outputs to ``torch.isfinite`` (``core/stages.py::NanCheck``) and raises at the
 first stage that fails, naming the stage and the frame; it runs the eager
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from larvio_tpu_torch.core.device import card_numerics, resolve_device
-from larvio_tpu_torch.core.stages import NanCheck
+from larvio_tpu_torch.core.stages import TRACER, NanCheck
 from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.data.visualize import plot_run
 from larvio_tpu_torch.init import FlexibleInitializer
@@ -53,14 +57,13 @@ from larvio_tpu_torch.pipeline import (FrameInput, cached_pipeline_step, init_pi
 from larvio_tpu_torch.utils.checkpoint import restore_state, save_state
 
 
-def _prefetch(frame_iter, depth: int = 8, workers: int = 2, timers=None):
+def _prefetch(frame_iter, depth: int = 8, workers: int = 2):
     """Decode-ahead: run the frame iterator (PNG decode, IMU bucketing) in a
     background thread so host I/O overlaps the device step. A frame whose
     "image" value is a zero-arg callable (lazy decode, data/euroc.py
     frames(lazy=True)) is resolved on a small thread pool (zlib's inflate
     releases the GIL), ``depth`` frames ahead. Exceptions propagate to the
-    consumer. ``timers`` (optional dict) accumulates the consumer-visible
-    stall time under "decode"."""
+    consumer. The consumer's stall for each frame is a ``cli.decode`` span."""
     import queue
     import threading
     from concurrent.futures import ThreadPoolExecutor
@@ -82,19 +85,17 @@ def _prefetch(frame_iter, depth: int = 8, workers: int = 2, timers=None):
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            t0 = time.perf_counter()
-            x = q.get()
-            if x is END:
-                return
-            if isinstance(x, tuple) and len(x) == 2 and x[0] == "__prefetch_error__":
-                raise x[1]
-            img = x.get("image")
-            if hasattr(img, "result"):  # future from the decode pool
-                x = dict(x, image=img.result())
-            elif callable(img):  # lazy but no pool
-                x = dict(x, image=img())
-            if timers is not None:
-                timers["decode"] += time.perf_counter() - t0
+            with TRACER.span("cli.decode"):
+                x = q.get()
+                if x is END:
+                    return
+                if isinstance(x, tuple) and len(x) == 2 and x[0] == "__prefetch_error__":
+                    raise x[1]
+                img = x.get("image")
+                if hasattr(img, "result"):  # future from the decode pool
+                    x = dict(x, image=img.result())
+                elif callable(img):  # lazy but no pool
+                    x = dict(x, image=img())
             yield x
     finally:
         if pool is not None:
@@ -164,7 +165,8 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
     budget: synchronize per frame (per chunk with K > 1) and print the
     per-frame split decode / stack / upload / dispatch / compute (dispatch =
     host time of the steps, replays on the card; compute = the wait at
-    ``torch.cuda.synchronize()`` after them).
+    ``torch.cuda.synchronize()`` after them), summed from the ``cli.*``
+    spans' totals (``TRACER.totals()``).
     live: the JAX CLI's live view: every ``live_every`` frames the positions
     since the last refresh are read back and the trajectory so far is
     drawn to this PNG (``data/visualize.py``), with a one-line status.
@@ -182,8 +184,7 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         print("--debug-nans: every stage's outputs are held to torch.isfinite; the eager step runs "
               "(one host sync per stage)", flush=True)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    timers = {"decode": 0.0, "stack": 0.0, "upload": 0.0, "dispatch": 0.0, "compute": 0.0}
-    frame_iter = _prefetch(frame_iter, timers=timers)
+    frame_iter = _prefetch(frame_iter)
 
     def host_frame(fr):
         # uint8 images stay uint8 over the link; pipeline_step casts on the device
@@ -220,18 +221,17 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         return ps if graph is None else graph.state()
 
     def timed_steps(frames):
-        t0 = time.perf_counter()
-        outs = [step(f) for f in frames]
-        t1 = time.perf_counter()
-        timers["dispatch"] += t1 - t0
+        with TRACER.span("cli.dispatch"):
+            outs = [step(f) for f in frames]
         if budget:
-            sync()
-            timers["compute"] += time.perf_counter() - t1
+            with TRACER.span("cli.compute"):
+                sync()
         return outs
 
     outs_all = []
     pending = []
     t_start = None
+    totals0 = {}
     n = n_timed0 = 0
     live_hist, live_done, live_next = [], 0, live_every
 
@@ -252,13 +252,12 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
               flush=True)
 
     def start_clock():  # after the first step or chunk: fps and the budget count the steady state
-        nonlocal t_start, n_timed0
+        nonlocal t_start, n_timed0, totals0
         if t_start is None:
             sync()
             t_start = time.perf_counter()
             n_timed0 = n
-            for k in timers:
-                timers[k] = 0.0
+            totals0 = TRACER.totals()
     prof = None
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -268,35 +267,33 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         prof.__enter__()
     try:
         for fr in frame_iter:
-            t0 = time.perf_counter()
-            host = host_frame(fr)
-            if stager is None and chunk > 1:
-                stager = _ChunkStager(host, chunk, dev)  # pinned before the capture
-            if graph is None and dev.type == "cuda" and check is None:
-                graph = cached_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host))
-                graph.load(ps)
-            if initialized and chunk > 1:
-                pending.append(host)
-                timers["stack"] += time.perf_counter() - t0
+            staged = initialized and chunk > 1
+            with TRACER.span("cli.stack"):
+                host = host_frame(fr)
+                if stager is None and chunk > 1:
+                    stager = _ChunkStager(host, chunk, dev)  # pinned before the capture
+                if graph is None and dev.type == "cuda" and check is None:
+                    graph = cached_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host))
+                    graph.load(ps)
+                if staged:
+                    pending.append(host)
+            if staged:
                 if len(pending) < chunk:
                     continue
-                t1 = time.perf_counter()
-                frames = stager.upload(pending)
-                if budget:
-                    sync()
-                timers["upload"] += time.perf_counter() - t1
+                with TRACER.span("cli.upload"):
+                    frames = stager.upload(pending)
+                    if budget:
+                        sync()
                 outs_all += timed_steps([tree_map(lambda a: a[k], frames) for k in range(chunk)])
                 n += chunk
                 pending = []
                 start_clock()
                 live_refresh()
                 continue
-            t1 = time.perf_counter()
-            timers["stack"] += t1 - t0
-            frame = tree_map(lambda a: a.to(dev), host)
-            if budget:
-                sync()
-            timers["upload"] += time.perf_counter() - t1
+            with TRACER.span("cli.upload"):
+                frame = tree_map(lambda a: a.to(dev), host)
+                if budget:
+                    sync()
             out = timed_steps([frame])[0]
             outs_all.append(out)
             n += 1
@@ -336,11 +333,14 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
             prof.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            TRACER.export(os.path.join(profile_dir, "spans.json"))
     wall = time.perf_counter() - t_start if t_start else 0.0
     fps = (n - n_timed0) / wall if wall > 0 else 0.0
     if budget and wall > 0:
         nf = max(n - n_timed0, 1)
-        parts = {k: 1e3 * v / nf for k, v in timers.items()}
+        totals = TRACER.totals()
+        parts = {k: (totals.get(f"cli.{k}", (0, 0))[1] - totals0.get(f"cli.{k}", (0, 0))[1]) / 1e6 / nf
+                 for k in ("decode", "stack", "upload", "dispatch", "compute")}
         acc = sum(parts.values())
         # decode = stall waiting on the prefetch/decode pool; stack = host
         # tensors of the frame (and the chunk's staging); upload =

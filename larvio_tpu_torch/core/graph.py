@@ -41,6 +41,19 @@ every later one replays that graph. ``CACHE.captures`` counts the captures,
 ``CACHE.clear()`` drops every step and frees the graphs' memory pools. On
 the CPU nothing is cached: the eager step runs.
 
+The entry layer's spans (``core/stages.py``'s tracer, ``CACHE.tracer``):
+``entry.call`` around a functional call (``call``, ``CapturedStep.__call__``)
+with its children ``entry.signature`` (the cache's key and lookup),
+``entry.load``, ``entry.replay`` and ``entry.clone`` (the new state's and the
+outputs' clones); ``entry.scan`` around ``scan`` with ``entry.signature``,
+``entry.load``, an ``entry.replay`` per frame and ``entry.clone`` for the
+state; ``entry.capture`` around a capture (the eager warm-up steps and the
+graph's capture). ``entry.replay`` (the input copies and
+``CUDAGraph.replay()``) carries card events, recorded outside the graph.
+On the card ``entry.call`` and ``entry.scan`` carry ``copies``, the leaf
+copies and clones the call launches (``CapturedStep.copies``), and
+``entry.scan`` its ``replays``.
+
 Nothing falls back to eager execution on the card: a CPU device raises, and
 a failed capture or replay raises to the caller. Every factorization must
 run in cuSOLVER (``core/device.py::card_numerics``): PyTorch's MAGMA paths
@@ -53,6 +66,7 @@ import dataclasses
 
 import torch
 
+from larvio_tpu_torch.core.stages import TRACER
 from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.core.tree import scan as tree_scan
 
@@ -116,9 +130,14 @@ class CapturedStep:
         if torch.backends.cuda.preferred_linalg_library() != torch._C._LinalgBackend.Cusolver:
             raise RuntimeError("CapturedStep needs every factorization in cuSOLVER (MAGMA's batched "
                                "paths synchronize the host): call core.device.card_numerics() first")
+        self.device = dev
+        with TRACER.span("entry.capture"):
+            self._capture(fn, state, inputs, warmup)
+
+    def _capture(self, fn, state, inputs, warmup: int) -> None:
         from larvio_tpu_torch.ops.cuda_lib import kernel_launches
 
-        self.device = dev
+        dev = self.device
         self._state = tree_map(torch.clone, state)
         self._inputs = tree_map(torch.clone, inputs)
         self._in_leaves = list(leaves(self._inputs))
@@ -141,15 +160,26 @@ class CapturedStep:
         after = kernel_launches()
         self.launches_per_replay = {k: after[k] - before[k] for k in after}
         self.replays = 0
+        self._n_state = len(list(leaves(self._state)))
+        self._n_io = len(self._in_leaves) + len(list(leaves(self._out)))
+
+    def copies(self, n: int = 1) -> int:
+        """The leaf copies and clones that a call of ``n`` replays launches
+        (1: ``__call__``; n: ``scan``), every leaf copied: the load and the
+        state's clones, and per replay the input copies and the outputs'
+        clones or copies."""
+        return 2 * self._n_state + n * self._n_io
 
     def load(self, state) -> None:
         """Copy ``state`` into the static state (a new sequence, an
         injection, a resume)."""
-        copy_into(self._state, state)
+        with TRACER.span("entry.load"):
+            copy_into(self._state, state)
 
     def state(self):
         """A clone of the static state (the state after the last replay)."""
-        return tree_map(torch.clone, self._state)
+        with TRACER.span("entry.clone"):
+            return tree_map(torch.clone, self._state)
 
     def replay(self, inputs):
         """Copy ``inputs`` into the static input buffers and run one step.
@@ -162,18 +192,25 @@ class CapturedStep:
             if d.shape != s.shape or d.dtype != s.dtype:
                 raise ValueError(f"replay: input {s.dtype} {tuple(s.shape)}, the captured step "
                                  f"holds {d.dtype} {tuple(d.shape)}")
-            if s is not d:
-                d.copy_(s, non_blocking=True)
-        self._graph.replay()
+        with TRACER.span("entry.replay", card=True):
+            for d, s in zip(self._in_leaves, ins):
+                if s is not d:
+                    d.copy_(s, non_blocking=True)
+            self._graph.replay()
         self.replays += 1
         return self._out
 
     def __call__(self, state, inputs):
         """One step as a function: load ``state``, replay, and return clones
         of (the new state, the outputs)."""
+        with TRACER.span("entry.call", copies=self.copies()):
+            return self._call(state, inputs)
+
+    def _call(self, state, inputs):
         self.load(state)
         out = self.replay(inputs)
-        return self.state(), tree_map(torch.clone, out)
+        with TRACER.span("entry.clone"):
+            return tree_map(torch.clone, self._state), tree_map(torch.clone, out)
 
 
 def _structure(tree):
@@ -200,6 +237,7 @@ class StepCache:
     def __init__(self):
         self._steps = {}
         self.captures = 0
+        self.tracer = TRACER
 
     def step(self, entry, fn, state, inputs) -> CapturedStep:
         """The captured step of ``fn`` for this signature: captured now if
@@ -243,8 +281,13 @@ def select(graph, entry, fn, state, inputs):
 def call(entry, fn, state, inputs, graph=None):
     """``fn(state, inputs)`` through the step ``graph`` selects (``select``):
     the jitted entry points' call. Returns (state, outputs), new tensors."""
-    g = select(graph, entry, fn, state, inputs)
-    return fn(state, inputs) if g is None else g(state, inputs)
+    with TRACER.span("entry.call") as sp:
+        with TRACER.span("entry.signature"):
+            g = select(graph, entry, fn, state, inputs)
+        if g is None:
+            return fn(state, inputs)
+        sp.set(copies=g.copies())
+        return g._call(state, inputs)
 
 
 def scan(entry, step, carry, xs, graph=None):
@@ -261,17 +304,20 @@ def scan(entry, step, carry, xs, graph=None):
     the device (``buf[k]`` is a view made on the host: the loop reads
     nothing back). Returns (final carry, outputs with a leading time axis),
     equal bit for bit to the eager loop's on the same device."""
-    graph = select(graph, entry, step, carry, tree_map(lambda a: a[0], xs))
-    if graph is None:
-        return tree_scan(step, carry, xs)
     n = next(iter(leaves(xs))).shape[0]
-    graph.load(carry)
-    bufs = None
-    for k in range(n):
-        out = graph.replay(tree_map(lambda a: a[k], xs))
-        if bufs is None:
-            outs = tree_map(lambda a: a.new_empty((n, *a.shape)), out)
-            bufs = list(leaves(outs))
-        for buf, o in zip(bufs, leaves(out)):
-            buf[k].copy_(o)
-    return graph.state(), outs
+    with TRACER.span("entry.scan") as sp:
+        with TRACER.span("entry.signature"):
+            graph = select(graph, entry, step, carry, tree_map(lambda a: a[0], xs))
+        if graph is None:
+            return tree_scan(step, carry, xs)
+        sp.set(replays=n, copies=graph.copies(n))
+        graph.load(carry)
+        bufs = None
+        for k in range(n):
+            out = graph.replay(tree_map(lambda a: a[k], xs))
+            if bufs is None:
+                outs = tree_map(lambda a: a.new_empty((n, *a.shape)), out)
+                bufs = list(leaves(outs))
+            for buf, o in zip(bufs, leaves(out)):
+                buf[k].copy_(o)
+        return graph.state(), outs

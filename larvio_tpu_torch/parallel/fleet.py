@@ -173,10 +173,7 @@ def make_sharded_fleet(cfg: VioConfig, group=None, device="cuda", graph=None):
         else:
             if captured is None:
                 captured = CapturedStep(step, vs, (feats, imu))
-            else:
-                captured.load(vs)
-            outs, sums = tree_map(torch.clone, captured.replay((feats, imu)))
-            vs = captured.state()
+            vs, (outs, sums) = captured(vs, (feats, imu))
         return vs, outs, dict(zip(METRIC_KEYS, sums.unbind()))
 
     return init_fn, step_fn
