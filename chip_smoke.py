@@ -11,7 +11,11 @@ Phases, each raising on failure (the script then exits non-zero):
    nvcc, or reuses an up-to-date build;
 2. kernels: K1 (pyramidal LK, also on a ragged 45-slot table) and the fused
    ORB describe kernel against their plain PyTorch versions on the card at
-   main-path shapes (480x752 frames, 200 feature slots);
+   main-path shapes (480x752 frames, 200 feature slots); the fused detection
+   kernel against the plain chain ``grid_topk(nms(shi_tomasi_response(.)))``
+   bit for bit (scores and positions of every lane) for one image and
+   ``B_FLEET`` and ``B_WIDE`` lanes of two rendered frames, lane b with its
+   own image noise, one launch per call;
 2b. batched kernels: K3 (LK over 8 lanes, each lane its own frame pair)
    against the batched plain version and against K1 per lane, and the
    batched describe launch against the plain version per lane and against
@@ -23,9 +27,10 @@ Phases, each raising on failure (the script then exits non-zero):
    final state; phase 3i's turns time both), with eager and captured
    ms/frame; checks initialization,
    resets, finiteness, track counts, ATE, that SLAM features entered the
-   state (``n_slam`` >= 3 at some frame) and that every frame launched K1
-   and the describe kernel once (eager: the wrappers' counts; captured: the
-   graph's replays times what its capture counted, no wrapper running);
+   state (``n_slam`` >= 3 at some frame) and that every frame launched K1,
+   the detection and the describe kernel once (eager: the wrappers' counts;
+   captured: the graph's replays times what its capture counted, no wrapper
+   running);
 3k. (run before phase 3) ``jax.jit``'s compile-once cache
    (``core/graph.py::CACHE``): first the re-capture turns
    (``tools/torch_recapture.py``: the main path's step captured explicitly,
@@ -53,8 +58,8 @@ Phases, each raising on failure (the script then exits non-zero):
    ``jit_pipeline_step``, tail through ``run_image_sequence``: one graph, at
    most one capture); checks that the host initializer injected a dynamic
    result, > 175 initialized frames, 0 resets, finiteness, ATE < 0.15 m and
-   one K1 and one describe launch per frame; the head's ms per frame beside
-   the eager step's on the same frames;
+   one K1, one detection and one describe launch per frame; the head's ms
+   per frame beside the eager step's on the same frames;
 3d. the dataset path: ``cli.main(["export-sim", ...])`` writes an 8 s EuRoC
    tree from frames rendered on the card, ``cli.main(["run", ...])`` reads it
    back (PNG decode, prefetch, the streaming loop replaying the cache's step
@@ -69,9 +74,9 @@ Phases, each raising on failure (the script then exits non-zero):
 3j. diagnostics on phase 3d's tree: ``run --plot --live --live-every 40``
    (both figures decoded: size, the estimate, ground truth and features
    drawn; the TUM file phase 3d's); ``--debug-nans run`` (the eager step,
-   every stage's outputs checked: phase 3d's TUM file byte for byte, one K1
-   and one describe launch per frame) and on a copy whose IMU file holds one
-   NaN accelerometer row after initialization (raises, naming
+   every stage's outputs checked: phase 3d's TUM file byte for byte, one K1,
+   one detection and one describe launch per frame) and on a copy whose IMU
+   file holds one NaN accelerometer row after initialization (raises, naming
    ``filt.propagate``); ``track_frame(debug=True)`` over frames 60-79 of
    phase 3's frames (the masks nested, poses and state bit-identical to the
    captured step's); the native CSV loader against ``np.loadtxt`` on the
@@ -79,16 +84,19 @@ Phases, each raising on failure (the script then exits non-zero):
    over 3 frames in a process of its own (its first capture in the trace),
    its trace summed per stage (``tools/torch_trace_analyze.py``:
    the twelve stages hold >= 90% of the eager warm-up steps' device time, K1
-   under ``fe.lk``, describe under ``fe.orb``; the replays mapped onto them);
+   under ``fe.lk``, the detection kernel under ``fe.detect`` and none of the
+   plain chain's padding, max pools or radix sort there, describe under
+   ``fe.orb``; the replays mapped onto them);
 3e. ``bench.py``'s workload (``tools/torch_bench.py::bench_workload``: 400
    frames, IMU noise and biases, 2 gray levels of image noise) once through
-   the captured single path: ATE < 0.13 m, 0 resets, finite, one K1 and one
-   describe launch per frame;
+   the captured single path: ATE < 0.13 m, 0 resets, finite, one K1, one
+   detection and one describe launch per frame;
 3f. the fisheye configuration (``configs/uzh_fpv.yaml``: 640x480
-   equidistant, a 4x5 grid of 8 corners, 3 levels): K1 and describe against
-   their plain versions at its shapes, then 160 frames through the captured
-   image pipeline: 0 resets, mean tracks > 40, ATE < 0.2 m, one K1 and one
-   describe launch per frame (``tests/test_consistency.py``'s gates);
+   equidistant, a 4x5 grid of 8 corners, 3 levels): K1, describe and the
+   detection kernel (phase 2's checks) against their plain versions at its
+   shapes, then 160 frames through the captured image pipeline: 0 resets,
+   mean tracks > 40, ATE < 0.2 m, one K1, one detection and one describe
+   launch per frame (``tests/test_consistency.py``'s gates);
 3g. ``tests/test_consistency.py``'s feature-level workloads as two lanes of
    one batched ``api.run_sequence`` (15 s each), captured, its first 100
    frames equal to an eager run's bit for bit: position NEES < 12 per axis;
@@ -120,10 +128,10 @@ Phases, each raising on failure (the script then exits non-zero):
    and one captured run, equal bit for bit (the NaN lane included); checks
    every lane's health, lane 0's SLAM engagement and its ATE against the
    single path's, that the NaN lane holds no SLAM slot on its reset frames,
-   the fleet metrics and that every frame launched K3 and the batched
-   describe kernel once for all lanes, ``lane_mm`` and ``lane_trsm`` once
-   per call of ``core/linalg.py::mm_lanes`` and ``solve_tri_lanes``
-   (``LANE_LAUNCHES_PER_STEP``), and no one-lane kernel;
+   the fleet metrics and that every frame launched K3, the batched
+   detection and the batched describe kernel once for all lanes, ``lane_mm``
+   and ``lane_trsm`` once per call of ``core/linalg.py::mm_lanes`` and
+   ``solve_tri_lanes`` (``LANE_LAUNCHES_PER_STEP``), and no one-lane kernel;
 4d. the fleet at 256 lanes: phase 4's workload for ``B_WIDE`` = 256
    instances (lane b with the image noise of seed b, the last lane with the
    NaN accelerometer samples, lane ``COPY_LANE`` with lane 0's frames),
@@ -227,6 +235,7 @@ from larvio_tpu_torch.ops.cuda_lib import kernel_launches
 from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
 from larvio_tpu_torch.core import linalg
 from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
+from larvio_tpu_torch.ops.detect_cuda import detect_corners
 from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
@@ -473,9 +482,77 @@ def _slab_positions(rng, H, W, F):
     return p
 
 
+DETECT_WIDTHS = (1, B_FLEET, B_WIDE)  # one image, phase 4's and phase 4d's fleets
+
+
+def _detect_args(cfg):
+    """``track_frame``'s detection arguments: grid rows and columns, corners
+    per cell, border, NMS radius."""
+    fc = cfg.frontend
+    return fc.grid_rows, fc.grid_cols, fc.grid_max_feature_num, max(fc.patch_size, 18), fc.min_distance // 2
+
+
+def _detect_work(shape, args):
+    """(bytes, f32 operations) of one detection call: the image read once,
+    the scores and positions written once; per pixel the plain chain's
+    operations: the Scharr passes 16, the products 3, the box filters 54,
+    the eigenvalue 10, the NMS maxima 4 r, its test and the candidate 2."""
+    rows, cols, k, _, r = args
+    px = int(np.prod(shape))
+    n_lanes = px // (shape[-1] * shape[-2])
+    return 4 * px + 12 * n_lanes * rows * cols * k, px * (16 + 3 + 54 + 10 + 4 * r + 2)
+
+
+def _detect_gate(dev, rend, frames, label):
+    """The detection kernel against the plain chain on the card, at
+    ``rend``'s camera and configuration, for one image and ``B_FLEET`` and
+    ``B_WIDE`` lanes (lane b frame b mod 2 of ``frames`` with 2 gray levels
+    of seeded noise): every lane's scores and positions bit for bit, one
+    launch per call. Returns its timing rows, the plain chain's time taken
+    here (before any profiler, and before the fleets hold the card's
+    memory)."""
+    args = _detect_args(rend.cfg)
+    rows, cols, k, border, r = args
+    gen = torch.Generator(device=dev).manual_seed(11)
+    timings, lines = [], []
+    for B in DETECT_WIDTHS:
+        x = frames[0]
+        if B > 1:
+            x = (frames[torch.arange(B, device=dev) % frames.shape[0]]
+                 + 2.0 * torch.randn((B, *frames.shape[-2:]), generator=gen, device=dev)).contiguous()
+
+        def kern(x=x):
+            return detect_corners(x, rows, cols, k, border, r)
+
+        def plain(x=x):
+            return grid_topk(nms(shi_tomasi_response(x), r), rows, cols, k, border=border)
+
+        _reset_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        want = {"detect_corners": 1} if B == 1 else {"detect_corners_batched": 1}
+        assert {n: v for n, v in kernel_launches().items() if v} == want, f"detect_corners{label}: {kernel_launches()}"
+        assert _bits_equal(got, plain()), f"detect_corners{label}: {B} lane(s) differ from the plain chain"
+        n_bytes, n_ops = _detect_work(tuple(x.shape), args)
+        bound, by = _bound(n_bytes, n_ops)
+        lines.append(f"B = {B} bound {bound:.6f} ms ({by})")
+        name = "detect_corners" if B == 1 else f"detect_corners_b{B}"
+        row = {"name": name, "route": "cuda", "source": "larvio_tpu_torch/csrc/detect.cu",
+               "replaces": "larvio_tpu/ops/detect.py (XLA operations, no TPU kernel)", "max_abs_err": 0.0,
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "plain_ms": _time_ms(plain, 20 if B < B_WIDE else 5)}
+        timings.append(_Timing(row, "detect_kernel", kern, 100 if B < B_WIDE else 20, {}))
+    H, W = frames.shape[-2:]
+    print(f"detect_corners{label}: {W}x{H}, a {rows}x{cols} grid of {k}, border {border}, radius {r}: the plain "
+          f"chain's scores and positions bit for bit at every lane, one launch per call; " + "; ".join(lines),
+          flush=True)
+    return timings
+
+
 def phase_kernels(dev, sim, rend, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2, label=""):
     """K1 and the one-lane describe against their plain versions on frames of
-    ``rend`` with an F-slot table (at most 20 ``per_cell`` live corners)."""
+    ``rend`` with an F-slot table (at most 20 ``per_cell`` live corners), and
+    the detection kernel (``_detect_gate``)."""
     img0, img1 = render_frames(rend, sim, [6.0, 6.05])
     H, W = img0.shape
     pos, valid, n = _lk_table(img0, dev, F, per_cell, min_n)
@@ -544,7 +621,7 @@ def phase_kernels(dev, sim, rend, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2, labe
                  "bound_ms": d_bound, "bound_by": d_by, "library_ms": None},
                 "orb_describe_kernel", lambda: describe(img, pos2, dvalid), 200,
                 {"plain_ms": (lambda: _describe_plain(img, pos2, dvalid), 200)}),
-    ]
+    ] + _detect_gate(dev, rend, torch.stack([img0, img1]), label)
 
 
 def phase_kernels_batched(dev, sim, rend):
@@ -882,15 +959,21 @@ def _reset_counts():
     lk_track_cuda.launches = lk_track_cuda.launches_batched = 0
     describe.launches = describe.launches_batched = 0
     lane_mm.launches = lane_solve_triangular.launches = 0
+    detect_corners.launches = detect_corners.launches_batched = 0
+
+
+# the front-end kernels, one launch each per frame: a single path's, a fleet's
+FRONT_END_LAUNCHES = {False: ("lk_track", "detect_corners", "orb_describe"),
+                      True: ("lk_track_batched", "detect_corners_batched", "orb_describe_batched")}
 
 
 def _launch_gate(launches: dict, T: int, label: str, batched: bool = False, cfg=None) -> None:
-    """One launch per frame of the path's two front-end kernels, none of the
-    other two; a fleet path (``batched``, configuration ``cfg``) launches
+    """One launch per frame of the path's three front-end kernels
+    (``FRONT_END_LAUNCHES``), none of the other three; a fleet path (``batched``, configuration ``cfg``) launches
     ``lane_mm`` and ``lane_trsm`` once per call of ``mm_lanes`` and
     ``solve_tri_lanes`` (``LANE_LAUNCHES_PER_STEP`` per batched frame), a
     single path neither."""
-    names = ("lk_track_batched", "orb_describe_batched") if batched else ("lk_track", "orb_describe")
+    names = FRONT_END_LAUNCHES[batched]
     lanes = LANE_LAUNCHES_PER_STEP[cfg] if batched else {}
     for name, n in launches.items():
         want = T if name in names else T * lanes.get(name, 0)
@@ -1022,8 +1105,8 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
     if cfg.filter.max_slam_features:
         slam = f", n_slam max {_slam_gate(o, label)} mean {o['n_slam'][o['initialized']].mean():.2f}"
     print(f"{label}: {T} frames, {n_init} initialized, 0 resets, mean n_tracks "
-          f"{mean_tracks:.2f}{slam}, ATE {ate:.7f} m (gate {ATE_GATE}); one K1 and one describe launch "
-          f"per frame; {how} on {card}", flush=True)
+          f"{mean_tracks:.2f}{slam}, ATE {ate:.7f} m (gate {ATE_GATE}); one K1, one detection and one "
+          f"describe launch per frame; {how} on {card}", flush=True)
     return launches, ate, frames, graph, outs
 
 
@@ -1132,8 +1215,8 @@ def phase_jit(dev, cfg, data, frames, card) -> None:
               + f" ms per call over frames {lo}-{hi - 1} (turns eager, jitted, jitted, eager)", flush=True)
     print(f"jit cache: run_image_sequence captured {captures} time(s), its second call 0; jit_pipeline_step, "
           f"api.step and jit_fleet_step per frame equal the captured scans bit for bit (outputs and final "
-          f"state; {T} frames, the fleet's NaN lane included), one K1 and one describe launch per frame through "
-          f"the replays; {CACHE.captures - n0} captures for {len(CACHE)} signatures so far; "
+          f"state; {T} frames, the fleet's NaN lane included), one K1, one detection and one describe "
+          f"launch per frame through the replays; {CACHE.captures - n0} captures for {len(CACHE)} signatures so far; "
           f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
 
 
@@ -1208,7 +1291,7 @@ def phase_flexible(dev, cfg, card):
           f"(t={injected[0].time:.2f} s, |v|={np.linalg.norm(injected[0].v):.3f} m/s), {int(m.sum())} "
           f"initialized, 0 resets, mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max "
           f"{int(o['n_slam'].max())}, ATE {ate:.7f} m (gate {FLEX_ATE_GATE}); head and tail replay one graph "
-          f"({captures} captures), one K1 and one describe launch per frame; {n_head} head frames "
+          f"({captures} captures), one K1, one detection and one describe launch per frame; {n_head} head frames "
           f"(jit_pipeline_step) {1e3 * sum(head_s) / n_head:.3f} ms per frame against the eager step's "
           f"{eager_ms:.3f} on the same frames; {1e3 * wall / T:.3f} ms/frame in all on {card}", flush=True)
     return frame_digests(imgs)
@@ -1300,7 +1383,7 @@ def phase_dataset(dev, cfg, card, tmp: str):
     assert ate < ATE_GATE, f"cli run: ATE {ate:.4f} m >= {ATE_GATE}"
     print(f"cli export-sim: {T} frames in {export_s:.3f} s; cli run: {int(init.sum())} initialized, "
           f"0 resets, mean n_tracks {mean_tracks:.2f}, ATE {ate:.5f} m (gate {ATE_GATE}); TUM and "
-          f"metrics files complete; one K1 and one describe launch per frame (replays)", flush=True)
+          f"metrics files complete; one K1, one detection and one describe launch per frame (replays)", flush=True)
 
     # --chunk 8: the same frames staged 8 per upload once initialized
     traj8 = os.path.join(tmp, "traj8.txt")
@@ -1309,7 +1392,7 @@ def phase_dataset(dev, cfg, card, tmp: str):
     with open(traj, "rb") as f1, open(traj8, "rb") as f8:
         assert f1.read() == f8.read(), "cli run --chunk 8: the TUM file differs from --chunk 1's"
     print(f"cli run --chunk 8: TUM file byte-identical to --chunk 1's ({T - len(t)} frames before "
-          f"the first pose one at a time); one K1 and one describe launch per frame", flush=True)
+          f"the first pose one at a time); one K1, one detection and one describe launch per frame", flush=True)
 
     # resume: one pass of the reader split in two (frames(skip_frames=K)
     # would seed frame K's IMU interval from t = 0, as the JAX package's
@@ -1350,6 +1433,7 @@ def phase_dataset(dev, cfg, card, tmp: str):
 
 
 STAGE_SHARE_GATE = 0.90  # of an eager window's device time inside the twelve stages
+DETECT_CHAIN_KERNELS = ("max_pool", "replication_pad", "RadixSort")  # the plain chain's padding, NMS and sort
 PLOT_PX_GATE = 200  # pixels of the estimate's colour in a figure
 
 
@@ -1359,18 +1443,22 @@ def _stages_line(sec: dict) -> str:
 
 def _stage_gates(res: dict, label: str) -> None:
     """The eager steps of a trace name all twelve stages, hold at least
-    ``STAGE_SHARE_GATE`` of their device time, and every LK / describe
-    launch sits under ``fe.lk`` / ``fe.orb`` (one of each per step)."""
+    ``STAGE_SHARE_GATE`` of their device time, every LK / detection /
+    describe launch sits under ``fe.lk`` / ``fe.detect`` / ``fe.orb`` (one of
+    each per step), and none of the plain detection chain's passes
+    (``DETECT_CHAIN_KERNELS``) runs under ``fe.detect``."""
     sec = res["eager"]
     assert sec is not None, f"{label}: no eager step with device operations in the trace"
     missing = [k for k in STAGES if not sec["stages"][k]["ops"]]
     assert not missing, f"{label}: no device operation under {missing}"
     assert sec["attributed_share"] >= STAGE_SHARE_GATE, \
         f"{label}: {sec['attributed_share']:.4f} of the device time in the stages (gate {STAGE_SHARE_GATE})"
-    for frag, st in (("lk_track_kernel", "fe.lk"), ("orb_describe_kernel", "fe.orb")):
+    for frag, st in (("lk_track_kernel", "fe.lk"), ("detect_kernel", "fe.detect"), ("orb_describe_kernel", "fe.orb")):
         got = trace_analyze.kernel_stages(res, frag)
         assert got == {st: sec["frames"]}, f"{label}: {frag} launches by stage {dict(got)}, " \
                                            f"{sec['frames']} under {st} expected"
+    chain = [n for n, st, *_ in res["rows"]["eager"] if st == "fe.detect" and any(f in n for f in DETECT_CHAIN_KERNELS)]
+    assert not chain, f"{label}: the plain detection chain's kernels under fe.detect: {sorted(set(chain))[:3]}"
 
 
 def _replays_line(res: dict, stages: bool = True) -> str:
@@ -1501,8 +1589,8 @@ def phase_diagnostics(dev, cfg, card, tmp: str, root: str, traj: str, frames, gr
         msg = str(e)
     assert "stage filt.propagate" in msg, f"--debug-nans named another stage: {msg}"
     print(f"--debug-nans: the clean tree's {T} frames (eager, {1e3 * dbg_s / T:.3f} ms/frame with the "
-          f"checks) write phase 3d's TUM file byte for byte, one K1 and one describe launch per frame; "
-          f"a NaN accelerometer row before frame {NAN_FRAME} raises: {msg}", flush=True)
+          f"checks) write phase 3d's TUM file byte for byte, one K1, one detection and one describe "
+          f"launch per frame; a NaN accelerometer row before frame {NAN_FRAME} raises: {msg}", flush=True)
 
     # -- track_frame(debug=True) against the captured step
     lo, hi = DEBUG_FRAMES
@@ -1620,8 +1708,8 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
           flush=True)
     per = LANE_LAUNCHES_PER_STEP[cfg]
     print(f"{label} throughput: {B * T / wall:.3f} instance-frames/s aggregate (captured); {how}; one "
-          f"K3 and one batched describe launch per frame, {per['lane_mm']} lane_mm and {per['lane_trsm']} "
-          f"lane_trsm, no one-lane launch; on {card}", flush=True)
+          f"K3, one batched detection and one batched describe launch per frame, {per['lane_mm']} lane_mm "
+          f"and {per['lane_trsm']} lane_trsm, no one-lane launch; on {card}", flush=True)
     return FleetRun(cfg, ps, launches, frames, graph, outs, state)
 
 
@@ -1731,7 +1819,7 @@ def phase_repro(ref: dict, card: str) -> None:
 
 def _image_run(dev, cfg, frames, label: str):
     """``frames`` through the captured ``run_image_sequence`` once, from a
-    fresh state; checks one K1 and one describe launch per frame (replays)
+    fresh state; checks one K1, one detection and one describe launch per frame (replays)
     and finite outputs. Returns (outputs as numpy arrays, wall seconds)."""
     T = frames.t.shape[0]
     ps = init_pipeline_state(cfg, dev)
@@ -1766,7 +1854,7 @@ def phase_bench(dev, card, joseph: bool = False):
     print(f"{label} (bench.py{' --joseph' if joseph else ''}'s, {frames.image.shape[2]}x{frames.image.shape[1]}): "
           f"{T} frames, {int(m.sum())} initialized, 0 resets, "
           f"mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max {int(o['n_slam'].max())}, ATE "
-          f"{ate:.7f} m (gate {BENCH_ATE_GATE}; the JAX package: {jax}); one K1 and one "
+          f"{ate:.7f} m (gate {BENCH_ATE_GATE}; the JAX package: {jax}); one K1, one detection and one "
           f"describe launch per frame; {1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
     return ate
 
@@ -1778,8 +1866,9 @@ FISHEYE_ATE_GATE = 0.2  # m (tests/test_consistency.py:96)
 def phase_fisheye(dev, card):
     """Phase 3f: the UZH-FPV configuration (640x480 equidistant fisheye, a
     4x5 grid of 8 corners, 3 pyramid levels) through the image pipeline, the
-    JAX package's ``test_fisheye_image_pipeline_end_to_end``; first K1 and
-    the describe kernel against their plain versions at its shapes."""
+    JAX package's ``test_fisheye_image_pipeline_end_to_end``; first K1, the
+    describe and the detection kernel against their plain versions at its
+    shapes."""
     cfg = load_yaml(os.path.join(REPO, "configs", "uzh_fpv.yaml"))
     assert cfg.camera.distortion_model == "equidistant"
     sim = Simulator(SimConfig(duration=8.0, landmark_z=(4.0, 10.0)), cfg)
@@ -1801,7 +1890,7 @@ def phase_fisheye(dev, card):
     assert ate < FISHEYE_ATE_GATE, f"fisheye: ATE {ate:.4f} m >= {FISHEYE_ATE_GATE}"
     print(f"fisheye (uzh_fpv.yaml, {imgs.shape[2]}x{imgs.shape[1]}, {fc.max_features} slots): {T} frames, "
           f"{int(m.sum())} initialized, 0 resets, mean n_tracks {tracks:.2f} (gate {FISHEYE_TRACKS_GATE}), "
-          f"ATE {ate:.5f} m (gate {FISHEYE_ATE_GATE}); one K1 and one describe launch per frame; "
+          f"ATE {ate:.5f} m (gate {FISHEYE_ATE_GATE}); one K1, one detection and one describe launch per frame; "
           f"{1e3 * wall / T:.3f} ms/frame on {card}", flush=True)
 
 

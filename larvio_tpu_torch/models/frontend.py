@@ -1,14 +1,15 @@
 """IMU-aided feature-tracking front-end (port of
 ``larvio_tpu/models/frontend.py``): pyramid, gyro-predicted pyramidal LK
-(kernel K1 on the card), two-point RANSAC, Shi-Tomasi grid replenishment,
-the ORB descriptor gate (the fused describe kernel on the card), then
-``FrameFeatures``.
+(kernel K1 on the card), two-point RANSAC, Shi-Tomasi grid replenishment
+(the fused detection kernel on the card), the ORB descriptor gate (the
+fused describe kernel on the card), then ``FrameFeatures``.
 
 The feature table is fixed-slot: a track keeps its slot for life, slots
 free on death and refill from per-cell detection candidates the same frame.
 Every tensor may carry a leading instance axis (a fleet's lanes): image
 (B, H, W), tables (B, F, ...), per-frame scalars (B,). On the card a fleet
-launches K3 and the batched describe kernel once per frame for all lanes.
+launches K3, the batched detection and the batched describe kernel once per
+frame for all lanes.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from larvio_tpu_torch.models.msckf import FrameFeatures
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.models.state import extrinsic_rotation
 from larvio_tpu_torch.ops import prng
-from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
+from larvio_tpu_torch.ops.detect_cuda import detect_corners
 from larvio_tpu_torch.ops.image import build_pyramid, in_bounds
 from larvio_tpu_torch.ops.lk import make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
@@ -154,10 +155,10 @@ def track_frame(cfg: VioConfig, ts: TrackerState, image: torch.Tensor, imu: ImuB
 
     # ---- grid replenishment ---------------------------------------------------
     with stage("fe.detect"):
-        resp = nms(shi_tomasi_response(image), radius=fcfg.min_distance // 2)
-        scores, cand_xy = grid_topk(
-            resp, fcfg.grid_rows, fcfg.grid_cols, fcfg.grid_max_feature_num,
+        scores, cand_xy = detect_corners(
+            image, fcfg.grid_rows, fcfg.grid_cols, fcfg.grid_max_feature_num,
             border=max(fcfg.patch_size, 18),  # ORB needs a 17px margin
+            radius=fcfg.min_distance // 2,
         )
         n_cells = fcfg.grid_rows * fcfg.grid_cols
         ch = -(-H // fcfg.grid_rows)

@@ -104,19 +104,28 @@ def library() -> ctypes.CDLL:
             i32, vp,  # columns of X per block, stream
         ]
         lib.larvio_lane_trsm.restype = i32
+        lib.larvio_detect_corners.argtypes = [
+            vp, i32, i32, i32,  # image, lanes, H, W
+            i32, i32, i32, i32, i32,  # grid rows, grid cols, k, border, NMS radius
+            vp, vp, vp,  # scores, xy, stream
+        ]
+        lib.larvio_detect_corners.restype = i32
         _lib = lib
     return _lib
 
 
 def kernel_launches() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
+    from larvio_tpu_torch.ops.detect_cuda import detect_corners
     from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
     from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
     from larvio_tpu_torch.ops.orb import describe
 
     return {"lk_track": lk_track_cuda.launches, "lk_track_batched": lk_track_cuda.launches_batched,
             "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched,
-            "lane_mm": lane_mm.launches, "lane_trsm": lane_solve_triangular.launches}
+            "lane_mm": lane_mm.launches, "lane_trsm": lane_solve_triangular.launches,
+            "detect_corners": detect_corners.launches,
+            "detect_corners_batched": detect_corners.launches_batched}
 
 
 def check(code: int, name: str) -> None:

@@ -17,10 +17,17 @@ card: >= 97% of the valid finite slots bit-identical, >= 99.9% of their bits
 equal, none more than 8 bits apart (the blur is bit-exact; the moments are
 summed in another order than ``torch.sum``, so a rotated sample may round
 the other way); invalid slots are 0; each batched lane equals its one-lane
-launch bit for bit. The sharded fleet's dry run runs with two ``gloo`` ranks
-sharing the card. A sequence rendered twice on the card is equal bit for bit
-(the blobs' fixed order) and within ``tests/test_torch_render.py``'s
-tolerance of the CPU's frames.
+launch bit for bit. The fused detection kernel equals the plain chain
+``grid_topk(nms(shi_tomasi_response(.)))`` on the card bit for bit (scores
+and positions) at both benchmark shapes (752x480 with k 10, 640x480 with k
+8) for one image and 8 and 256 lanes of rendered frames, on adversarial
+images (constant, a lattice of equal maxima across cell edges, corners in
+the halo of the image border, noise), with other grids (padding rows and
+columns), k, borders and NMS radii, inside a captured graph's replay, and
+lane b equals itself at 8 and at 256 lanes. The sharded fleet's dry run runs
+with two ``gloo`` ranks sharing the card. A sequence rendered twice on the
+card is equal bit for bit (the blobs' fixed order) and within
+``tests/test_torch_render.py``'s tolerance of the CPU's frames.
 """
 
 import numpy as np
@@ -34,6 +41,7 @@ from larvio_tpu_torch.data.render import render_sequence
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.ops import orb
 from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
+from larvio_tpu_torch.ops.detect_cuda import detect_corners
 from larvio_tpu_torch.ops.image import build_pyramid
 from larvio_tpu_torch.ops.lk import lk_track, make_grad_pyramid
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
@@ -225,12 +233,154 @@ def test_describe_kernel_matches_plain(dev, size):
                               valid & torch.isfinite(pos).all(dim=-1))
 
 
+DETECT_SHAPES = {"euroc": (480, 752, 10), "uzh_fpv": (480, 640, 8)}  # H, W, corners per cell
+DETECT_BORDER, DETECT_RADIUS = 18, 7  # track_frame's: max(patch_size, 18), min_distance // 2
+
+
+def _detect_plain(img, k):
+    return grid_topk(nms(shi_tomasi_response(img), DETECT_RADIUS), 4, 5, k, border=DETECT_BORDER)
+
+
+def _detect(img, k):
+    return detect_corners(img, 4, 5, k, DETECT_BORDER, DETECT_RADIUS)
+
+
+def _assert_same_bits(got, ref):
+    assert got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32)), "scores differ"
+    assert torch.equal(got[1], ref[1]), "positions differ"
+
+
+@pytest.fixture(scope="module")
+def detect_lanes(dev):
+    """256 lanes per benchmark shape: 16 rendered frames, lane b frame b mod
+    16 with 2 gray levels of seeded noise of its own (a fleet's lanes)."""
+    out = {}
+    for name, (H, W, _) in DETECT_SHAPES.items():
+        s = W / 752
+        cfg = VioConfig(camera=CameraConfig(
+            width=W, height=H, intrinsics=tuple(v * s for v in (458.654, 457.296, 367.215, 248.375))))
+        sim = Simulator(SimConfig(duration=8.0), cfg)
+        frames = render_sequence(cfg, sim, np.linspace(0.5, 7.5, 16).astype(np.float32), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        noise = 2.0 * torch.randn((256, H, W), generator=gen, device=dev)
+        out[name] = (frames[torch.arange(256, device=dev) % 16] + noise).contiguous()
+    return out
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 256])
+@pytest.mark.parametrize("shape", list(DETECT_SHAPES))
+def test_detect_kernel_matches_plain(dev, detect_lanes, shape, lanes):
+    """One launch per call (one image: ``launches``; a lane axis:
+    ``launches_batched``), the plain chain's bits on every lane."""
+    k = DETECT_SHAPES[shape][2]
+    img = detect_lanes[shape][0] if lanes == 1 else detect_lanes[shape][:lanes]
+    n0, n0_b = detect_corners.launches, detect_corners.launches_batched
+    got = _detect(img, k)
+    torch.cuda.synchronize()
+    assert (detect_corners.launches - n0, detect_corners.launches_batched - n0_b) == ((1, 0) if lanes == 1 else (0, 1))
+    _assert_same_bits(got, _detect_plain(img, k))
+    assert (got[0] > 15.0).sum().item() >= 20 * lanes  # corners above the fast threshold
+
+
+@pytest.mark.parametrize("shape", list(DETECT_SHAPES))
+def test_detect_kernel_lane_independent_of_width(dev, detect_lanes, shape):
+    """Lane b's bits at 256 lanes equal its bits at 8 lanes and alone."""
+    k = DETECT_SHAPES[shape][2]
+    imgs = detect_lanes[shape]
+    wide, narrow = _detect(imgs, k), _detect(imgs[:8].contiguous(), k)
+    for b in range(8):
+        one = _detect(imgs[b], k)
+        _assert_same_bits((wide[0][b], wide[1][b]), (narrow[0][b], narrow[1][b]))
+        _assert_same_bits(one, (narrow[0][b], narrow[1][b]))
+
+
+@pytest.mark.parametrize("grid,k,border,radius", [
+    ((7, 6), 20, 0, 0),  # padding rows and columns, no border, a 1 x 1 NMS window
+    ((4, 5), 32, 25, 3),
+    ((3, 4), 5, 18, 11),
+    ((2, 3), 16, 40, 20),  # a 41 x 41 window: more shared memory than the default 48 KB
+])
+def test_detect_kernel_other_arguments(dev, detect_lanes, grid, k, border, radius):
+    """Grids with padding, other k, borders and NMS radii: the plain
+    chain's bits on 8 lanes and on one image."""
+    imgs = detect_lanes["euroc"][:8]
+    for img in (imgs, imgs[5]):
+        got = detect_corners(img, *grid, k, border, radius)
+        _assert_same_bits(got, grid_topk(nms(shi_tomasi_response(img), radius), *grid, k, border=border))
+
+
+def _adversarial(H, W):
+    """A constant image; a lattice of equal maxima on the cell edges and
+    every 7 px (ties across cells, NMS windows and halos); corners 0-12 px
+    from each image border, in the kernel's halo; uniform noise."""
+    const = np.full((H, W), 100.0, np.float32)
+    lattice = np.full((H, W), 50.0, np.float32)
+    ch, cw = -(-H // 4), -(-W // 5)
+    ys = sorted({*range(3, H, 7), *range(0, H, ch), *(y - 1 for y in range(ch, H, ch))})
+    xs = sorted({*range(3, W, 7), *range(0, W, cw), *(x - 1 for x in range(cw, W, cw))})
+    lattice[np.ix_(ys, xs)] = 90.0
+    edges = np.full((H, W), 60.0, np.float32)
+    for d in range(0, 13, 3):
+        for y, x in ((d, W // 3 + 5 * d), (H - 1 - d, W // 2 + 5 * d), (H // 3 + 5 * d, d),
+                     (H // 2 + 5 * d, W - 1 - d), (d, d), (H - 1 - d, W - 1 - d)):
+            edges[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2] = 200.0
+    noise = np.random.default_rng(5).uniform(0.0, 255.0, (H, W)).astype(np.float32)
+    return np.stack([const, lattice, edges, noise])
+
+
+@pytest.mark.parametrize("shape", list(DETECT_SHAPES))
+def test_detect_kernel_adversarial_images(dev, shape):
+    H, W, k = DETECT_SHAPES[shape]
+    imgs = torch.as_tensor(_adversarial(H, W), device=dev)
+    got = _detect(imgs, k)
+    _assert_same_bits(got, _detect_plain(imgs, k))
+    for b in range(imgs.shape[0]):
+        _assert_same_bits(_detect(imgs[b], k), (got[0][b], got[1][b]))
+    # the constant image: every score 0, the first k in-cell indices win
+    assert not got[0][0].any().item()
+    assert torch.equal(got[1][0][0, :, 0], torch.arange(k, device=dev, dtype=torch.float32))
+
+
+def test_detect_kernel_in_a_captured_graph(dev, detect_lanes):
+    """The kernel captured in a CUDA graph: the capture counts one launch,
+    each replay gives the eager call's bits for what the input holds then."""
+    k = DETECT_SHAPES["euroc"][2]
+    imgs = detect_lanes["euroc"]
+    static = imgs[:8].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _detect(static, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = detect_corners.launches_batched
+    with torch.cuda.graph(graph):
+        out = _detect(static, k)
+    assert detect_corners.launches_batched == n0 + 1
+    for lo in (8, 100):
+        static.copy_(imgs[lo:lo + 8])
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_same_bits(out, _detect(imgs[lo:lo + 8].contiguous(), k))
+        _assert_same_bits(out, _detect_plain(imgs[lo:lo + 8], k))
+    assert detect_corners.launches_batched == n0 + 3
+
+
 def test_wrappers_reject_bad_inputs(dev):
     img = torch.zeros((64, 64), device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
         orb.describe(img, torch.zeros((4, 2), device=dev), torch.ones(4, dtype=torch.bool, device=dev))
     with pytest.raises(ValueError):  # valid must be bool
         orb.describe(img.float(), torch.zeros((4, 2), device=dev), torch.ones(4, device=dev))
+    with pytest.raises(ValueError):  # float64
+        detect_corners(img, 4, 5, 10, 18, 7)
+    with pytest.raises(ValueError):  # two leading axes
+        detect_corners(torch.zeros((2, 2, 64, 64), device=dev), 4, 5, 10, 18, 7)
+    with pytest.raises(RuntimeError):  # more than 32 corners per cell
+        detect_corners(img.float(), 4, 5, 40, 18, 7)
+    with pytest.raises(RuntimeError):  # a cell and its halo wider than 512 columns
+        detect_corners(torch.zeros((64, 600), device=dev), 1, 1, 10, 18, 7)
     p = [torch.zeros((64, 64), device=dev)]
     with pytest.raises(ValueError):
         lk_track_cuda(p, p, p, p, torch.zeros((4, 2), device=dev), torch.zeros((4, 2), device=dev),
@@ -263,6 +413,7 @@ def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
     launches = {k: v * graph.replays for k, v in graph.launches_per_replay.items()}
     assert per_step["lane_mm"] > 0 and per_step["lane_trsm"] > 0
     assert launches == {"lk_track": 0, "lk_track_batched": T, "orb_describe": 0, "orb_describe_batched": T,
+                        "detect_corners": 0, "detect_corners_batched": T,
                         **{k: T * v for k, v in per_step.items()}}
     assert outs.p.shape == (T, B, 3) and torch.isfinite(outs.p).all().item()
     assert (outs.initialized.sum(0) >= 40).all().item() and int(outs.did_reset.sum()) == 0
@@ -272,7 +423,7 @@ def test_main_path_on_card_launches_both_kernels(dev, seq):
     data, imgs = seq
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
     ps = init_pipeline_state(CFG, dev)
-    lk0, orb0 = lk_track_cuda.launches, orb.describe.launches
+    lk0, orb0, det0 = lk_track_cuda.launches, orb.describe.launches, detect_corners.launches
     outs = []
     for k in range(imgs.shape[0]):
         fr = FrameInput(image=imgs[k], t=g["t_img"][k],
@@ -282,6 +433,7 @@ def test_main_path_on_card_launches_both_kernels(dev, seq):
     torch.cuda.synchronize()
     T = imgs.shape[0]
     assert lk_track_cuda.launches - lk0 == T and orb.describe.launches - orb0 == T
+    assert detect_corners.launches - det0 == T
     p = torch.stack([o.p for o in outs]).cpu().numpy()
     inited = torch.stack([o.initialized for o in outs]).cpu().numpy()
     assert np.isfinite(p).all() and inited.sum() >= 40

@@ -311,7 +311,8 @@ def test_captured_equals_eager_on_card(dev, card_frames, lanes, form):
     got = run_image_sequence(cfg, ps, frames, graph=graph)
     torch.cuda.synchronize()
     assert kernel_launches() == before  # replays do not run the wrappers
-    names = ("lk_track_batched", "orb_describe_batched") if lanes else ("lk_track", "orb_describe")
+    names = (("lk_track_batched", "orb_describe_batched", "detect_corners_batched") if lanes
+             else ("lk_track", "orb_describe", "detect_corners"))
     per = {k: v for k, v in graph.launches_per_replay.items() if v}
     want = dict.fromkeys(names, 1) | {k: v for k, v in per_step.items() if v}
     assert per == want and graph.replays == T and (per_step["lane_mm"] > 0) == bool(lanes)

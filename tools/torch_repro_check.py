@@ -22,9 +22,9 @@ eager step. The block's record holds every aten operation in call order
 file and line in the repository outside ``tools/``, as
 ``torch_width_check.py`` names it), the
 digests of its tensor inputs and of its outputs, and the outputs of the
-kernels bound through ``ctypes`` (K1 / K3, describe, ``lane_mm``,
-``lane_trsm``) taken at their wrappers. Each child also renders the whole
-sequence twice and compares the two renders bit for bit.
+kernels bound through ``ctypes`` (K1 / K3, the detection kernel, describe,
+``lane_mm``, ``lane_trsm``) taken at their wrappers. Each child also
+renders the whole sequence twice and compares the two renders bit for bit.
 
 The parent prints the first rendered frame that differs, the first frame
 whose input and whose outputs or state differ (with the leaves), the first
@@ -147,17 +147,17 @@ def keep(values: dict, key: str, outs) -> None:
 
 class KernelTaps:
     """Inside ``with``: the wrappers of the ``ctypes`` kernels, as the step
-    calls them (``models/frontend.py``: ``lk_track_cuda``, ``describe``;
-    ``core/linalg.py``: ``lane_mm``, ``lane_solve_triangular``), replaced by
-    taps that call them and record their outputs (``calls``: {"kernel",
-    "site", "out"}; ``values`` "k{i}.{j}")."""
+    calls them (``models/frontend.py``: ``lk_track_cuda``, ``detect_corners``,
+    ``describe``; ``core/linalg.py``: ``lane_mm``, ``lane_solve_triangular``),
+    replaced by taps that call them and record their outputs (``calls``:
+    {"kernel", "site", "out"}; ``values`` "k{i}.{j}")."""
 
     def __init__(self, values: dict):
         from larvio_tpu_torch.core import linalg
         from larvio_tpu_torch.models import frontend
 
         self.calls, self.values = [], values
-        self._slots = [(frontend, "lk_track_cuda"), (frontend, "describe"),
+        self._slots = [(frontend, "lk_track_cuda"), (frontend, "detect_corners"), (frontend, "describe"),
                        (linalg, "lane_mm"), (linalg, "lane_solve_triangular")]
         self._saved = []
 

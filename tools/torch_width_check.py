@@ -30,7 +30,8 @@ operations whose index along the leading axis points past the cut operand;
 the permutation skips operations given an integer tensor of the width (an
 index whose values may name lanes). Views, empty allocations and random
 draws are not re-run. The kernels bound through ``ctypes`` (``lane_mm``,
-K3, describe) are not aten operations: their own tests hold their lanes.
+K3, the detection kernel, describe) are not aten operations: their own
+tests hold their lanes.
 Exits 1 if an operation differs. Needs a CUDA GPU unless ``--device cpu`` is
 asked for.
 """
