@@ -250,7 +250,7 @@ from larvio_tpu_torch.parallel.multichip import lane_data
 from larvio_tpu_torch.data.trajectory import read_tum
 from larvio_tpu_torch.pipeline import (FrameInput, cached_pipeline_step, init_pipeline_state, jit_pipeline_step,
                                        pipeline_step, run_image_sequence, run_image_sequence_flexible)
-from larvio_tpu_torch.core.stages import STAGES, STEP
+from larvio_tpu_torch.core.stages import COV_REGIONS, STAGES, STEP
 from larvio_tpu_torch.data import visualize
 from larvio_tpu_torch.models.frontend import track_frame
 from larvio_tpu_torch.models.msckf import filter_step
@@ -2401,7 +2401,7 @@ def phase_sharded_graph(dev, cfg, data, ref_outs, card):
           f"{ms['eager']:.3f} eager on {card}", flush=True)
 
 
-_REGIONS = frozenset((*STAGES, STEP))
+_REGIONS = frozenset((*STAGES, *COV_REGIONS, STEP))
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                       "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 PROFILE_WINDOW = (60, 63)  # frames profiled, after the filter initialized

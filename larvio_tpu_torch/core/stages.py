@@ -16,6 +16,22 @@ vision-time gate and the ZUPT detection, the online reset and the step's
 outputs. A region is a host-side marker: it launches nothing and adds
 nothing to a captured CUDA graph, so no output changes.
 
+**Covariance regions** (``COV_REGIONS``, apart from ``STAGES`` so that a
+trace's stage sums read as before): one ``record_function`` region around
+each rewrite of the covariance (the factor S, or the dense P), with the
+same names in both forms. Each lies inside a ``filt.*`` stage and none
+inside another:
+
+* ``cov.propagate``: ``models/propagation.py::_apply_frame_transition``;
+* ``cov.augment``: the clone's rows (and columns) in
+  ``models/augmentation.py::augment_state``;
+* ``cov.update``: ``models/update.py::apply_update`` from the whitening to
+  the selected posterior, the factor's ``psd_factor`` included;
+* ``cov.slam``: in ``models/slam.py``, the gate's H P H^T or (H S)(H S)^T,
+  promotion's covariance write, ``reanchor_on_prune``'s congruence and
+  ``drop_lost``'s clear;
+* ``cov.prune``: ``models/prune.py::remove_clones``'s clear.
+
 **The tracer** (``Tracer``; the process's one is ``TRACER``, also reached
 as ``core/graph.py::CACHE.tracer``) records what the stage regions cannot:
 the entry layer's host work and the card time of each replay. It is always
@@ -72,12 +88,14 @@ STAGES = (
     "filt.slam_meas", "filt.consume", "filt.zupt",
 )
 STEP = "pipeline_step"
+COV_REGIONS = ("cov.propagate", "cov.augment", "cov.update", "cov.slam", "cov.prune")
 CAPACITY = 1 << 16  # spans the ring keeps
 MAX_PENDING = 4096  # card spans waiting for their events
 
 
 def stage(name: str) -> torch.profiler.record_function:
-    """The profiler region of one stage (``STAGES``) or of the step."""
+    """The profiler region of one stage (``STAGES``), of the step, or of a
+    covariance rewrite (``COV_REGIONS``)."""
     return torch.profiler.record_function(name)
 
 

@@ -11,6 +11,7 @@ import torch
 
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.linalg import mm, mm_lanes
+from larvio_tpu_torch.core.stages import stage
 from larvio_tpu_torch.core.tree import take
 from larvio_tpu_torch.models.state import CLONE_DIM, IDX_P, IDX_TD, IDX_THETA, FilterState, clone_offset
 
@@ -40,30 +41,31 @@ def augment_state(cfg: VioConfig, fs: FilterState, do_augment: torch.Tensor, w_b
         valid=clones.valid | sel,
     )
 
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    J = torch.zeros((*lead, 6, D), dtype=dtype, device=dev)
-    J[..., 0:3, IDX_THETA:IDX_THETA + 3] = eye3
-    J[..., 3:6, IDX_P:IDX_P + 3] = eye3
-    if cfg.filter.estimate_td:
-        J[..., 0:3, IDX_TD] = w_body
-        J[..., 3:6, IDX_TD] = fs.v
-    # rows [off, off+6) <- J P (J S: rows in the factor basis), as a masked
-    # row select (slot is a device tensor)
-    row_clone = torch.arange(D, device=dev) - clone_offset(slot)[..., None]
-    in_slot = (row_clone >= 0) & (row_clone < CLONE_DIM) & do_augment[..., None]
-    at = torch.clamp(row_clone, 0, CLONE_DIM - 1)
-    if cfg.filter.sqrt_form:
-        JS = mm(J, fs.P)  # (..., 6, W)
-        P = torch.where(in_slot[..., None], take(JS, at, -2), fs.P)
-    else:
-        lanes = len(lead)
-        JP = mm_lanes(J, fs.P, lanes)  # (..., 6, D)
-        JPJt = mm_lanes(JP, J.transpose(-1, -2), lanes)  # (..., 6, 6)
-        P = torch.where(in_slot[..., None], take(JP, at, -2), fs.P)
-        at_col = at[..., None, :]
-        P = torch.where(in_slot[..., None, :], take(JP.transpose(-1, -2), at_col, -1), P)
-        block = take(take(JPJt, at, -2), at_col, -1)  # (..., D, D): JPJt[row_clone, col_clone]
-        P = torch.where(in_slot[..., :, None] & in_slot[..., None, :], block, P)
+    with stage("cov.augment"):
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        J = torch.zeros((*lead, 6, D), dtype=dtype, device=dev)
+        J[..., 0:3, IDX_THETA:IDX_THETA + 3] = eye3
+        J[..., 3:6, IDX_P:IDX_P + 3] = eye3
+        if cfg.filter.estimate_td:
+            J[..., 0:3, IDX_TD] = w_body
+            J[..., 3:6, IDX_TD] = fs.v
+        # rows [off, off+6) <- J P (J S: rows in the factor basis), as a masked
+        # row select (slot is a device tensor)
+        row_clone = torch.arange(D, device=dev) - clone_offset(slot)[..., None]
+        in_slot = (row_clone >= 0) & (row_clone < CLONE_DIM) & do_augment[..., None]
+        at = torch.clamp(row_clone, 0, CLONE_DIM - 1)
+        if cfg.filter.sqrt_form:
+            JS = mm(J, fs.P)  # (..., 6, W)
+            P = torch.where(in_slot[..., None], take(JS, at, -2), fs.P)
+        else:
+            lanes = len(lead)
+            JP = mm_lanes(J, fs.P, lanes)  # (..., 6, D)
+            JPJt = mm_lanes(JP, J.transpose(-1, -2), lanes)  # (..., 6, 6)
+            P = torch.where(in_slot[..., None], take(JP, at, -2), fs.P)
+            at_col = at[..., None, :]
+            P = torch.where(in_slot[..., None, :], take(JP.transpose(-1, -2), at_col, -1), P)
+            block = take(take(JPJt, at, -2), at_col, -1)  # (..., D, D): JPJt[row_clone, col_clone]
+            P = torch.where(in_slot[..., :, None] & in_slot[..., None, :], block, P)
     return fs.replace(clones=clones, P=P), torch.where(do_augment, slot, -1)
 
 

@@ -23,6 +23,7 @@ from larvio_tpu_torch.core.linalg import matvec, mm, mm_lanes, psd_chol, symmetr
 from larvio_tpu_torch.core.quaternion import omega, quat_normalize, quat_to_rotation
 from larvio_tpu_torch.core.scan import associative_scan, cumsum
 from larvio_tpu_torch.core.so3 import skew
+from larvio_tpu_torch.core.stages import stage
 from larvio_tpu_torch.core.tree import Struct
 from larvio_tpu_torch.models.state import (
     IDX_BA,
@@ -193,8 +194,9 @@ def propagate(cfg: VioConfig, fs: FilterState, imu: ImuBatch, t_target_img: torc
     S_after = torch.cat([R_suffix[..., 1:, :, :], eye15.expand(*lead, 1, IMU_DIM, IMU_DIM)], dim=-3)
     Q_acc = torch.sum(mm(mm(S_after, Qd_s), S_after.transpose(-1, -2)), dim=-3)
 
-    P = _apply_frame_transition(cfg, fs.P, Phi_acc, Q_acc,
-                                _slam_frame_noise(cfg, fs, torch.sum(dt, dim=-1)))
+    slam_q = _slam_frame_noise(cfg, fs, torch.sum(dt, dim=-1))
+    with stage("cov.propagate"):
+        P = _apply_frame_transition(cfg, fs.P, Phi_acc, Q_acc, slam_q)
 
     q_new = quat_normalize(q_chain[..., -1, :])
     # the time integration actually REACHED (an IMU blackout must stay visible

@@ -8,6 +8,7 @@ import torch
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.quaternion import quat_inverse, quat_multiply, quat_to_rotation
 from larvio_tpu_torch.core.so3 import so3_log
+from larvio_tpu_torch.core.stages import stage
 from larvio_tpu_torch.core.tree import take1
 from larvio_tpu_torch.models.state import CLONE_BASE, CLONE_DIM, FilterState, state_dim
 
@@ -55,10 +56,11 @@ def remove_clones(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune) -> 
     sel = ((ar_c == slot_a[..., None]) | (ar_c == slot_b[..., None])) & do_prune[..., None]
     clones = fs.clones.replace(valid=fs.clones.valid & ~sel)
     obs = fs.obs.replace(valid=fs.obs.valid & ~sel[..., None, :])
-    ar = torch.arange(D, device=dev)
-    in_clones = (ar >= CLONE_BASE) & (ar < CLONE_BASE + C * CLONE_DIM)
-    row_cleared = in_clones & sel[..., torch.clamp((ar - CLONE_BASE) // CLONE_DIM, 0, C - 1)]
-    P = torch.where(row_cleared[..., None], 0.0, fs.P)
-    if not cfg.filter.sqrt_form:
-        P = torch.where(row_cleared[..., None, :], 0.0, P)
+    with stage("cov.prune"):
+        ar = torch.arange(D, device=dev)
+        in_clones = (ar >= CLONE_BASE) & (ar < CLONE_BASE + C * CLONE_DIM)
+        row_cleared = in_clones & sel[..., torch.clamp((ar - CLONE_BASE) // CLONE_DIM, 0, C - 1)]
+        P = torch.where(row_cleared[..., None], 0.0, fs.P)
+        if not cfg.filter.sqrt_form:
+            P = torch.where(row_cleared[..., None, :], 0.0, P)
     return fs.replace(clones=clones, obs=obs, P=P)

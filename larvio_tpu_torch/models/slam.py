@@ -41,6 +41,7 @@ from larvio_tpu_torch.core.chi2 import chi2_inv
 from larvio_tpu_torch.core.linalg import inv3, mm, mm_lanes
 from larvio_tpu_torch.core.quaternion import quat_to_rotation
 from larvio_tpu_torch.core.so3 import skew
+from larvio_tpu_torch.core.stages import stage
 from larvio_tpu_torch.core.tree import all_finite, take, take1
 from larvio_tpu_torch.models.state import (
     CLONE_DIM,
@@ -223,12 +224,13 @@ def slam_measurement_blocks(cfg: VioConfig, fs: FilterState, feats, newest_slot)
 
     # chi2 gate (2 dof) per feature: H P H^T, = (H S)(H S)^T in factor form
     eye2 = torch.eye(2, dtype=dtype, device=dev)
-    if cfg.filter.sqrt_form:
-        HS = mm_lanes(H, fs.P[..., None, :, :], len(lead))
-        Svar = HS @ HS.transpose(-1, -2) + sigma2 * eye2
-    else:
-        HP = mm_lanes(H, fs.P[..., None, :, :], len(lead))
-        Svar = mm_lanes(HP, H.transpose(-1, -2), len(lead)) + sigma2 * eye2
+    with stage("cov.slam"):
+        if cfg.filter.sqrt_form:
+            HS = mm_lanes(H, fs.P[..., None, :, :], len(lead))
+            Svar = HS @ HS.transpose(-1, -2) + sigma2 * eye2
+        else:
+            HP = mm_lanes(H, fs.P[..., None, :, :], len(lead))
+            Svar = mm_lanes(HP, H.transpose(-1, -2), len(lead)) + sigma2 * eye2
     det = Svar[..., 0, 0] * Svar[..., 1, 1] - Svar[..., 0, 1] * Svar[..., 1, 0]
     det = torch.where(torch.abs(det) < 1e-20, 1e-20, det)
     gamma = (
@@ -401,39 +403,40 @@ def promote_features(cfg: VioConfig, fs: FilterState, blocks, tri, idx, sel, dx,
     )
 
     # covariance write: the taken slots' rows (factor rows, or rows of P)
-    base, nS, W = slam_offset(cfg, 0), S * SLAM_DIM, P.shape[-1]
-    old_rows = P[..., base:base + nS, :].reshape(*lead, S, SLAM_DIM, W)
-    rows = torch.where(tk[..., None, None], take(P_idp_x, cand_of_slot, -3), old_rows)
-    eyeS = torch.eye(S, dtype=torch.bool, device=dev)
-    if sqrt:
-        # sigma W into each taken slot's own diagonal block of columns
-        own = (tk[..., :, None] & eyeS)[..., :, None, :, None]
-        sigW = sigma * take(Wn, cand_of_slot, -3)  # (..., S, 3, 3)
-        blk = rows[..., base:base + nS].reshape(*lead, S, SLAM_DIM, S, SLAM_DIM)
-        blk = blk + torch.where(own, sigW[..., :, :, None, :], 0.0)
-        rows = torch.cat([rows[..., :base], blk.reshape(*lead, S, SLAM_DIM, nS),
-                          rows[..., base + nS:]], dim=-1)
-        P = _set_rows(P, base, rows.reshape(*lead, nS, W))
-        return fs.replace(slam=slam, P=P)
+    with stage("cov.slam"):
+        base, nS, W = slam_offset(cfg, 0), S * SLAM_DIM, P.shape[-1]
+        old_rows = P[..., base:base + nS, :].reshape(*lead, S, SLAM_DIM, W)
+        rows = torch.where(tk[..., None, None], take(P_idp_x, cand_of_slot, -3), old_rows)
+        eyeS = torch.eye(S, dtype=torch.bool, device=dev)
+        if sqrt:
+            # sigma W into each taken slot's own diagonal block of columns
+            own = (tk[..., :, None] & eyeS)[..., :, None, :, None]
+            sigW = sigma * take(Wn, cand_of_slot, -3)  # (..., S, 3, 3)
+            blk = rows[..., base:base + nS].reshape(*lead, S, SLAM_DIM, S, SLAM_DIM)
+            blk = blk + torch.where(own, sigW[..., :, :, None, :], 0.0)
+            rows = torch.cat([rows[..., :base], blk.reshape(*lead, S, SLAM_DIM, nS),
+                              rows[..., base + nS:]], dim=-1)
+            P = _set_rows(P, base, rows.reshape(*lead, nS, W))
+            return fs.replace(slam=slam, P=P)
 
-    # dense: the row pass, its mirror on the columns, then the SLAM block's
-    # interior: P_idp on each taken slot's diagonal, the exact cross blocks
-    # between slots taken together (each candidate's rows were computed
-    # before any sibling existed)
-    P = _set_rows(P, base, rows.reshape(*lead, nS, W))
-    old_cols = P[..., :, base:base + nS].reshape(*lead, W, S, SLAM_DIM)
-    cols = torch.where(tk[..., None, :, None], rows.permute(*range(nl), -1, -3, -2), old_cols)
-    P = _set_cols(P, base, cols.reshape(*lead, W, nS))
-    cross = _cross_blocks(P_fx, E, P_fae, A12, A_Paa, T, nl)  # (..., K, K, 3, 3)
-    M = take(take(cross, cand_of_slot, -4), cand_of_slot[..., None, :], -3)  # (..., S, S, 3, 3)
-    blk = P[..., base:base + nS, base:base + nS].reshape(*lead, S, SLAM_DIM, S, SLAM_DIM)
-    pair = tk[..., :, None] & tk[..., None, :]
-    blk = torch.where((pair & ~eyeS)[..., :, None, :, None], M.transpose(-3, -2), blk)
-    diag = take(P_idp, cand_of_slot, -3)  # (..., S, 3, 3)
-    blk = torch.where((pair & eyeS)[..., :, None, :, None], diag[..., :, :, None, :], blk)
-    P = _set_rows(P, base, torch.cat([P[..., base:base + nS, :base], blk.reshape(*lead, nS, nS),
-                                      P[..., base:base + nS, base + nS:]], dim=-1))
-    return fs.replace(slam=slam, P=P)
+        # dense: the row pass, its mirror on the columns, then the SLAM block's
+        # interior: P_idp on each taken slot's diagonal, the exact cross blocks
+        # between slots taken together (each candidate's rows were computed
+        # before any sibling existed)
+        P = _set_rows(P, base, rows.reshape(*lead, nS, W))
+        old_cols = P[..., :, base:base + nS].reshape(*lead, W, S, SLAM_DIM)
+        cols = torch.where(tk[..., None, :, None], rows.permute(*range(nl), -1, -3, -2), old_cols)
+        P = _set_cols(P, base, cols.reshape(*lead, W, nS))
+        cross = _cross_blocks(P_fx, E, P_fae, A12, A_Paa, T, nl)  # (..., K, K, 3, 3)
+        M = take(take(cross, cand_of_slot, -4), cand_of_slot[..., None, :], -3)  # (..., S, S, 3, 3)
+        blk = P[..., base:base + nS, base:base + nS].reshape(*lead, S, SLAM_DIM, S, SLAM_DIM)
+        pair = tk[..., :, None] & tk[..., None, :]
+        blk = torch.where((pair & ~eyeS)[..., :, None, :, None], M.transpose(-3, -2), blk)
+        diag = take(P_idp, cand_of_slot, -3)  # (..., S, 3, 3)
+        blk = torch.where((pair & eyeS)[..., :, None, :, None], diag[..., :, :, None, :], blk)
+        P = _set_rows(P, base, torch.cat([P[..., base:base + nS, :base], blk.reshape(*lead, nS, nS),
+                                          P[..., base:base + nS, base + nS:]], dim=-1))
+        return fs.replace(slam=slam, P=P)
 
 
 def _ae_columns(X, ao6):
@@ -528,32 +531,33 @@ def reanchor_on_prune(cfg: VioConfig, fs: FilterState, slot_a, slot_b, do_prune)
     G_E = torch.cat([NRB @ J_phiA + N @ skew(_rot(R_ci, v)), NRB @ J_tciA + N], dim=-1)
 
     dead = needs & ~ok  # could not re-anchor (behind the new anchor / no survivor)
-    base, nS, W = slam_offset(cfg, 0), S * SLAM_DIM, fs.P.shape[-1]
-    P = fs.P
-    ar6 = torch.arange(CLONE_DIM, device=dev)
-    gidx = (clone_offset(a_cur)[..., None] + ar6).reshape(*lead, S * CLONE_DIM)
-    rows_f = P[..., base:, :].reshape(*lead, S, SLAM_DIM, W)
-    rows_a = take(P, gidx, -2).reshape(*lead, S, CLONE_DIM, W)
-    rows_b = take(P, clone_offset(b_slot)[..., None] + ar6, -2)[..., None, :, :]
-    rows_e = P[..., None, IDX_EXT_THETA:IDX_EXT_THETA + 6, :]
-    new_rows = mm(G_f, rows_f) + mm(G_A, rows_a) + mm(G_B, rows_b) + mm(G_E, rows_e)
-    new_rows = torch.where(ok[..., None, None], new_rows, rows_f)
-    new_rows = torch.where(dead[..., None, None], 0.0, new_rows)
-    P = torch.cat([P[..., :base, :], new_rows.reshape(*lead, nS, W)], dim=-2)
-    if not cfg.filter.sqrt_form:
-        # dense: the same congruence on the columns of the row-passed P (in
-        # factor form the row pass is the whole transform), as rows of P^T
-        nl = len(lead)
-        Pt = P.transpose(-1, -2)
-        cols_f = Pt[..., base:, :].reshape(*lead, S, SLAM_DIM, W)
-        cols_a = take(Pt, gidx, -2).reshape(*lead, S, CLONE_DIM, W)
-        cols_b = take(Pt, clone_offset(b_slot)[..., None] + ar6, -2)[..., None, :, :]
-        cols_e = Pt[..., None, IDX_EXT_THETA:IDX_EXT_THETA + 6, :]
-        new_cols = (mm_lanes(G_f, cols_f, nl) + mm_lanes(G_A, cols_a, nl) + mm_lanes(G_B, cols_b, nl)
-                    + mm_lanes(G_E, cols_e, nl))
-        new_cols = torch.where(ok[..., None, None], new_cols, cols_f)
-        new_cols = torch.where(dead[..., None, None], 0.0, new_cols)
-        P = torch.cat([P[..., :, :base], new_cols.reshape(*lead, nS, W).transpose(-1, -2)], dim=-1)
+    with stage("cov.slam"):
+        base, nS, W = slam_offset(cfg, 0), S * SLAM_DIM, fs.P.shape[-1]
+        P = fs.P
+        ar6 = torch.arange(CLONE_DIM, device=dev)
+        gidx = (clone_offset(a_cur)[..., None] + ar6).reshape(*lead, S * CLONE_DIM)
+        rows_f = P[..., base:, :].reshape(*lead, S, SLAM_DIM, W)
+        rows_a = take(P, gidx, -2).reshape(*lead, S, CLONE_DIM, W)
+        rows_b = take(P, clone_offset(b_slot)[..., None] + ar6, -2)[..., None, :, :]
+        rows_e = P[..., None, IDX_EXT_THETA:IDX_EXT_THETA + 6, :]
+        new_rows = mm(G_f, rows_f) + mm(G_A, rows_a) + mm(G_B, rows_b) + mm(G_E, rows_e)
+        new_rows = torch.where(ok[..., None, None], new_rows, rows_f)
+        new_rows = torch.where(dead[..., None, None], 0.0, new_rows)
+        P = torch.cat([P[..., :base, :], new_rows.reshape(*lead, nS, W)], dim=-2)
+        if not cfg.filter.sqrt_form:
+            # dense: the same congruence on the columns of the row-passed P (in
+            # factor form the row pass is the whole transform), as rows of P^T
+            nl = len(lead)
+            Pt = P.transpose(-1, -2)
+            cols_f = Pt[..., base:, :].reshape(*lead, S, SLAM_DIM, W)
+            cols_a = take(Pt, gidx, -2).reshape(*lead, S, CLONE_DIM, W)
+            cols_b = take(Pt, clone_offset(b_slot)[..., None] + ar6, -2)[..., None, :, :]
+            cols_e = Pt[..., None, IDX_EXT_THETA:IDX_EXT_THETA + 6, :]
+            new_cols = (mm_lanes(G_f, cols_f, nl) + mm_lanes(G_A, cols_a, nl) + mm_lanes(G_B, cols_b, nl)
+                        + mm_lanes(G_E, cols_e, nl))
+            new_cols = torch.where(ok[..., None, None], new_cols, cols_f)
+            new_cols = torch.where(dead[..., None, None], 0.0, new_cols)
+            P = torch.cat([P[..., :, :base], new_cols.reshape(*lead, nS, W).transpose(-1, -2)], dim=-1)
 
     slam = sl.replace(
         idp=torch.where(ok[..., None], idp_B, sl.idp),
@@ -603,13 +607,14 @@ def drop_lost(cfg: VioConfig, fs: FilterState, feats, hard_fail) -> FilterState:
     # torch.where, not a 0/1 multiply, so poisoned rows clear too; in factor
     # form zero rows alone zero the implied covariance's rows and columns,
     # in dense form the columns are cleared too
-    D = state_dim(cfg)
-    base = slam_offset(cfg, 0)
-    ar = torch.arange(D, device=fs.P.device)
-    row_dropped = (ar >= base) & take(drop, torch.clamp((ar - base) // SLAM_DIM, 0, S - 1), -1)
-    P = torch.where(row_dropped[..., None], 0.0, fs.P)
-    if not cfg.filter.sqrt_form:
-        P = torch.where(row_dropped[..., None, :], 0.0, P)
+    with stage("cov.slam"):
+        D = state_dim(cfg)
+        base = slam_offset(cfg, 0)
+        ar = torch.arange(D, device=fs.P.device)
+        row_dropped = (ar >= base) & take(drop, torch.clamp((ar - base) // SLAM_DIM, 0, S - 1), -1)
+        P = torch.where(row_dropped[..., None], 0.0, fs.P)
+        if not cfg.filter.sqrt_form:
+            P = torch.where(row_dropped[..., None, :], 0.0, P)
     return fs.replace(
         slam=sl.replace(
             valid=sl.valid & ~drop,

@@ -21,6 +21,7 @@ from larvio_tpu_torch.core.linalg import (chol_nan, householder_eliminate, inv_q
                                          mm_lanes, psd_factor, qr_compress, solve_tri_lanes, symmetrize)
 from larvio_tpu_torch.core.quaternion import quat_multiply, quat_to_rotation, small_angle_quat
 from larvio_tpu_torch.core.so3 import skew
+from larvio_tpu_torch.core.stages import stage
 from larvio_tpu_torch.core.tree import all_finite, take, where
 from larvio_tpu_torch.models.state import (
     CLONE_BASE,
@@ -274,31 +275,32 @@ def apply_update(cfg: VioConfig, fs: FilterState, H, r, noise_var, enable=None, 
     D = state_dim(cfg)
     nb = fs.time.dim()
     n = H.shape[-2]
-    nv = torch.as_tensor(noise_var, dtype=fs.P.dtype, device=fs.P.device)
-    sig = torch.sqrt(torch.broadcast_to(nv, r.shape))
-    Hw = H / sig[..., None]
-    rw = r / sig
-    W = fs.P.shape[-1]
-    if not cfg.filter.sqrt_form:
-        # a stack taller than the state is compressed to D rows; a shorter
-        # one (the 9-row ZUPT) is used as it is
-        H_c, r_c = qr_compress(Hw, rw, lanes=nb) if n > D else (Hw, rw)
-        dx, P_new = joseph_update(fs.P, H_c, r_c, 1.0, lanes=nb)
-    elif n > D:
-        dx, P_new = sqrt_update_gram(fs.P, Hw, rw, refactor=False)
-    else:
-        dx, P_new = sqrt_update(fs.P, Hw, rw)
-        if W > D:
-            pad = torch.zeros((*P_new.shape[:-1], W - D), dtype=P_new.dtype, device=P_new.device)
-            P_new = torch.cat([P_new, pad], dim=-1)
-    finite = all_finite(dx, nb) & all_finite(P_new, nb)
-    dx = where(finite, dx, 0.0)
-    P_new = where(finite, P_new, fs.P)
-    if enable is not None:
-        dx = where(enable, dx, 0.0)
-        P_new = where(enable, P_new, fs.P)
-    if cfg.filter.sqrt_form and refactor and (n > D or P_new.shape[-1] > D):
-        P_new = psd_factor(P_new)
+    with stage("cov.update"):
+        nv = torch.as_tensor(noise_var, dtype=fs.P.dtype, device=fs.P.device)
+        sig = torch.sqrt(torch.broadcast_to(nv, r.shape))
+        Hw = H / sig[..., None]
+        rw = r / sig
+        W = fs.P.shape[-1]
+        if not cfg.filter.sqrt_form:
+            # a stack taller than the state is compressed to D rows; a shorter
+            # one (the 9-row ZUPT) is used as it is
+            H_c, r_c = qr_compress(Hw, rw, lanes=nb) if n > D else (Hw, rw)
+            dx, P_new = joseph_update(fs.P, H_c, r_c, 1.0, lanes=nb)
+        elif n > D:
+            dx, P_new = sqrt_update_gram(fs.P, Hw, rw, refactor=False)
+        else:
+            dx, P_new = sqrt_update(fs.P, Hw, rw)
+            if W > D:
+                pad = torch.zeros((*P_new.shape[:-1], W - D), dtype=P_new.dtype, device=P_new.device)
+                P_new = torch.cat([P_new, pad], dim=-1)
+        finite = all_finite(dx, nb) & all_finite(P_new, nb)
+        dx = where(finite, dx, 0.0)
+        P_new = where(finite, P_new, fs.P)
+        if enable is not None:
+            dx = where(enable, dx, 0.0)
+            P_new = where(enable, P_new, fs.P)
+        if cfg.filter.sqrt_form and refactor and (n > D or P_new.shape[-1] > D):
+            P_new = psd_factor(P_new)
     return inject_error(cfg, fs, dx).replace(P=P_new), dx, finite
 
 

@@ -42,7 +42,7 @@ from larvio_tpu.models.propagation import ImuBatch as JImuBatch
 from larvio_tpu_torch import cli as tcli
 from larvio_tpu_torch.config import load_yaml
 from larvio_tpu_torch.convert import config_from_dict, from_reference
-from larvio_tpu_torch.core.stages import STAGES, STEP, NanCheck
+from larvio_tpu_torch.core.stages import COV_REGIONS, STAGES, STEP, NanCheck
 from larvio_tpu_torch.data import visualize
 from larvio_tpu_torch.data.export_euroc import export_sim_euroc
 from larvio_tpu_torch.data.sim import SimConfig as TSimConfig
@@ -164,8 +164,10 @@ def step_trace(seq, tmp_path_factory):
 
 
 def test_step_shows_the_twelve_stages_in_order(step_trace):
+    """The step and its twelve stages, in order; the covariance regions
+    inside the stages (``COV_REGIONS``) are not stages."""
     names = [e["name"] for e in sorted(step_trace, key=lambda e: float(e.get("ts", 0)))
-             if e.get("cat") == "user_annotation"]
+             if e.get("cat") == "user_annotation" and e["name"] not in COV_REGIONS]
     assert names == [STEP, *STAGES]
 
 

@@ -59,6 +59,12 @@ from larvio_tpu_torch.models import state as tstate
 from larvio_tpu_torch.models import triangulation as ttri
 from larvio_tpu_torch.models import update as tupd
 from larvio_tpu_torch.models import zupt as tzupt
+from larvio_tpu_torch.models.state import CLONE_DIM, IDX_P, IDX_TD, IDX_THETA, clone_offset, slam_offset
+from vio_bench.compare import ref_cfg, to_reference
+from vio_bench.reference.core import linalg as rlin
+from vio_bench.reference.models import augmentation as raug
+from vio_bench.reference.models import propagation as rprop
+from vio_bench.reference.models import state as rstate
 
 torch.set_num_threads(1)
 
@@ -72,6 +78,7 @@ CFG = VioConfig(
                         slam_promote_obs=5),
 )
 TCFG = config_from_dict(dataclasses.asdict(CFG))
+RCFG = ref_cfg(dataclasses.asdict(CFG))  # vio_bench/reference's classes, the same values
 S, C, F = 2, 6, 32
 D = jstate.state_dim(CFG)
 assert not TCFG.filter.sqrt_form and CFG.filter.bootstrap_consume_k <= F
@@ -283,6 +290,122 @@ def test_joseph_update_failed_factorization_is_nan():
     dt, Pt = tlin.joseph_update(_t(P), _t(H), _t(r), _t(nv))
     assert np.isnan(np.asarray(dj)).all() and torch.isnan(dt).all()
     assert not np.isfinite(np.asarray(Pj)).all() and not torch.isfinite(Pt).all()
+
+
+# --------------------------------------------------------------------------
+# the dense form against a textbook float64 EKF and vio_bench/reference
+# --------------------------------------------------------------------------
+
+# A gap over the largest element of the textbook result. The port works in
+# float32: each element is a sum of at most a few hundred products of
+# well-scaled terms (P's eigenvalues within [0.1, 5], R of the same order),
+# whose rounding stays below 1e-5 of that scale (n * 2^-24 ~ 3e-6 at
+# n = 48). P rounded to bfloat16 (8 mantissa bits, 2^-9 ~ 2e-3 per element)
+# lands two orders above, so TEXTBOOK_TOL tells the two apart.
+TEXTBOOK_TOL = 2e-5
+
+
+def _gap(got, want):
+    got = got.numpy().astype(np.float64) if isinstance(got, torch.Tensor) else np.asarray(got, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _rounded(P, planted):
+    """P as given to the port: float32, or (``planted``) rounded to bfloat16."""
+    P = _t(P)
+    return P.to(torch.bfloat16).to(torch.float32) if planted else P
+
+
+def _assert_textbook(gap, planted):
+    if planted:
+        assert gap > TEXTBOOK_TOL, gap  # the tolerance catches a bfloat16 P
+    else:
+        assert gap <= TEXTBOOK_TOL, gap
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("n", [9, 48])
+def test_joseph_update_against_textbook_ekf(n, planted):
+    """K = P H^T (H P H^T + R)^-1, dx = K r and P+ = (I - KH) P (I - KH)^T
+    + K R K^T in float64 against ``joseph_update`` on seeded P, H, R; a
+    stack below and at the state dimension. vio_bench/reference's copy
+    gives the port's bits on the CPU."""
+    Dn = 48
+    rng = np.random.default_rng(12 + n)
+    P = _spd(13, Dn) * 2.0
+    H = (rng.normal(size=(n, Dn)) / np.sqrt(Dn)).astype(np.float32)
+    r = rng.normal(size=n).astype(np.float32)
+    R = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    P64, H64, R64 = P.astype(np.float64), H.astype(np.float64), np.diag(R.astype(np.float64))
+    K = P64 @ H64.T @ np.linalg.inv(H64 @ P64 @ H64.T + R64)
+    IKH = np.eye(Dn) - K @ H64
+    want_P = IKH @ P64 @ IKH.T + K @ R64 @ K.T
+    want_dx = K @ r.astype(np.float64)
+    Pin = _rounded(P, planted)
+    dx, Pn = tlin.joseph_update(Pin, _t(H), _t(r), _t(R))
+    _assert_textbook(max(_gap(Pn, want_P), _gap(dx, want_dx)), planted)
+    rdx, rPn = rlin.joseph_update(Pin, _t(H), _t(r), _t(R))
+    assert torch.equal(dx, rdx) and torch.equal(Pn, rPn)
+
+
+def _transition_inputs(seed):
+    rng = np.random.default_rng(seed)
+    P = _spd(seed, D) * 2.0
+    Phi = (np.eye(15) + 0.05 * rng.normal(size=(15, 15))).astype(np.float32)
+    Q = _spd(seed + 1, 15) * 1e-2
+    q = rng.uniform(0.01, 0.1, size=3 * S).astype(np.float32)
+    return P, Phi, Q, q
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("slam_noise", [False, True])
+def test_dense_frame_transition_against_textbook(slam_noise, planted):
+    """Phi P Phi^T + Q in float64, Phi = diag(Phi_imu, I) and Q =
+    diag(Q_imu, 0) (with the SLAM rows' random walk q^2 on the diagonal),
+    against ``_dense_frame_transition``; vio_bench/reference's copy gives
+    the port's bits."""
+    P, Phi, Q, q = _transition_inputs(21)
+    Phi_full, Q_full = np.eye(D), np.zeros((D, D))
+    Phi_full[:15, :15], Q_full[:15, :15] = Phi, Q
+    if slam_noise:
+        base = slam_offset(TCFG, 0)
+        Q_full[base:base + 3 * S, base:base + 3 * S] = np.diag(q.astype(np.float64) ** 2)
+    want = Phi_full @ P.astype(np.float64) @ Phi_full.T + Q_full
+    slam_q = _t(q) if slam_noise else None
+    Pin = _rounded(P, planted)
+    got = tprop._dense_frame_transition(TCFG, Pin, _t(Phi), _t(Q), slam_q)
+    _assert_textbook(_gap(got, want), planted)
+    assert torch.equal(got, rprop._dense_frame_transition(RCFG, Pin, _t(Phi), _t(Q), slam_q))
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_augmentation_against_textbook(planted):
+    """A clone into free slot 3: P' = A P A^T in float64, A the identity
+    with the slot's rows replaced by the clone Jacobian J (d clone / d
+    [theta, p, td]), so the slot's block is J P J^T and its rows J P; against
+    ``augment_state``; vio_bench/reference's copy gives the port's bits."""
+    rng = np.random.default_rng(31)
+    slot = 3
+    off = int(clone_offset(slot))
+    P = _spd(31, D) * 2.0
+    P[off:off + CLONE_DIM] = 0.0  # a free slot's rows and columns are zero
+    P[:, off:off + CLONE_DIM] = 0.0
+    fs = tstate.init_filter_state(TCFG, "cpu")
+    fs = fs.replace(P=_rounded(P, planted), v=_t(rng.normal(size=3).astype(np.float32)),
+                    clones=fs.clones.replace(valid=torch.arange(C) < slot))
+    w = rng.normal(size=3).astype(np.float32)
+    J = np.zeros((CLONE_DIM, D))
+    J[0:3, IDX_THETA:IDX_THETA + 3] = J[3:6, IDX_P:IDX_P + 3] = np.eye(3)
+    J[0:3, IDX_TD], J[3:6, IDX_TD] = w, fs.v.numpy()
+    A = np.eye(D)
+    A[off:off + CLONE_DIM] = J
+    want = A @ P.astype(np.float64) @ A.T
+    got, got_slot = taug.augment_state(TCFG, fs, torch.tensor(True), _t(w))
+    assert int(got_slot) == slot
+    _assert_textbook(_gap(got.P, want), planted)
+    ref, _ = raug.augment_state(RCFG, to_reference(rstate.init_filter_state(RCFG, "cpu"), fs, "cpu"),
+                                torch.tensor(True), _t(w))
+    assert torch.equal(got.P, ref.P)
 
 
 # --------------------------------------------------------------------------

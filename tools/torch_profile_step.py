@@ -165,7 +165,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 prof.stop()
 
-    from larvio_tpu_torch.core.stages import STAGES, STEP
+    from larvio_tpu_torch.core.stages import COV_REGIONS, STAGES, STEP
     from tools import torch_trace_analyze as ta
 
     references = None
@@ -184,7 +184,7 @@ def main() -> int:
         host = [e for e in evs if e.device_type == torch.autograd.DeviceType.CPU and e.name in launch_calls]
         # the device-side spans of the stage regions are no device operations
         kernels = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name not in (*STAGES, STEP)]
+                   and e.name not in (*STAGES, *COV_REGIONS, STEP)]
         busy_us = float(np.sum([e.time_range.elapsed_us() for e in kernels])) if kernels else 0.0
         if kernels:
             span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
