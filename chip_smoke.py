@@ -160,8 +160,10 @@ Phases, each raising on failure (the script then exits non-zero):
 5. timing: every kernel of phases 2 and 2b, its wrapper call and its plain
    version at the same shapes; ``lane_mm`` and ``lane_trsm`` on the
    operands of every call of one eager fleet step (frame 60) at 8 and at
-   256 lanes, each call held to its plain version (the per-lane cuBLAS
-   loop; f32 tolerance ``LANE_RTOL``), the kernel, the plain version and the
+   256 lanes and of phase 3i's 8-lane Joseph fleet (its Kalman gain's
+   upper solves on the factor's transposed view included), each call held
+   to its plain version (the per-lane cuBLAS loop; f32 tolerance
+   ``LANE_RTOL``), the kernel, the plain version and the
    library call (``torch.matmul``, ``torch.linalg.solve_triangular``) timed
    as captured graphs of one frame's calls, the kernel's device time per
    call site (one line per site and shape); then host launch calls per frame, device
@@ -180,8 +182,8 @@ reserved memory. On the card every path but the eager runs of phases 3,
 3g and 4 replays a captured step, so a kernel's wrapper runs only while a
 step is captured (and in the capture's eager warm-up steps); ``launches``
 in the kernels line is the main path's (phase 3's, phase 4's for the
-batched kernels, phase 4's and 4d's for ``lane_mm`` / ``lane_trsm`` and
-their ``_b256`` rows) captured run: its replays times the launches its
+batched kernels, phase 4's, 4d's and 3i's for ``lane_mm`` / ``lane_trsm``
+and their ``_b256`` and ``_joseph`` rows) captured run: its replays times the launches its
 capture recorded.
 
 Each kernel's line carries its own device time per launch (``ms``, from
@@ -771,6 +773,15 @@ class _LaneCall:
         return torch.stack([torch.linalg.solve_triangular(x, y, upper=self.upper)
                             for x, y in zip(a.unbind(0), b.unbind(0))])
 
+    def form(self) -> str:
+        """A solve's triangle as the kernel reads it: lower or upper, and
+        its layout (``cho_solve_lanes`` passes the factor and its transposed
+        view, so one of its two solves reads the other layout)."""
+        if self.kernel == "lane_mm":
+            return ""
+        cols = self.a.stride(-2) == 1 and self.a.stride(-1) != 1
+        return f" {'upper' if self.upper else 'lower'}, {'column' if cols else 'row'}-major"
+
     def library(self):
         """One PyTorch call: ``torch.matmul`` (cuBLAS batched) or
         ``torch.linalg.solve_triangular``."""
@@ -820,7 +831,8 @@ def _record_lane_calls(cfg, run: FleetRun, k: int = LANE_FRAME) -> list:
 
     def site():  # the caller of mm_lanes / solve_tri_lanes
         f = [f for f in traceback.extract_stack() if os.path.basename(f.filename) != "chip_smoke.py"
-             and f.name not in ("mm_lanes", "solve_tri_lanes", "mm_per_lane", "solve_tri_plain", "<lambda>")][-1]
+             and f.name not in ("mm_lanes", "solve_tri_lanes", "cho_solve_lanes", "mm_per_lane", "solve_tri_plain",
+                                "<lambda>")][-1]
         return f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
 
     def rec_mm(a, b, lanes):
@@ -888,11 +900,13 @@ def _lane_device_ms(calls: list, kernel: str, reps: int = 20) -> list:
     raise RuntimeError(f"profiler saw {len(evs)} launches of {kernel}, {reps * len(calls)} made")
 
 
-def phase_lane_kernels(runs: dict, card: str) -> list:
+def phase_lane_kernels(runs: list, card: str) -> list:
     """Phase 5's ``lane_mm`` and ``lane_trsm``: the operands of every call of
-    one eager fleet step (frame ``LANE_FRAME``) at each width of ``runs``
-    ({B: FleetRun}), each call held to its plain version (the per-lane
-    loop) with ``LANE_RTOL``, then timed: the kernel, the plain version and
+    one eager fleet step (frame ``LANE_FRAME``) of each fleet of ``runs``
+    ([(B, row suffix, FleetRun)]: phase 4's, 4d's and 3i's Joseph fleet,
+    whose gain solves run ``lane_trsm`` upper on a transposed factor), each
+    call held to its plain version (the per-lane loop) with ``LANE_RTOL``,
+    then timed: the kernel, the plain version and
     the library call (``torch.matmul``, ``torch.linalg.solve_triangular``)
     each as a captured graph of one frame's calls (``_graph_ms``: device
     time, no host). Returns each (kernel, width)'s JSON row and its
@@ -900,7 +914,7 @@ def phase_lane_kernels(runs: dict, card: str) -> list:
     the CUDA-event windows of every kernel (the profiler slows later
     launches)."""
     out = []
-    for B, run in runs.items():
+    for B, suffix, run in runs:
         calls = _record_lane_calls(run.cfg, run)
         for kernel in ("lane_mm", "lane_trsm"):
             cs = [c for c in calls if c.kernel == kernel]
@@ -912,7 +926,7 @@ def phase_lane_kernels(runs: dict, card: str) -> list:
                 err = max(err, c.gate(got, plain))
             n_bytes, n_ops = (sum(x) for x in zip(*(c.work() for c in cs)))
             bound_ms, bound_by = _bound(n_bytes, n_ops)
-            row = {"name": kernel if B == B_FLEET else f"{kernel}_b{B}", "route": "cuda",
+            row = {"name": kernel + suffix, "route": "cuda",
                    "source": "larvio_tpu_torch/csrc/lane_mm.cu",
                    "replaces": ("larvio_tpu/core/linalg.py:22" if kernel == "lane_mm" else "larvio_tpu/core/linalg.py:282"),
                    "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -923,10 +937,11 @@ def phase_lane_kernels(runs: dict, card: str) -> list:
             per = []
             for c in cs:
                 b_, o_ = c.work()
-                per.append({"site": c.site, "shape": f"{tuple(c.a.shape)} {tuple(c.b.shape)}",
+                per.append({"site": c.site, "shape": f"{tuple(c.a.shape)} {tuple(c.b.shape)}{c.form()}",
                             "library_ms": _graph_ms(c.library, 10), "bound_ms": _bound(b_, o_)[0]})
             out.append((B, kernel, row, cs, per))
-            print(f"{row['name']} (B = {B}): {len(cs)} calls per batched frame, each within {LANE_RTOL} of its "
+            form = ", Joseph" if run.cfg == JOSEPH else ""
+            print(f"{row['name']} (B = {B}{form}): {len(cs)} calls per batched frame, each within {LANE_RTOL} of its "
                   f"plain version (max |d| {err:.3e}); per frame: kernel {row['call_ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms (captured graphs); bound "
                   f"{bound_ms:.6f} ms ({bound_by}); on {card}", flush=True)
@@ -2092,7 +2107,7 @@ PURE = VioConfig(filter=FilterConfig(max_slam_features=0))  # D = 142, no SLAM s
 # (tests/test_torch_lane_mm.py counts the calls on the CPU)
 LANE_LAUNCHES_PER_STEP = {VioConfig(): {"lane_mm": 121, "lane_trsm": 4},
                           PURE: {"lane_mm": 62, "lane_trsm": 3},
-                          JOSEPH: {"lane_mm": 166, "lane_trsm": 4}}
+                          JOSEPH: {"lane_mm": 166, "lane_trsm": 10}}
 PARITY_REL = 0.3  # |ATE_sqrt - ATE_joseph| < 0.3 max(ATE_joseph, 0.01) (tests/test_sqrt_filter.py:97-100)
 PARITY_ATE_GATE = 0.2  # m, both forms (tests/test_sqrt_filter.py:95)
 STD_RATIO = (0.75, 1.35)  # median sqrt/Joseph p_std and v_std, last 60 frames (tests/test_sqrt_filter.py:106-116)
@@ -2211,7 +2226,8 @@ def phase_joseph(dev, data, imgs, sqrt_ate, card):
     gates; ``bench.py --joseph``'s workload; the feature-level Joseph vs
     square-root parity and the 20-seed NEES, each held to its test's gates
     and printed beside the JAX package's figures on the CPU. Returns the
-    captured steps and frames for the timing turns and profiles."""
+    main path's frames and captured step, and the fleet's ``FleetRun`` (for
+    the timing turns, phase 5's lane calls and the profiles)."""
     cfg = JOSEPH
     D = state_dim(cfg)
     t0 = time.perf_counter()
@@ -2224,7 +2240,6 @@ def phase_joseph(dev, data, imgs, sqrt_ate, card):
           f"|d| {abs(sqrt_ate - ate):.5f} m < {PARITY_REL} x max(ATE_joseph, 0.01); the captured step "
           f"holds a dense ({D}, {D}) P", flush=True)
     fleet = phase_fleet(dev, cfg, data, imgs, ate, card, label="Joseph fleet", compare=False)
-    fleet_frames, fleet_graph = fleet.frames, fleet.graph
     assert fleet.state.vio.filter.P.shape == (B_FLEET, D, D)
     phase_bench(dev, card, joseph=True)
     figs = run_joseph_features(dev)
@@ -2235,7 +2250,7 @@ def phase_joseph(dev, data, imgs, sqrt_ate, card):
         print(f"  Joseph {name}: " + ", ".join(f"{k} {_fmt(v)}" for k, v in figs[name].items())
               + "; the JAX package on the CPU: " + ", ".join(f"{k} {_fmt(v)}" for k, v in jax.items()), flush=True)
     print(f"Joseph path (phase 3i): every gate held; {time.perf_counter() - t0:.3f} s on {card}", flush=True)
-    return (frames, graph), (fleet_frames, fleet_graph)
+    return (frames, graph), fleet
 
 
 def _state_at(graph, ps0, frames, k: int):
@@ -2589,7 +2604,7 @@ def main() -> int:
     runs = {("single", "sqrt"): (cfg, ps_single, main_frames, main_graph),
             ("single", "Joseph"): (JOSEPH, init_pipeline_state(JOSEPH, dev), *j_main),
             ("fleet B = 8", "sqrt"): (cfg, fleet.ps0, fleet.frames, fleet.graph),
-            ("fleet B = 8", "Joseph"): (JOSEPH, init_fleet_pipeline_state(JOSEPH, B_FLEET, dev), *j_fleet)}
+            ("fleet B = 8", "Joseph"): (JOSEPH, j_fleet.ps0, j_fleet.frames, j_fleet.graph)}
     phase_turns(runs, card)
     clock("3i turns")
     pure = PURE
@@ -2600,7 +2615,8 @@ def main() -> int:
     clock("4b")
     phase_sharded(dev, card)
     clock("4c")
-    lane = phase_lane_kernels({B_FLEET: fleet, B_WIDE: wide}, card)
+    lane = phase_lane_kernels([(B_FLEET, "", fleet), (B_WIDE, f"_b{B_WIDE}", wide), (B_FLEET, "_joseph", j_fleet)],
+                              card)
     torch.cuda.empty_cache()
     kernels = phase_timing(timings)
     kernels += lane_device_rows(lane, card)

@@ -14,9 +14,13 @@ every select stays on the device.
 
 The Joseph (dense covariance) path's pieces, ``qr_compress`` and
 ``joseph_update``, take one instance or a fleet: ``lanes`` counts the
-leading lane axes, and the products and triangular solves whose batch would
-fold them keep the lanes apart (``mm_lanes``, ``solve_tri_lanes``), so a
-lane's bits do not depend on the fleet's width.
+leading lane axes, and the products and solves whose batch would fold them
+keep the lanes apart (``mm_lanes``, ``solve_tri_lanes``, and
+``cho_solve_lanes`` for the Kalman gain: two ``solve_tri_lanes``), so a
+lane's bits do not depend on the fleet's width. On the card a fleet's
+solve is one ``lane_trsm`` launch for all lanes, where ``torch.
+cholesky_solve`` with more than one right-hand side loops cuSOLVER's potrs
+(two cuBLAS trsm) over the lanes.
 """
 
 from __future__ import annotations
@@ -94,6 +98,18 @@ def solve_tri_plain(A: torch.Tensor, B: torch.Tensor, upper: bool) -> torch.Tens
     """``solve_tri_lanes``'s plain version: ``torch.linalg.solve_triangular``
     (on the CPU each matrix is solved on its own, whatever the batch)."""
     return torch.linalg.solve_triangular(A, B, upper=upper)
+
+
+def cho_solve_lanes(chol: torch.Tensor, B: torch.Tensor, lanes: int) -> torch.Tensor:
+    """X = (L L^T)^{-1} B for the lower factor ``chol`` (..., n, n) and B
+    (..., n, W), the first ``lanes`` axes kept apart: L^T X = L^{-1} B by
+    two ``solve_tri_lanes`` (the upper L^T a view, which the kernel stages
+    index-reversed), so two ``lane_trsm`` launches for all lanes on the
+    card. One instance keeps ``torch.cholesky_solve``. A NaN factor gives
+    NaN in its own lane's X only."""
+    if lanes == 0:
+        return torch.cholesky_solve(B, chol)
+    return solve_tri_lanes(chol.transpose(-1, -2), solve_tri_lanes(chol, B, False, lanes), True, lanes)
 
 
 def symmetrize(P: torch.Tensor) -> torch.Tensor:
@@ -319,7 +335,7 @@ def joseph_update(P: torch.Tensor, H: torch.Tensor, r: torch.Tensor, noise_var, 
     PHt = mm_lanes(P, Ht, lanes)  # (..., D, n)
     S = symmetrize(mm_lanes(H, PHt, lanes) + torch.diag_embed(Rn))
     chol = chol_nan(S + 1e-12 * _eye_like(n, P))
-    K = torch.cholesky_solve(PHt.transpose(-1, -2), chol).transpose(-1, -2)  # (..., D, n)
+    K = cho_solve_lanes(chol, PHt.transpose(-1, -2), lanes).transpose(-1, -2)  # (..., D, n)
     dx = mm_lanes(K, r[..., None], lanes)[..., 0]
     IKH = _eye_like(D, P) - mm_lanes(K, H, lanes)
     P_new = (mm_lanes(mm_lanes(IKH, P, lanes), IKH.transpose(-1, -2), lanes)

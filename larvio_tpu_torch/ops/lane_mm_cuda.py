@@ -26,6 +26,10 @@ the batch count, which the order does not). PyTorch's ``solve_triangular`` loops
 cuBLAS's trsm for batches of at most 8 matrices of 64 rows or more and calls
 the batched trsm above 8, so a fleet's D x D solves gave a lane other bits
 at 8 lanes than at 256. Its plain version is ``torch.linalg.solve_triangular``.
+A fleet's Cholesky solve (``core/linalg.py::cho_solve_lanes``, the dense
+form's Kalman gain) is two of these launches, the second on the factor's
+transposed view as an upper triangle; ``torch.cholesky_solve`` with more
+than one right-hand side loops cuSOLVER's potrs over the lanes.
 
 Broadcast axes are passed as stride 0 and transposed views as they are:
 nothing is copied. The launch goes on the current stream with its arguments

@@ -18,13 +18,20 @@ the same bits, and lanes 0-2 a 3-lane fleet's; a fleet step makes as many
 launches. The triangular solve of a fleet (``solve_tri_lanes``, kernel
 ``lane_trsm`` in the same source) is held the same way: its addressing and
 substitution order emulated in float64, and on the CPU it is
-``torch.linalg.solve_triangular``.
+``torch.linalg.solve_triangular``. The Kalman gain's Cholesky solve of a
+fleet (``cho_solve_lanes``) is two of them, bit for bit, within twice the
+solve's bound of float64, NaN only in a lane whose factor failed, and
+``torch.cholesky_solve`` for one instance.
 
 The ``cuda`` cases need the card and skip here; there they hold the kernel
 to its plain version (the per-lane cuBLAS loop) at every shape class with
 the same tolerance, and its lanes to themselves bit for bit: the first k of
 256 lanes alone (k = 1, 3, 8) and the lanes permuted; ``lane_trsm`` the
-same way against ``torch.linalg.solve_triangular``. They import no JAX:
+same way against ``torch.linalg.solve_triangular``; ``cho_solve_lanes``
+against float64, its lanes alone against 256 and a NaN factor's lane
+against the others; the dense fleet step
+captured against eager, with 10 ``lane_trsm`` a step and no cuBLAS trsm
+under the profiler. They import no JAX:
 
     python -m pytest --noconftest tests/test_torch_lane_mm.py -q -m cuda
 """
@@ -44,6 +51,7 @@ from larvio_tpu_torch.core.linalg import mm_lanes, mm_per_lane
 from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.ops import lane_mm_cuda
+from larvio_tpu_torch.ops.cuda_lib import kernel_launches
 from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
 from larvio_tpu_torch.models.msckf import filter_step, init_vio_state
 from larvio_tpu_torch.parallel.fleet import fleet_step, init_fleet_state
@@ -476,6 +484,59 @@ def test_trsm_refuses_cpu_and_bad_shapes():
         lane_mm_cuda._trsm_args(torch.zeros(2, 3, 4), B, 1)
 
 
+def _cho(g, *lead, n, W):
+    """The lower Cholesky factor of a well-conditioned SPD matrix (lead...,
+    n, n), as ``joseph_update`` factors its innovation covariance, and B
+    (lead..., n, W)."""
+    G = _r(g, *lead, n, n)
+    return torch.linalg.cholesky(G @ G.transpose(-1, -2) / n + torch.eye(n)), _r(g, *lead, n, W)
+
+
+def _cho_gate(got, chol, B):
+    """``_trsm_gate``'s bound applied twice (two solves): within 2e-5 of
+    float64's (L L^T)^{-1} B, relative to the largest |X| of the lane."""
+    ref = torch.cholesky_solve(B.double(), chol.double())
+    scale = ref.abs().flatten(-2).amax(-1)[..., None, None]
+    return bool(((got.double() - ref).abs() <= 2 * RTOL * scale).all())
+
+
+# (n, W) of the Kalman gain's solves: the ZUPT's 9 rows, a square system,
+# the D rows of a compressed stack against D = 160 right-hand sides
+CHO = [(9, 160), (24, 24), (160, 160)]
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("n, W", CHO)
+def test_cho_solve_lanes_is_two_triangular_solves(n, W, lanes):
+    """``cho_solve_lanes`` on the CPU: L^{-T} (L^{-1} B) by
+    ``torch.linalg.solve_triangular`` bit for bit, and float64's
+    ``cholesky_solve`` within ``_cho_gate``."""
+    chol, B = _cho(torch.Generator().manual_seed(20 + n), *(2, 3)[:lanes], n=n, W=W)
+    got = linalg.cho_solve_lanes(chol, B, lanes)
+    want = torch.linalg.solve_triangular(chol.transpose(-1, -2),
+                                         torch.linalg.solve_triangular(chol, B, upper=False), upper=True)
+    assert torch.equal(got, want)
+    assert _cho_gate(got, chol, B)
+
+
+@pytest.mark.parametrize("n, W", CHO)
+def test_cho_solve_one_instance_is_cholesky_solve(n, W):
+    """One instance (``lanes == 0``) keeps ``torch.cholesky_solve`` bit for
+    bit."""
+    chol, B = _cho(torch.Generator().manual_seed(30 + n), n=n, W=W)
+    assert torch.equal(linalg.cho_solve_lanes(chol, B, 0), torch.cholesky_solve(B, chol))
+
+
+def test_cho_solve_nan_factor_stays_in_its_lane():
+    """A failed factorization (``chol_nan``: the factor all NaN) gives NaN
+    in that lane's X only; the other lanes are what they are without it."""
+    chol, B = _cho(torch.Generator().manual_seed(40), 3, n=24, W=160)
+    chol[1] = torch.nan
+    got = linalg.cho_solve_lanes(chol, B, 1)
+    assert torch.isnan(got[1]).all() and torch.isfinite(got[[0, 2]]).all()
+    assert torch.equal(got[[0, 2]], linalg.cho_solve_lanes(chol[[0, 2]], B[[0, 2]], 1))
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -562,3 +623,92 @@ def test_trsm_lanes_independent_on_card(dev, name):
         assert torch.equal(lane_solve_triangular(A[:k], R[:k], upper, lanes), full[:k])
     perm = torch.randperm(256, generator=torch.Generator().manual_seed(13)).to(dev)
     assert torch.equal(lane_solve_triangular(A[perm], R[perm], upper, lanes), full[perm])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [160, 9])
+@pytest.mark.parametrize("B", [8, 256])
+def test_cho_solve_kernel_matches_float64_on_card(dev, n, B):
+    """Two ``lane_trsm`` launches for all lanes, within ``_cho_gate`` of
+    float64 per lane."""
+    chol, R = (t.to(dev) for t in _cho(torch.Generator().manual_seed(14), B, n=n, W=160))
+    n0 = lane_solve_triangular.launches
+    got = linalg.cho_solve_lanes(chol, R, 1)
+    assert lane_solve_triangular.launches == n0 + 2
+    assert _cho_gate(got, chol, R), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [160, 9])
+def test_cho_solve_lanes_independent_on_card(dev, n):
+    """The first k of 256 lanes alone (k = 1, 3, 8) give each lane the
+    bits it has among 256."""
+    chol, R = (t.to(dev) for t in _cho(torch.Generator().manual_seed(15), 256, n=n, W=160))
+    full = linalg.cho_solve_lanes(chol, R, 1)
+    for k in (1, 3, 8):
+        assert torch.equal(linalg.cho_solve_lanes(chol[:k], R[:k], 1), full[:k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [160, 9])
+def test_cho_solve_nan_factor_stays_in_its_lane_on_card(dev, n):
+    """256 lanes, lane 100's innovation covariance not positive definite:
+    ``chol_nan`` gives that lane an all-NaN factor, and the two launches
+    give NaN in its X only; every other lane has the bits it has when lane
+    100 factors."""
+    g = torch.Generator().manual_seed(16)
+    G = _r(g, 256, n, n)
+    S = (G @ G.transpose(-1, -2) / n + torch.eye(n)).to(dev)
+    R = _r(g, 256, n, 160).to(dev)
+    bad = S.clone()
+    bad[100] = -bad[100]
+    chol = linalg.chol_nan(bad)
+    others = torch.arange(256, device=dev) != 100
+    assert torch.isnan(chol[100]).all() and torch.isfinite(chol[others]).all()
+    got = linalg.cho_solve_lanes(chol, R, 1)
+    want = linalg.cho_solve_lanes(linalg.chol_nan(S), R, 1)
+    assert torch.isnan(got[100]).all() and torch.isfinite(got[others]).all()
+    assert torch.equal(got[others], want[others])
+
+
+@pytest.mark.cuda
+def test_dense_fleet_step_solves_on_lane_trsm_on_card(dev):
+    """The dense fleet step (D = 160, 8 lanes, 12 feature-level frames)
+    captured equals the eager step bit for bit; both launch 10
+    ``lane_trsm`` a step (``chip_smoke.LANE_LAUNCHES_PER_STEP``: the gain's
+    two solves in each of the three Joseph updates, and ``qr_compress``'s
+    four), and the replays run no cuBLAS ``trsm_l_mul32`` kernel (the
+    per-lane loop that ``torch.cholesky_solve`` makes)."""
+    import chip_smoke
+    from larvio_tpu_torch.core.graph import CapturedStep
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = VioConfig(filter=FilterConfig(sqrt_form=False))
+    T, lanes = 12, 8
+    data = [Simulator(SimConfig(duration=1.0, pixel_noise=0.002, seed=200 + b), cfg).generate()
+            for b in range(lanes)]
+    feats, imu = make_frame_inputs({k: np.stack([d[k][:T] for d in data], axis=1) for k in data[0]
+                                    if np.shape(data[0][k])[:1] == np.shape(data[0]["t_img"])}, device=dev)
+    frames = [tree_map(lambda a: a[k], (feats, imu)) for k in range(T)]
+    state = init_fleet_state(cfg, lanes, dev)
+    n0 = kernel_launches()["lane_trsm"]
+    eager, s = [], state
+    for x in frames:
+        s, out = fleet_step(cfg, s, *x)
+        eager.append((s, out))
+    torch.cuda.synchronize()
+    assert kernel_launches()["lane_trsm"] - n0 == 10 * T
+    graph = CapturedStep(lambda st, x: fleet_step(cfg, st, *x), state, frames[0])
+    assert graph.launches_per_replay["lane_trsm"] == chip_smoke.LANE_LAUNCHES_PER_STEP[cfg]["lane_trsm"] == 10
+    s = state
+    for k, x in enumerate(frames):
+        s, out = graph(s, x)
+        for i, (a, b) in enumerate(zip(leaves((s, out)), leaves(eager[k]))):
+            assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)), (k, i)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in frames[:3]:
+            graph.replay(x)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("lane_trsm" in n for n in names), sorted(names)
+    assert not any("trsm_l_mul32" in n for n in names), sorted(n for n in names if "trsm" in n)
