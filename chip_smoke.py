@@ -54,8 +54,8 @@ Phases, each raising on failure (the script then exits non-zero):
    ``tools/torch_repro_check.py`` to locate it); before phase 3k, phase 3's
    sequence rendered twice in this process is equal bit for bit;
 3c. flexible moving start: 200 rendered frames (10 s, no static lead-in,
-   gyro bias) through ``run_image_sequence_flexible`` (head through
-   ``jit_pipeline_step``, tail through ``run_image_sequence``: one graph, at
+   gyro bias) through ``run_image_sequence_flexible`` (head: replays of the
+   selected step, tail through ``run_image_sequence``: one graph, at
    most one capture); checks that the host initializer injected a dynamic
    result, > 175 initialized frames, 0 resets, finiteness, ATE < 0.15 m and
    one K1, one detection and one describe launch per frame; the head's ms
@@ -219,6 +219,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import larvio_tpu_torch.init.flexible as flexible_mod
 import larvio_tpu_torch.pipeline as pipeline_mod
 from larvio_tpu_torch import cli
 from larvio_tpu_torch import api
@@ -1057,7 +1058,7 @@ def _eager_vs_captured(cfg, ps, frames, label: str, batched: bool = False,
             torch.cuda.synchronize()
             wall, launches = time.perf_counter() - t0, kernel_launches()
         else:
-            res, wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames, graph=graph))
+            res, wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames))
             captured = launches
         _launch_gate(launches, T, f"{label} ({mode})", batched, cfg)
         ref = res if ref is None else ref
@@ -1111,7 +1112,7 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
         how = f"eager and captured runs equal bit for bit (outputs and final state); {_ms_line(ms)}"
     else:
         graph = _capture(cfg, ps, frames)
-        (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames, graph=graph))
+        (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames))
         _launch_gate(launches, T, label)
         how = f"captured {1e3 * wall / T:.3f} ms/frame"
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
@@ -1256,29 +1257,34 @@ def phase_flexible(dev, cfg, card):
     frames = single_frames(data, imgs)
     T = imgs.shape[0]
     injected = []
-    real = pipeline_mod.inject_init_result
+    real = flexible_mod.inject_init_result
 
     def record(cfg_, vs, res):  # every result the host initializer injects
         injected.append(res)
         return real(cfg_, vs, res)
 
-    head_s, real_call = [], pipeline_mod.call
+    head_s, real_select = [], pipeline_mod.select_pipeline_step
 
-    def timed_call(*a, **kw):  # the head's steps (the tail replays inside run_image_sequence)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = real_call(*a, **kw)
-        torch.cuda.synchronize()
-        head_s.append(time.perf_counter() - t0)
-        return res
+    class TimedHead:  # the head's step, each replay timed (the tail replays inside run_image_sequence)
+        def __init__(self, step):
+            self.load, self.state, self._step = step.load, step.state, step
 
-    pipeline_mod.inject_init_result, pipeline_mod.call = record, timed_call
+        def replay(self, frame):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._step.replay(frame)
+            torch.cuda.synchronize()
+            head_s.append(time.perf_counter() - t0)
+            return out
+
+    flexible_mod.inject_init_result = record
+    pipeline_mod.select_pipeline_step = lambda *a, **kw: TimedHead(real_select(*a, **kw))
     t0 = time.perf_counter()
     try:
         (_, outs), launches, captures, graphs = _replays_of(
             lambda: run_image_sequence_flexible(cfg, init_pipeline_state(cfg, dev), frames))
     finally:
-        pipeline_mod.inject_init_result, pipeline_mod.call = real, real_call
+        flexible_mod.inject_init_result, pipeline_mod.select_pipeline_step = real, real_select
     wall = time.perf_counter() - t0
     _launch_gate(launches, T, "flexible")
     assert captures <= 1 and graphs == 1, f"flexible: {captures} captures, {graphs} graphs replayed"
@@ -1307,7 +1313,7 @@ def phase_flexible(dev, cfg, card):
           f"initialized, 0 resets, mean n_tracks {o['n_tracks'][m].mean():.2f}, n_slam max "
           f"{int(o['n_slam'].max())}, ATE {ate:.7f} m (gate {FLEX_ATE_GATE}); head and tail replay one graph "
           f"({captures} captures), one K1, one detection and one describe launch per frame; {n_head} head frames "
-          f"(jit_pipeline_step) {1e3 * sum(head_s) / n_head:.3f} ms per frame against the eager step's "
+          f"(replays of the selected step) {1e3 * sum(head_s) / n_head:.3f} ms per frame against the eager step's "
           f"{eager_ms:.3f} on the same frames; {1e3 * wall / T:.3f} ms/frame in all on {card}", flush=True)
     return frame_digests(imgs)
 
@@ -1611,7 +1617,7 @@ def phase_diagnostics(dev, cfg, card, tmp: str, root: str, traj: str, frames, gr
     lo, hi = DEBUG_FRAMES
     start = _state_at(graph, init_pipeline_state(cfg, dev), frames, lo)
     window = tree_map(lambda a: a[lo:hi], frames)
-    ref_state, ref_out = run_image_sequence(cfg, start, window, graph=graph)
+    ref_state, ref_out = run_image_sequence(cfg, start, window)
     ps, outs, n_masks = start, [], 0
     for k in range(hi - lo):
         fr = tree_map(lambda a: a[k], window)
@@ -1682,8 +1688,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
         wall = 1e-3 * T * min(ms["captured"])
     else:
         graph = _capture(cfg, ps, frames)
-        (_, outs), wall, launches = _replayed(graph, lambda: run_fleet_image_sequence(cfg, ps, frames,
-                                                                                      graph=graph))
+        (_, outs), wall, launches = _replayed(graph, lambda: run_fleet_image_sequence(cfg, ps, frames))
         _launch_gate(launches, T, label, batched=True, cfg=cfg)
         how = f"captured {1e3 * wall / T:.3f} ms per batched frame"
     state = graph.state()  # after the captured run's last frame
@@ -1793,11 +1798,13 @@ def repro_child(dev=torch.device("cuda:0")) -> int:
     got = {"3 frames": frame_digests(imgs), "3c frames": frame_digests(flexible_workload(dev, cfg)[1])}
     frames = single_frames(data, imgs)
     ps = init_pipeline_state(cfg, dev)
-    state, outs = run_image_sequence(cfg, ps, frames, graph=_capture(cfg, ps, frames))
+    _capture(cfg, ps, frames)
+    state, outs = run_image_sequence(cfg, ps, frames)
     got.update(_run_digests("3", outs, state))
     frames = fleet_frames(data, imgs, B_FLEET)
     ps = init_fleet_pipeline_state(cfg, B_FLEET, dev)
-    state, outs = run_fleet_image_sequence(cfg, ps, frames, graph=_capture(cfg, ps, frames))
+    _capture(cfg, ps, frames)
+    state, outs = run_fleet_image_sequence(cfg, ps, frames)
     got.update(_run_digests("4", outs, state))
     del held
     print(json.dumps(got), flush=True)
@@ -1839,7 +1846,7 @@ def _image_run(dev, cfg, frames, label: str):
     T = frames.t.shape[0]
     ps = init_pipeline_state(cfg, dev)
     graph = _capture(cfg, ps, frames)
-    (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames, graph=graph))
+    (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames))
     _launch_gate(launches, T, label)
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
@@ -2280,7 +2287,7 @@ def phase_turns(runs: dict, card: str):
             T = frames.t.shape[0]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run_image_sequence(cfg, ps0, frames, graph=graph)
+            run_image_sequence(cfg, ps0, frames)
             torch.cuda.synchronize()
             ms[(form, "captured")].append(1e3 * (time.perf_counter() - t0) / T)
             if (width, form) not in starts:
@@ -2374,8 +2381,8 @@ def phase_sharded_graph(dev, cfg, data, ref_outs, card):
     """Phase 4c, the captured sharded step: an NCCL group of world size 1
     in this process; from the one-process fleet's state before the last
     ``SHARD_STEP_FRAMES`` frames, ``make_sharded_fleet``'s eager ``step_fn``
-    (``graph=False``) and its captured one (``graph=True``: one CUDA graph of
-    the fleet step, the metrics and the ``all_reduce``) over those frames:
+    (``graph=False``) and its captured one (``graph=None``: one CUDA graph of
+    the fleet step, the metrics and the ``all_reduce``, from the cache) over those frames:
     state, outputs and reduced metrics equal bit for bit, the outputs equal
     the one-process sequence's, the metrics the host sums."""
     T, B = data["t_img"].shape[:2]
@@ -2387,7 +2394,7 @@ def phase_sharded_graph(dev, cfg, data, ref_outs, card):
         dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", world_size=1, rank=0)
         try:
             runs, ms = [], {}
-            for graph in (False, True):
+            for graph in (False, None):
                 _, step_fn = make_sharded_fleet(cfg, device=dev, graph=graph)
                 vs, seq = step_fn(vs0, *inputs[0]), []  # the first call captures
                 seq.append(vs[1:])
@@ -2397,7 +2404,7 @@ def phase_sharded_graph(dev, cfg, data, ref_outs, card):
                     vs = step_fn(vs[0], *args)
                     seq.append(vs[1:])
                 torch.cuda.synchronize()
-                ms["captured" if graph else "eager"] = 1e3 * (time.perf_counter() - t0) / (len(inputs) - 1)
+                ms["eager" if graph is False else "captured"] = 1e3 * (time.perf_counter() - t0) / (len(inputs) - 1)
                 runs.append((vs[0], seq))
         finally:
             dist.destroy_process_group()
@@ -2634,8 +2641,8 @@ def main() -> int:
     print("command time per phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in clock.spans.items()), flush=True)
     assert CACHE.captures == len(CACHE), f"{CACHE.captures} captures for {len(CACHE)} signatures"
     print("cache captures per phase: " + ", ".join(f"{k} {v}" for k, v in clock.captures.items())
-          + f"; {CACHE.captures} in the whole script for {len(CACHE)} distinct signatures (plus 3k's 3 explicit "
-          f"captures and 4c's captured NCCL step_fn, outside the cache); memory reserved after the last phase "
+          + f"; {CACHE.captures} in the whole script for {len(CACHE)} distinct signatures (4c's captured NCCL "
+          f"step_fn among them; plus 3k's 3 explicit captures, outside the cache); memory reserved after the last phase "
           f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB (max {torch.cuda.max_memory_reserved() / 2 ** 30:.3f})",
           flush=True)
     for k in kernels:

@@ -64,10 +64,9 @@ def run_sequence(cfg: VioConfig, vs: VioState, seq_feats: FrameFeatures, seq_imu
                  graph=None):
     """The filter over inputs with a leading time axis. Returns (final state,
     StepOutput with a leading time axis). ``graph`` as in
-    ``core/graph.py::scan``: None replays ``CACHE``'s step on the card
+    ``core/graph.py::select``: None replays ``CACHE``'s step on the card
     (``step``'s graph; a second call of one signature captures nothing) and
-    runs the eager loop on the CPU; False forces the eager loop; True takes
-    ``CACHE``'s step and raises on the CPU."""
+    runs the eager loop on the CPU; False forces the eager loop."""
     return scan(_entry(cfg), _step(cfg), vs, (seq_feats, seq_imu), graph=graph)
 
 

@@ -50,10 +50,9 @@ from larvio_tpu_torch.core.stages import TRACER, NanCheck
 from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.data.visualize import plot_run
 from larvio_tpu_torch.init import FlexibleInitializer
-from larvio_tpu_torch.init.flexible import inject_init_result
+from larvio_tpu_torch.init.flexible import feed_frame
 from larvio_tpu_torch.models.propagation import ImuBatch
-from larvio_tpu_torch.pipeline import (FrameInput, cached_pipeline_step, init_pipeline_state,
-                                       pipeline_step)
+from larvio_tpu_torch.pipeline import FrameInput, init_pipeline_state, select_pipeline_step
 from larvio_tpu_torch.utils.checkpoint import restore_state, save_state
 
 
@@ -141,17 +140,16 @@ class _ChunkStager:
 def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=None,
                    init_mode="auto", resume=None, budget: bool = False, chunk: int = 1,
                    live=None, live_every: int = 40, debug_nans: bool = False):
-    """Host loop: one ``pipeline_step`` per frame of a frame stream. On the
-    card the step's graph comes from the cache of captured steps at the
-    first frame (``pipeline.cached_pipeline_step``: captured then, unless an
-    earlier run in this process captured the signature), the state is
-    loaded into it, and every frame is one replay; on the CPU every frame is
-    an eager step.
+    """Host loop: one ``pipeline_step`` per frame of a frame stream, through
+    the step ``pipeline.select_pipeline_step`` gives at the first frame: on
+    the card the cache's captured step (captured then, unless an earlier run
+    in this process captured the signature), on the CPU the eager step. The
+    state is loaded into it and every frame is one replay.
 
     init_mode: "static" keeps only the on-device static initializer;
     "auto"/"dynamic" also run the host FlexibleInitializer (window SfM +
     visual-inertial alignment) and inject its result for in-motion starts
-    (through ``CapturedStep.load`` on the card).
+    (loaded into the step).
     resume: restore the whole PipelineState (tracker, previous pyramid,
     filter, init accumulator) saved by ``checkpoint``, so the continued run
     steps exactly as an uninterrupted one.
@@ -205,24 +203,11 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
     flex = None
     if init_mode in ("auto", "dynamic") and not initialized:
         flex = FlexibleInitializer(cfg, window=15, min_parallax=0.12)
-    graph = stager = None
-
-    def step(frame):
-        """One frame through the step; returns its outputs (kept)."""
-        nonlocal ps
-        if graph is None:
-            ps, out = pipeline_step(cfg, ps, frame, check=check)
-            if check is not None:
-                check.frame += 1
-            return out
-        return tree_map(torch.clone, graph.replay(frame))
-
-    def state():
-        return ps if graph is None else graph.state()
+    step = stager = None
 
     def timed_steps(frames):
         with TRACER.span("cli.dispatch"):
-            outs = [step(f) for f in frames]
+            outs = [tree_map(torch.clone, step.replay(f)) for f in frames]  # the outputs are kept
         if budget:
             with TRACER.span("cli.compute"):
                 sync()
@@ -272,9 +257,10 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
                 host = host_frame(fr)
                 if stager is None and chunk > 1:
                     stager = _ChunkStager(host, chunk, dev)  # pinned before the capture
-                if graph is None and dev.type == "cuda" and check is None:
-                    graph = cached_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host))
-                    graph.load(ps)
+                if step is None:
+                    step = select_pipeline_step(cfg, ps, tree_map(lambda a: a.to(dev), host),
+                                                graph=None if check is None else False, check=check)
+                    step.load(ps)
                 if staged:
                     pending.append(host)
             if staged:
@@ -299,19 +285,10 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
             n += 1
             live_refresh()
             if flex is not None and not bool(out.initialized):
-                # feed the host initializer from the tracker's current table
-                tr = state().tracker
-                flex.push(
-                    _host(fr["t_img"]), tr.ids.cpu().numpy(), tr.uv_norm.cpu().numpy(),
-                    tr.valid.cpu().numpy(), _host(fr["imu_t"]), _host(fr["imu_w"]),
-                    _host(fr["imu_a"]), _host(fr["imu_valid"]),
-                )
-                res = flex.try_init()
-                if res is not None and res.mode == "dynamic":
-                    ps = state()
-                    ps = ps.replace(vio=inject_init_result(cfg, ps.vio, res))
-                    if graph is not None:
-                        graph.load(ps)
+                fed = feed_frame(flex, cfg, step.state(), fr["t_img"], host.imu)
+                if fed is not None:
+                    ps, res = fed
+                    step.load(ps)
                     print(f"dynamic initialization at t={res.time:.2f}s "
                           f"(|v|={np.linalg.norm(res.v):.2f} m/s)")
                     flex = None
@@ -363,7 +340,8 @@ def _run_streaming(cfg, frame_iter, device="cuda", profile_dir=None, checkpoint=
         "zupt": outs.stationary.astype(bool),
         "resets": outs.did_reset.astype(bool),
     }
-    ps = state()
+    if step is not None:
+        ps = step.state()
     if checkpoint:
         save_state(checkpoint, ps)
     return t, p, q, init, stats, fps, ps

@@ -1,6 +1,8 @@
 """One frame step captured as a CUDA graph and replayed in place, and the
 cache of such steps: the port's counterpart of ``jax.jit`` on a step
 function (its capture is jit's compile, ``CACHE`` its compile-once cache).
+``select`` is the one place that decides how a step runs: every runner of
+the port drives the step it returns.
 
 ``CapturedStep(fn, state, inputs)`` takes a step ``fn(state, inputs) ->
 (state, outputs)`` over trees of CUDA tensors with fixed shapes
@@ -27,10 +29,9 @@ replay. A replay is one launch on the host; the kernel wrappers' counters
 tick only while capturing, and ``launches_per_replay`` records what they
 counted then, so the launches of a run are ``replays`` times that.
 
-Calling a ``CapturedStep`` (``step(state, inputs)``) is the functional
-form: it loads ``state``, replays, and returns clones of the new state and
-the outputs, so the caller's tensors are never written and nothing it holds
-is overwritten by a later call.
+``EagerStep(fn)`` has the same interface (``load``, ``replay``, ``state``
+and ``scan``, a sequence of replays) and runs ``fn`` eagerly: it opens no
+spans and records no card events.
 
 ``CACHE`` holds one ``CapturedStep`` per signature, the key ``jax.jit``
 keeps: the entry (the step's name and its static arguments, e.g.
@@ -42,17 +43,16 @@ every later one replays that graph. ``CACHE.captures`` counts the captures,
 the CPU nothing is cached: the eager step runs.
 
 The entry layer's spans (``core/stages.py``'s tracer, ``CACHE.tracer``):
-``entry.call`` around a functional call (``call``, ``CapturedStep.__call__``)
-with its children ``entry.signature`` (the cache's key and lookup),
-``entry.load``, ``entry.replay`` and ``entry.clone`` (the new state's and the
-outputs' clones); ``entry.scan`` around ``scan`` with ``entry.signature``,
-``entry.load``, an ``entry.replay`` per frame and ``entry.clone`` for the
-state; ``entry.capture`` around a capture (the eager warm-up steps and the
-graph's capture). ``entry.replay`` (the input copies and
-``CUDAGraph.replay()``) carries card events, recorded outside the graph.
-On the card ``entry.call`` and ``entry.scan`` carry ``copies``, the leaf
-copies and clones the call launches (``CapturedStep.copies``), and
-``entry.scan`` its ``replays``.
+``entry.call`` around ``call`` with its children ``entry.signature`` (the
+cache's key and lookup), ``entry.load``, ``entry.replay`` and
+``entry.clone`` (the new state's and the outputs' clones); ``entry.scan``
+around ``scan`` with ``entry.signature``, ``entry.load``, an
+``entry.replay`` per frame and ``entry.clone`` for the state;
+``entry.capture`` around a capture (the eager warm-up steps and the graph's
+capture). ``entry.replay`` (the input copies and ``CUDAGraph.replay()``)
+carries card events, recorded outside the graph. On the card ``entry.call``
+and ``entry.scan`` carry ``copies``, the leaf copies and clones the call
+launches (``CapturedStep.copies``), and ``entry.scan`` its ``replays``.
 
 Nothing falls back to eager execution on the card: a CPU device raises, and
 a failed capture or replay raises to the caller. Every factorization must
@@ -68,7 +68,6 @@ import torch
 
 from larvio_tpu_torch.core.stages import TRACER
 from larvio_tpu_torch.core.tree import leaves, tree_map
-from larvio_tpu_torch.core.tree import scan as tree_scan
 
 WARMUP_STEPS = 3
 
@@ -118,7 +117,47 @@ def _device(tree) -> torch.device:
     return devs.pop()
 
 
-class CapturedStep:
+class _Step:
+    """What both kinds of step share: a sequence of replays."""
+
+    def scan(self, carry, xs):
+        """Load ``carry``, replay once per element of the leading (time)
+        axis of ``xs``, each replay's outputs copied into a preallocated
+        (T, ...) buffer on the device (``buf[k]`` is a view made on the
+        host: the loop reads nothing back). Returns (final state, outputs
+        with a leading time axis)."""
+        n = next(iter(leaves(xs))).shape[0]
+        self.load(carry)
+        bufs = None
+        for k in range(n):
+            out = self.replay(tree_map(lambda a: a[k], xs))
+            if bufs is None:
+                outs = tree_map(lambda a: a.new_empty((n, *a.shape)), out)
+                bufs = list(leaves(outs))
+            for buf, o in zip(bufs, leaves(out)):
+                buf[k].copy_(o)
+        return self.state(), outs
+
+
+class EagerStep(_Step):
+    """``fn(state, inputs) -> (state, outputs)`` run eagerly; see the
+    module docstring."""
+
+    def __init__(self, fn):
+        self._fn, self._state = fn, None
+
+    def load(self, state) -> None:
+        self._state = state
+
+    def state(self):
+        return self._state
+
+    def replay(self, inputs):
+        self._state, out = self._fn(self._state, inputs)
+        return out
+
+
+class CapturedStep(_Step):
     """``fn(state, inputs) -> (state, outputs)`` captured once and replayed
     per step; see the module docstring. ``replays`` counts the replays."""
 
@@ -165,7 +204,7 @@ class CapturedStep:
 
     def copies(self, n: int = 1) -> int:
         """The leaf copies and clones that a call of ``n`` replays launches
-        (1: ``__call__``; n: ``scan``), every leaf copied: the load and the
+        (1: ``call``; n: ``scan``), every leaf copied: the load and the
         state's clones, and per replay the input copies and the outputs'
         clones or copies."""
         return 2 * self._n_state + n * self._n_io
@@ -199,18 +238,6 @@ class CapturedStep:
             self._graph.replay()
         self.replays += 1
         return self._out
-
-    def __call__(self, state, inputs):
-        """One step as a function: load ``state``, replay, and return clones
-        of (the new state, the outputs)."""
-        with TRACER.span("entry.call", copies=self.copies()):
-            return self._call(state, inputs)
-
-    def _call(self, state, inputs):
-        self.load(state)
-        out = self.replay(inputs)
-        with TRACER.span("entry.clone"):
-            return tree_map(torch.clone, self._state), tree_map(torch.clone, out)
 
 
 def _structure(tree):
@@ -267,14 +294,16 @@ CACHE = StepCache()
 
 
 def select(graph, entry, fn, state, inputs):
-    """The ``CapturedStep`` that ``graph`` picks for calls of ``fn`` on
-    arguments like (``state``, ``inputs``), or None for the eager step:
-    False: None; None: ``CACHE``'s on the card, None on the CPU; True:
-    ``CACHE``'s (raises on the CPU); a ``CapturedStep``: itself."""
-    if graph is False or (graph is None and _device((state, inputs)).type != "cuda"):
-        return None
-    if isinstance(graph, CapturedStep):
-        return graph
+    """The step that runs ``fn`` on arguments like (``state``, ``inputs``):
+    for ``graph=None``, ``CACHE``'s ``CapturedStep`` for ``entry`` and this
+    signature on the card (captured at its first call) and an
+    ``EagerStep`` on the CPU; for ``graph=False``, an ``EagerStep``. Any
+    other ``graph`` raises. The only code that picks eager or captured."""
+    if graph is not None and graph is not False:
+        raise ValueError(f"graph={graph!r}: None (the cached captured step on the card, the eager "
+                         "step on the CPU) or False (the eager step)")
+    if graph is False or _device((state, inputs)).type != "cuda":
+        return EagerStep(fn)
     return CACHE.step(entry, fn, state, inputs)
 
 
@@ -283,41 +312,27 @@ def call(entry, fn, state, inputs, graph=None):
     the jitted entry points' call. Returns (state, outputs), new tensors."""
     with TRACER.span("entry.call") as sp:
         with TRACER.span("entry.signature"):
-            g = select(graph, entry, fn, state, inputs)
-        if g is None:
+            step = select(graph, entry, fn, state, inputs)
+        if isinstance(step, EagerStep):
             return fn(state, inputs)
-        sp.set(copies=g.copies())
-        return g._call(state, inputs)
+        sp.set(copies=step.copies())
+        step.load(state)
+        out = step.replay(inputs)
+        with TRACER.span("entry.clone"):
+            return tree_map(torch.clone, step._state), tree_map(torch.clone, out)
 
 
-def scan(entry, step, carry, xs, graph=None):
-    """``core.tree.scan(step, carry, xs)``, one replay of a captured ``step``
-    per element of the leading (time) axis of ``xs``.
-
-    ``graph`` (``select``): None replays ``CACHE``'s step for ``entry`` and
-    this signature on the card (captured at its first call) and runs the
-    eager loop on the CPU; False always runs the eager loop; True takes
-    ``CACHE``'s step and raises on the CPU; a ``CapturedStep`` of ``step``
-    is replayed as it is. The step is loaded with ``carry`` first.
-
-    Each replay's outputs are copied into a preallocated (T, ...) buffer on
-    the device (``buf[k]`` is a view made on the host: the loop reads
-    nothing back). Returns (final carry, outputs with a leading time axis),
-    equal bit for bit to the eager loop's on the same device."""
-    n = next(iter(leaves(xs))).shape[0]
+def scan(entry, fn, carry, xs, graph=None):
+    """``fn`` over the leading (time) axis of ``xs`` from ``carry`` (the
+    JAX package's ``lax.scan``): the step ``graph`` selects (``select``)
+    runs its ``scan``, on the card one replay of ``CACHE``'s step per
+    element. Returns (final carry, outputs with a leading time axis), equal
+    bit for bit on the card and off it to the plain per-frame loop on the
+    same device."""
     with TRACER.span("entry.scan") as sp:
         with TRACER.span("entry.signature"):
-            graph = select(graph, entry, step, carry, tree_map(lambda a: a[0], xs))
-        if graph is None:
-            return tree_scan(step, carry, xs)
-        sp.set(replays=n, copies=graph.copies(n))
-        graph.load(carry)
-        bufs = None
-        for k in range(n):
-            out = graph.replay(tree_map(lambda a: a[k], xs))
-            if bufs is None:
-                outs = tree_map(lambda a: a.new_empty((n, *a.shape)), out)
-                bufs = list(leaves(outs))
-            for buf, o in zip(bufs, leaves(out)):
-                buf[k].copy_(o)
-        return graph.state(), outs
+            step = select(graph, entry, fn, carry, tree_map(lambda a: a[0], xs))
+        if isinstance(step, CapturedStep):
+            n = next(iter(leaves(xs))).shape[0]
+            sp.set(replays=n, copies=step.copies(n))
+        return step.scan(carry, xs)

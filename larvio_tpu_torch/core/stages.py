@@ -246,7 +246,8 @@ class NanCheck:
     """``check(stage, key=x or (x, mask), ...)`` raises ``FloatingPointError``
     when an element of ``x`` is not finite where ``mask`` holds (``mask``
     aligned to the leading axes of ``x``; no mask: everywhere). ``frame`` is
-    the index the caller sets before each step, named in the error."""
+    the index of the step being checked (``pipeline_step`` advances it),
+    named in the error."""
 
     def __init__(self):
         self.frame = 0

@@ -46,18 +46,6 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
-def scan(step, carry, xs):
-    """``jax.lax.scan`` as a Python loop: ``step(carry, x) -> (carry, out)``
-    over the leading (time) axis of every leaf of ``xs``; the outputs are
-    stacked on a new leading axis."""
-    n = next(iter(leaves(xs))).shape[0]
-    outs = []
-    for k in range(n):
-        carry, out = step(carry, tree_map(lambda a: a[k], xs))
-        outs.append(out)
-    return carry, tree_map(lambda *o: torch.stack(o), *outs)
-
-
 def leaves(tree):
     """The leaves of a tree of dataclasses / tuples / lists / dicts, in field
     order (the JAX package's flatten order for the same structure)."""

@@ -72,6 +72,24 @@ def inject_init_result(cfg: VioConfig, vs, res: InitResult):
     return vs.replace(filter=fs)
 
 
+def feed_frame(flex: FlexibleInitializer, cfg: VioConfig, ps, t, imu):
+    """One frame of the host initializer's feed, after the frame's step:
+    push the tracker table of ``ps`` (a ``PipelineState``) with the frame's
+    image time ``t`` and IMU ``imu`` (an ``ImuBatch`` of tensors or arrays)
+    into ``flex``, and try to initialize. On a dynamic result returns (``ps``
+    with the result injected, the result); else None."""
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    tr = ps.tracker
+    flex.push(float(host(t)), host(tr.ids), host(tr.uv_norm), host(tr.valid),
+              host(imu.t), host(imu.w), host(imu.a), host(imu.valid))
+    res = flex.try_init()
+    if res is None or res.mode != "dynamic":
+        return None
+    return ps.replace(vio=inject_init_result(cfg, ps.vio, res)), res
+
+
 class FlexibleInitializer:
     def __init__(self, cfg: VioConfig, window: int = 10, min_parallax: float = 0.02):
         self.cfg = cfg

@@ -23,7 +23,8 @@ own lanes only: ``shard_lanes`` cuts a rank's block from a (B, ...) or
 (T, B, ...) tree. Any backend runs it: ``nccl`` with one card per rank,
 ``gloo`` on the CPU or with several ranks on one card
 (``parallel/multichip.py`` starts the ranks). On ``nccl`` the step with its
-``all_reduce`` is replayed as one CUDA graph; ``gloo`` steps eagerly.
+``all_reduce`` is replayed as one CUDA graph from ``core/graph.py::CACHE``;
+``gloo`` steps eagerly.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from larvio_tpu_torch.api import run_sequence
 from larvio_tpu_torch.api import step as api_step
 from larvio_tpu_torch.config import VioConfig
 from larvio_tpu_torch.core.device import resolve_device
-from larvio_tpu_torch.core.graph import CapturedStep
+from larvio_tpu_torch.core.graph import call
 from larvio_tpu_torch.core.tree import tree_map
 from larvio_tpu_torch.models.msckf import StepOutput, VioState, filter_step, init_vio_state
 from larvio_tpu_torch.pipeline import PipelineState, init_pipeline_state, run_image_sequence
@@ -137,22 +138,17 @@ def make_sharded_fleet(cfg: VioConfig, group=None, device="cuda", graph=None):
     package's ``psum``; it waits for every rank's step).
 
     ``graph`` (the JAX package's jitted ``step_fn``): on an NCCL group on
-    the card, None or True captures ``fleet_step``, the metrics and the
-    ``all_reduce`` as one CUDA graph at the first call (its eager warm-up
-    steps run the first collectives, which set up the communicator) and
-    every call replays it: ``vs`` is loaded into the graph's static state
-    and the returned state and outputs are copies, so ``step_fn`` stays a
-    function of its arguments, equal bit for bit to the eager step. A
-    ``gloo`` group cannot be captured: None runs the eager step there and
-    True raises. False always runs the eager step."""
+    the card, None replays ``CACHE``'s capture of ``fleet_step``, the
+    metrics and the ``all_reduce`` as one CUDA graph, keyed on ``cfg`` and
+    the group, so a new group never replays an old communicator (the
+    capture's eager warm-up steps run the first collectives): ``vs`` is
+    loaded into the graph's static state and the returned state and outputs
+    are copies, equal bit for bit to the eager step. A ``gloo`` group steps
+    eagerly, as the CPU does and as False does everywhere."""
     dev = resolve_device(device)
-    backend = dist.get_backend(group)
-    capturable = dev.type == "cuda" and backend == "nccl"
-    if graph and not capturable:
-        raise ValueError(f"graph=True: a {backend} group on {dev} cannot be captured "
-                         "(CUDA graphs hold NCCL collectives only)")
-    capture = capturable if graph is None else bool(graph)
-    captured = None
+    if graph is None and dist.get_backend(group) != "nccl":
+        graph = False  # CUDA graphs hold NCCL collectives only
+    entry = ("sharded_fleet_step", cfg, dist.group.WORLD if group is None else group)
 
     def init_fn(n_instances: int, dtype=torch.float32) -> VioState:
         n_ranks, rank = _world(group)
@@ -167,13 +163,7 @@ def make_sharded_fleet(cfg: VioConfig, group=None, device="cuda", graph=None):
         return vs, (outs, sums)
 
     def step_fn(vs: VioState, feats, imu):
-        nonlocal captured
-        if not capture:
-            vs, (outs, sums) = step(vs, (feats, imu))
-        else:
-            if captured is None:
-                captured = CapturedStep(step, vs, (feats, imu))
-            vs, (outs, sums) = captured(vs, (feats, imu))
+        vs, (outs, sums) = call(entry, step, vs, (feats, imu), graph=graph)
         return vs, outs, dict(zip(METRIC_KEYS, sums.unbind()))
 
     return init_fn, step_fn

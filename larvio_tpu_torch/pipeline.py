@@ -20,10 +20,10 @@ from dataclasses import dataclass
 import torch
 
 from larvio_tpu_torch.config import VioConfig
-from larvio_tpu_torch.core.graph import CACHE, CapturedStep, call, scan
+from larvio_tpu_torch.core.graph import CACHE, CapturedStep, call, scan, select
 from larvio_tpu_torch.core.stages import STEP, stage
 from larvio_tpu_torch.core.tree import Struct, tree_map
-from larvio_tpu_torch.init.flexible import FlexibleInitializer, inject_init_result
+from larvio_tpu_torch.init.flexible import FlexibleInitializer, feed_frame
 from larvio_tpu_torch.models.frontend import TrackerState, init_tracker_state, track_frame
 from larvio_tpu_torch.models.msckf import VioState, filter_step, init_vio_state
 from larvio_tpu_torch.models.propagation import ImuBatch
@@ -55,13 +55,16 @@ def pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput, check=No
     (``torch.backends.cuda.matmul.allow_tf32 = False``), as the JAX package
     pins float32 matmul precision here. The step runs in the profiler region
     ``core.stages.STEP``, each stage in its own. ``check``: a
-    ``core.stages.NanCheck`` (``--debug-nans``; eager steps only).
+    ``core.stages.NanCheck`` (``--debug-nans``; eager steps only), whose
+    frame index the step advances.
     """
     with stage(STEP):
         image = frame.image.to(torch.float32).contiguous()  # the kernels take dense rows
         tracker, feats = track_frame(cfg, ps.tracker, image, frame.imu, frame.t, ps.vio.filter.bg,
                                      check=check)
         vio, out = filter_step(cfg, ps.vio, feats, frame.imu, check=check)
+    if check is not None:
+        check.frame += 1
     return PipelineState(tracker=tracker, vio=vio), out
 
 
@@ -70,8 +73,8 @@ def _entry(cfg: VioConfig):
     return "pipeline_step", cfg
 
 
-def _step(cfg: VioConfig):
-    return lambda p, f: pipeline_step(cfg, p, f)
+def _step(cfg: VioConfig, check=None):
+    return lambda p, f: pipeline_step(cfg, p, f, check=check)
 
 
 def jit_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput):
@@ -93,11 +96,12 @@ def cached_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput) -
     return CACHE.step(_entry(cfg), _step(cfg), ps, frame)
 
 
-def capture_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput) -> CapturedStep:
-    """A new captured ``pipeline_step`` for states like ``ps`` and frames
-    like ``frame``, owned by the caller, outside ``CACHE`` (a tool that
-    compares captures). Raises for tensors on the CPU."""
-    return CapturedStep(_step(cfg), ps, frame)
+def select_pipeline_step(cfg: VioConfig, ps: PipelineState, frame: FrameInput, graph=None, check=None):
+    """``core.graph.select``'s step for ``pipeline_step`` on states like
+    ``ps`` and one frame like ``frame`` (on the card for ``graph=None``:
+    ``cached_pipeline_step``'s). ``check``: a ``NanCheck`` for the eager
+    step (``graph=False``)."""
+    return select(graph, _entry(cfg), _step(cfg, check), ps, frame)
 
 
 def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput, graph=None):
@@ -105,12 +109,10 @@ def run_image_sequence(cfg: VioConfig, ps: PipelineState, frames: FrameInput, gr
     state's instance axis if any). Returns (final state, StepOutput with a
     leading time axis).
 
-    ``graph`` (``core/graph.py::scan``): None replays ``CACHE``'s step on
+    ``graph`` (``core/graph.py::select``): None replays ``CACHE``'s step on
     the card (``jit_pipeline_step``'s graph; a second call of one signature
     captures nothing) and runs the eager loop on the CPU; False forces the
-    eager loop; True takes ``CACHE``'s step and raises on the CPU; a
-    ``CapturedStep`` of ``pipeline_step`` is loaded with ``ps`` and
-    replayed."""
+    eager loop."""
     return scan(_entry(cfg), _step(cfg), ps, frames, graph=graph)
 
 
@@ -118,19 +120,22 @@ def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: Frame
                                 max_init_frames: int = 128, init_chunk: int = 32, graph=None):
     """``run_image_sequence`` with FLEXIBLE initialization, for one instance.
 
-    The head steps frame by frame (``jit_pipeline_step``, as the JAX
-    package's head) while feeding the host ``FlexibleInitializer`` (window
-    SfM + visual-inertial alignment) from the tracker's table, until the
-    filter is initialized: by the on-device static initializer, or by
-    injecting a dynamic result. Each head frame reads ``initialized`` and the
+    The head steps frame by frame (the step ``select_pipeline_step`` gives,
+    loaded with ``ps`` once and replayed per frame, as the JAX package's
+    jitted head) while feeding the host ``FlexibleInitializer`` (window SfM
+    + visual-inertial alignment) from the tracker's table
+    (``init/flexible.py::feed_frame``), until the filter is initialized: by
+    the on-device static initializer, or by injecting a dynamic result
+    (loaded into the step). Each head frame reads ``initialized`` and the
     table back to the host (one sync per frame, only while uninitialized).
     The tail runs ``run_image_sequence`` over the rest. ``graph`` as there,
     for the head too: on the card head and tail replay one graph (None:
     ``CACHE``'s, so at most one capture per signature); False steps eagerly.
 
     ``init_chunk`` is kept for the JAX package's signature: there it aligns
-    the handoff so that few tail lengths compile; here every frame is a call
-    of the same captured step, so where the head ends changes no result.
+    the handoff so that few tail lengths compile; here every frame is a
+    replay of the same captured step, so where the head ends changes no
+    result.
 
     Returns (final PipelineState, StepOutput over ALL frames).
     """
@@ -139,23 +144,22 @@ def run_image_sequence_flexible(cfg: VioConfig, ps: PipelineState, frames: Frame
     # scene accumulates ~0.08-0.13 median parallax; 0.06 (~28 px at EuRoC
     # focal) still conditions the 5-pt solve well (the JAX package's value)
     flex = FlexibleInitializer(cfg, window=15, min_parallax=0.06)
+    step = select_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames), graph=graph)
+    step.load(ps)
     outs = []
     k = 0
     while k < min(max_init_frames, T):
         frame = tree_map(lambda a: a[k], frames)
-        ps, out = call(_entry(cfg), _step(cfg), ps, frame, graph=graph)
+        out = tree_map(torch.clone, step.replay(frame))
         outs.append(out)
         k += 1
         if bool(out.initialized):
             break
-        tr = ps.tracker
-        imu = tree_map(lambda a: a.cpu().numpy(), frame.imu)
-        flex.push(float(frame.t), tr.ids.cpu().numpy(), tr.uv_norm.cpu().numpy(),
-                  tr.valid.cpu().numpy(), imu.t, imu.w, imu.a, imu.valid)
-        res = flex.try_init()
-        if res is not None and res.mode == "dynamic":
-            ps = ps.replace(vio=inject_init_result(cfg, ps.vio, res))
+        fed = feed_frame(flex, cfg, step.state(), frame.t, frame.imu)
+        if fed is not None:
+            step.load(fed[0])
             break
+    ps = step.state()
     if k == T:
         return ps, tree_map(lambda *o: torch.stack(o), *outs)
     ps, tail = run_image_sequence(cfg, ps, tree_map(lambda a: a[k:], frames), graph=graph)

@@ -36,6 +36,7 @@ import torch
 
 from larvio_tpu_torch.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
 from larvio_tpu_torch.core.device import card_numerics
+from larvio_tpu_torch.core.graph import CACHE
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.data.render import render_sequence
 from larvio_tpu_torch.models.propagation import ImuBatch
@@ -48,7 +49,7 @@ from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
 from larvio_tpu_torch.parallel.fleet import init_fleet_pipeline_state, run_fleet_image_sequence
 from larvio_tpu_torch.ops.cuda_lib import kernel_launches
 from larvio_tpu_torch.core.tree import tree_map
-from larvio_tpu_torch.pipeline import FrameInput, capture_pipeline_step, init_pipeline_state, pipeline_step
+from larvio_tpu_torch.pipeline import FrameInput, cached_pipeline_step, init_pipeline_state, pipeline_step
 
 pytestmark = pytest.mark.cuda
 
@@ -405,9 +406,10 @@ def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
     pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
     # the eager step's lane_mm and lane_trsm launches
     per_step = {k: kernel_launches()[k] - n0[k] for k in ("lane_mm", "lane_trsm")}
-    graph = capture_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
+    CACHE.clear()
+    graph = cached_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
     counts = kernel_launches()
-    _, outs = run_fleet_image_sequence(CFG, ps, frames, graph=graph)
+    _, outs = run_fleet_image_sequence(CFG, ps, frames)
     torch.cuda.synchronize()
     assert kernel_launches() == counts  # the replays run no wrapper
     launches = {k: v * graph.replays for k, v in graph.launches_per_replay.items()}

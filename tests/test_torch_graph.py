@@ -2,11 +2,14 @@
 the runners built on it: ``pipeline.run_image_sequence``,
 ``api.run_sequence`` and the CLI's ``--chunk K``.
 
-On the CPU the runners take the eager loop (``graph=False``, or ``None``
-with CPU tensors), and ``CapturedStep`` / ``graph=True`` raise. The cases
-here hold every runner to the plain per-frame loop bit for bit (outputs and
-final state): the image step for one instance and a 2-lane fleet, the
-filter step through ``api.run_sequence``, and the CLI's chunked staging
+On the CPU the runners take the eager step (``graph=False``, or ``None``
+with CPU tensors), and ``CapturedStep`` raises; every runner refuses any
+other ``graph`` (``True``, a ``CapturedStep``). The cases here hold every
+runner to the plain per-frame loop bit for bit (outputs and final state):
+the image step for one instance and a 2-lane fleet, the eager step that
+``core.graph.select`` gives driven through ``load`` / ``replay`` /
+``state``, the filter step through ``api.run_sequence``, and the CLI's
+chunked staging
 (``--chunk 4`` over sequences whose length is not a multiple of 4, with a
 static start and with a dynamic injection) against ``--chunk 1``. The
 in-place state copy that ends a captured step (``copy_into``) is checked
@@ -18,7 +21,8 @@ rounding must not depend on how many lanes step beside it) equals
 The ``cuda`` cases need the card and skip here; there they hold the
 captured step to the eager one bit for bit over 40 frames (one instance and
 a fleet, with the launch accounting, in the square-root and the Joseph
-form), ``load`` / ``state`` and an injection mid-sequence, and a fleet lane
+form), ``load`` / ``state`` and an injection mid-sequence, and the sharded
+fleet's NCCL step from the cache against its eager step, and a fleet lane
 at 8 lanes against 4 and against each of its 32 copies among 256, bit for
 bit (ROADMAP F4, F5; both forms). They import no JAX:
 
@@ -35,7 +39,7 @@ from larvio_tpu_torch import cli
 from larvio_tpu_torch.api import make_frame_inputs, run_sequence
 from larvio_tpu_torch.config import CameraConfig, FilterConfig, FrontendConfig, VioConfig
 from larvio_tpu_torch.core.device import card_numerics
-from larvio_tpu_torch.core.graph import CapturedStep, copy_into
+from larvio_tpu_torch.core.graph import CACHE, CapturedStep, EagerStep, copy_into
 from larvio_tpu_torch.core.linalg import matvec
 from larvio_tpu_torch.core.tree import leaves, tree_map
 from larvio_tpu_torch.data.render import render_sequence
@@ -43,9 +47,13 @@ from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.models.msckf import filter_step
 from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.ops.cuda_lib import kernel_launches
-from larvio_tpu_torch.parallel.fleet import fleet_step, init_fleet_pipeline_state, init_fleet_state
-from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state,
-                                       pipeline_step, run_image_sequence)
+from larvio_tpu_torch.init import flexible
+from larvio_tpu_torch.parallel import multichip
+from larvio_tpu_torch.parallel.fleet import (fleet_step, init_fleet_pipeline_state, init_fleet_state,
+                                             make_sharded_fleet)
+from larvio_tpu_torch.pipeline import (FrameInput, cached_pipeline_step, init_pipeline_state, pipeline_step,
+                                       run_image_sequence, run_image_sequence_flexible,
+                                       select_pipeline_step)
 
 torch.set_num_threads(1)
 
@@ -140,6 +148,23 @@ def test_run_image_sequence_eager_equals_step_loop(still, lanes):
     assert int(want[1].initialized.sum()) >= 10 * max(lanes, 1)
 
 
+def test_selected_eager_step_equals_step_loop(still):
+    """The eager step ``core.graph.select`` gives on the CPU, driven as the
+    CLI and the flexible head drive it (``load`` once, ``replay`` per frame,
+    ``state``), equals the plain loop bit for bit on a 2-lane fleet (its
+    ``scan``: ``run_image_sequence`` above)."""
+    data, imgs = still
+    frames = _lanes(_frames(data, imgs), 2)
+    ps = init_fleet_pipeline_state(CFG, 2, "cpu")
+    want = _step_loop(lambda p, f: pipeline_step(CFG, p, f), ps, frames)
+    step = select_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
+    assert isinstance(step, EagerStep)
+    step.load(ps)
+    outs = [tree_map(torch.clone, step.replay(tree_map(lambda a: a[k], frames)))
+            for k in range(frames.t.shape[0])]
+    _assert_bits((step.state(), tree_map(lambda *o: torch.stack(o), *outs)), want)
+
+
 def test_run_sequence_eager_equals_step_loop():
     """``filter_step`` through ``api.run_sequence`` on a 2-lane feature-level
     fleet (the second lane with pixel noise)."""
@@ -167,8 +192,8 @@ def test_cli_chunk_equals_one_frame_at_a_time(start, still, moving, monkeypatch)
     tail that does not fill a chunk is drained frame by frame."""
     data, imgs = still if start == "still" else moving
     injected = []
-    real = cli.inject_init_result
-    monkeypatch.setattr(cli, "inject_init_result",
+    real = flexible.inject_init_result
+    monkeypatch.setattr(flexible, "inject_init_result",
                         lambda *a: injected.append(a[2].mode) or real(*a))
     mode = "static" if start == "still" else "auto"
     one = cli._run_streaming(CFG, _frame_dicts(data, imgs), device="cpu", init_mode=mode)
@@ -212,24 +237,48 @@ def test_copy_into_round_trip_with_aliased_leaves():
         copy_into(dst, dict(fresh, c=torch.zeros(5)))
 
 
-@pytest.mark.parametrize("entry", ["CapturedStep", "capture_pipeline_step", "run_image_sequence",
-                                   "run_sequence"])
+@pytest.mark.parametrize("entry", ["CapturedStep"])
 def test_capture_refuses_the_cpu(still, entry):
     data, imgs = still
-    frames = _frames(data, imgs)
     ps = init_pipeline_state(CFG, "cpu")
-    one = tree_map(lambda a: a[0], frames)
     with pytest.raises(ValueError, match="cpu"):
-        if entry == "CapturedStep":
-            CapturedStep(lambda p, f: pipeline_step(CFG, p, f), ps, one)
-        elif entry == "capture_pipeline_step":
-            capture_pipeline_step(CFG, ps, one)
-        elif entry == "run_image_sequence":
-            run_image_sequence(CFG, ps, frames, graph=True)
-        else:
-            feats, imu = make_frame_inputs(Simulator(SimConfig(duration=0.2), CFG).generate(),
-                                           device="cpu")
-            run_sequence(CFG, ps.vio, feats, imu, graph=True)
+        CapturedStep(lambda p, f: pipeline_step(CFG, p, f), ps, tree_map(lambda a: a[0], _frames(data, imgs)))
+
+
+def _one_rank_group(backend: str, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    return dist
+
+
+@pytest.mark.parametrize("runner", ["run_image_sequence", "run_sequence", "run_image_sequence_flexible",
+                                    "make_sharded_fleet"])
+def test_runners_take_two_graph_values(still, runner, tmp_path):
+    """``graph`` is None or False: ``True`` and a ``CapturedStep`` raise in
+    every runner (``make_sharded_fleet`` on a one-rank ``gloo`` group)."""
+    data, imgs = still
+    frames = tree_map(lambda a: a[:3], _frames(data, imgs))
+    ps = init_pipeline_state(CFG, "cpu")
+    feats, imu = make_frame_inputs(Simulator(SimConfig(duration=0.2), CFG).generate(), device="cpu")
+    run = {"run_image_sequence": lambda g: run_image_sequence(CFG, ps, frames, graph=g),
+           "run_sequence": lambda g: run_sequence(CFG, ps.vio, feats, imu, graph=g),
+           "run_image_sequence_flexible": lambda g: run_image_sequence_flexible(CFG, ps, frames, graph=g)}
+    if runner == "make_sharded_fleet":
+        dist = _one_rank_group("gloo", tmp_path)
+
+        def sharded(g):
+            init_fn, step_fn = make_sharded_fleet(CFG, device="cpu", graph=g)
+            return step_fn(init_fn(1), *tree_map(lambda a: a[0, None], (feats, imu)))
+        run[runner] = sharded
+    try:
+        for graph in (True, object.__new__(CapturedStep)):
+            with pytest.raises(ValueError, match="None .* or False"):
+                run[runner](graph)
+        assert len(CACHE) == 0
+    finally:
+        if runner == "make_sharded_fleet":
+            dist.destroy_process_group()
 
 
 # --------------------------------------------------------------------------
@@ -306,9 +355,10 @@ def test_captured_equals_eager_on_card(dev, card_frames, lanes, form):
     T = frames.t.shape[0]
     # the eager step's lane_mm and lane_trsm launches
     per_step = {k: (kernel_launches()[k] - n0[k]) // T for k in ("lane_mm", "lane_trsm")}
-    graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
+    CACHE.clear()
+    graph = cached_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
     before = kernel_launches()
-    got = run_image_sequence(cfg, ps, frames, graph=graph)
+    got = run_image_sequence(cfg, ps, frames)
     torch.cuda.synchronize()
     assert kernel_launches() == before  # replays do not run the wrappers
     names = (("lk_track_batched", "orb_describe_batched", "detect_corners_batched") if lanes
@@ -327,7 +377,8 @@ def test_load_state_and_injection_on_card(dev, card_frames):
     ``load`` gives the plain loop's result with the same replacement."""
     data, frames = card_frames
     ps = init_pipeline_state(CFG, dev)
-    graph = capture_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
+    CACHE.clear()
+    graph = cached_pipeline_step(CFG, ps, tree_map(lambda a: a[0], frames))
     graph.load(ps)
     _assert_bits(graph.state(), ps)
     T, half = frames.t.shape[0], frames.t.shape[0] // 2
@@ -342,6 +393,41 @@ def test_load_state_and_injection_on_card(dev, card_frames):
         got.append(tree_map(torch.clone, graph.replay(tree_map(lambda a: a[k], frames))))
         _assert_bits(got[-1], out, f"frame {k}")
     _assert_bits(graph.state(), want)
+
+
+@pytest.mark.cuda
+def test_captured_nccl_step_equals_eager_on_card(tmp_path):
+    """On the card, an NCCL group of world size 1: ``step_fn`` replays one
+    CUDA graph from the cache (the fleet step, the metrics and the
+    ``all_reduce``) and equals the eager ``step_fn`` bit for bit over 6
+    frames of 4 lanes, state, outputs and reduced metrics; a second
+    ``make_sharded_fleet`` on the same group captures nothing, and
+    ``CACHE.clear()`` drops the graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL and CUDA graphs)")
+    card_numerics()
+    dev, cfg = torch.device("cuda"), multichip.DRYRUN_CFG
+    data = multichip.lane_data(cfg, multichip.dryrun_sims(4))
+    dist = _one_rank_group("nccl", tmp_path)
+    try:
+        CACHE.clear()
+        n0 = CACHE.captures
+        runs = []
+        for graph in (False, None, None):
+            init_fn, step_fn = make_sharded_fleet(cfg, device=dev, graph=graph)
+            vs, seq = init_fn(4), []
+            for k in range(30, 36):
+                vs, outs, metrics = step_fn(vs, *make_frame_inputs(data, k=k, device=dev))
+                seq.append((outs, metrics))
+            runs.append((vs, seq))
+            assert CACHE.captures == n0 + (graph is None) and len(CACHE) == (graph is None)
+
+        for run in runs[1:]:
+            _assert_bits(run, runs[0])
+        CACHE.clear()
+        assert len(CACHE) == 0
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

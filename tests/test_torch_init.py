@@ -147,7 +147,7 @@ def _spy(monkeypatch, module):
 
 def test_run_image_sequence_flexible_matches_jax(moving, monkeypatch):
     data, imgs = moving
-    j_modes, t_modes = _spy(monkeypatch, jflex), _spy(monkeypatch, tpipe)
+    j_modes, t_modes = _spy(monkeypatch, jflex), _spy(monkeypatch, tflex)
     frames_j = jpipe.FrameInput(
         image=jnp.asarray(imgs),
         imu=JImuBatch(t=jnp.asarray(data["imu_t"]), w=jnp.asarray(data["imu_w"]),
@@ -183,7 +183,7 @@ def test_run_streaming_matches_jax(mode, moving, still_start, monkeypatch):
     initializer fires); ``auto`` on the moving start (the host initializer
     injects a dynamic result)."""
     data, imgs = still_start if mode == "static" else moving
-    j_modes, t_modes = _spy(monkeypatch, jflex), _spy(monkeypatch, tcli)
+    j_modes, t_modes = _spy(monkeypatch, jflex), _spy(monkeypatch, tflex)
     rj = jcli._run_streaming(CFG, _frame_dicts(data, imgs), init_mode=mode)
     rt = tcli._run_streaming(TCFG, _frame_dicts(data, imgs), device="cpu", init_mode=mode)
     tj, pj, qj, ij = rj[:4]

@@ -35,6 +35,7 @@ from larvio_tpu.data.render import render_sequence as jrender_sequence
 from larvio_tpu.data.sim import SimConfig, Simulator
 from larvio_tpu.models import msckf as jmsckf
 from larvio_tpu.models.propagation import ImuBatch as JImuBatch
+import larvio_tpu_torch.init.flexible as tflex
 import larvio_tpu_torch.pipeline as tpipe
 from larvio_tpu_torch.api import make_frame_inputs, run_sequence
 from larvio_tpu_torch.convert import config_from_dict, from_reference, to_reference_numpy
@@ -239,13 +240,13 @@ def test_dense_flexible_moving_start(monkeypatch):
     data = sim.generate()
     imgs = render_sequence(FLEX_CFG, sim, data["t_img"], device="cpu")
     modes = []
-    real = tpipe.inject_init_result
+    real = tflex.inject_init_result
 
     def spy(cfg, vs, res):
         modes.append(res.mode)
         return real(cfg, vs, res)
 
-    monkeypatch.setattr(tpipe, "inject_init_result", spy)
+    monkeypatch.setattr(tflex, "inject_init_result", spy)
     g = {k: torch.as_tensor(data[k]) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
     frames = tpipe.FrameInput(image=imgs, t=g["t_img"],
                               imu=ImuBatch(t=g["imu_t"], w=g["imu_w"], a=g["imu_a"], valid=g["imu_valid"]))

@@ -700,10 +700,10 @@ def test_dense_fleet_step_solves_on_lane_trsm_on_card(dev):
     assert kernel_launches()["lane_trsm"] - n0 == 10 * T
     graph = CapturedStep(lambda st, x: fleet_step(cfg, st, *x), state, frames[0])
     assert graph.launches_per_replay["lane_trsm"] == chip_smoke.LANE_LAUNCHES_PER_STEP[cfg]["lane_trsm"] == 10
-    s = state
+    graph.load(state)
     for k, x in enumerate(frames):
-        s, out = graph(s, x)
-        for i, (a, b) in enumerate(zip(leaves((s, out)), leaves(eager[k]))):
+        out = graph.replay(x)
+        for i, (a, b) in enumerate(zip(leaves((graph.state(), out)), leaves(eager[k]))):
             assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)), (k, i)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for x in frames[:3]:

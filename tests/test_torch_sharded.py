@@ -163,53 +163,23 @@ def _one_rank_group(backend: str, tmp_path):
 
 
 def test_sharded_step_refuses_capture_on_gloo(tmp_path):
-    """``graph=True`` raises on a ``gloo`` group (it cannot be captured);
-    ``graph=None`` steps eagerly there, as ``graph=False`` does."""
+    """A ``gloo`` group cannot be captured: ``graph=None`` steps eagerly
+    there, as ``graph=False`` does, and captures nothing into the cache
+    (``True`` and a ``CapturedStep`` raise in every runner:
+    ``tests/test_torch_graph.py::test_runners_take_two_graph_values``)."""
+    from larvio_tpu_torch.core.graph import CACHE
+
     dist = _one_rank_group("gloo", tmp_path)
     try:
-        with pytest.raises(ValueError, match="cannot be captured"):
-            tfleet.make_sharded_fleet(CFG, device="cpu", graph=True)
         data = multichip.lane_data(CFG, multichip.dryrun_sims(2))
         args = make_frame_inputs(data, k=5, device="cpu")
-        res = []
+        n0, res = CACHE.captures, []
         for graph in (None, False):
             init_fn, step_fn = tfleet.make_sharded_fleet(CFG, device="cpu", graph=graph)
             vs, outs, metrics = step_fn(init_fn(2), *args)
             res.append((vs.filter.P, outs.p, metrics["n_initialized"]))
         for a, b in zip(*res):
             assert torch.equal(a, b)
-    finally:
-        dist.destroy_process_group()
-
-
-@pytest.mark.cuda
-def test_captured_nccl_step_equals_eager_on_card(tmp_path):
-    """On the card, an NCCL group of world size 1: ``step_fn`` replays one
-    CUDA graph (the fleet step, the metrics and the ``all_reduce``) and
-    equals the eager ``step_fn`` bit for bit over 6 frames of 4 lanes, state,
-    outputs and reduced metrics."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (NCCL and CUDA graphs)")
-    from larvio_tpu_torch.core.device import card_numerics
-    from larvio_tpu_torch.core.tree import leaves
-
-    card_numerics()
-    dev = torch.device("cuda")
-    data = multichip.lane_data(CFG, multichip.dryrun_sims(4))
-    dist = _one_rank_group("nccl", tmp_path)
-    try:
-        runs = []
-        for graph in (False, True):
-            init_fn, step_fn = tfleet.make_sharded_fleet(CFG, device=dev, graph=graph)
-            vs, seq = init_fn(4), []
-            for k in range(30, 36):
-                vs, outs, metrics = step_fn(vs, *make_frame_inputs(data, k=k, device=dev))
-                seq.append((outs, metrics))
-            runs.append((vs, seq))
-        def bits(x):
-            return x if x.dtype == torch.bool else x.contiguous().reshape(-1).view(torch.uint8)
-
-        for x, y in zip(leaves(runs[0]), leaves(runs[1])):
-            assert x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+        assert CACHE.captures == n0 and len(CACHE) == 0
     finally:
         dist.destroy_process_group()

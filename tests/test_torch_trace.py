@@ -328,7 +328,7 @@ def test_jit_step_spans_on_card(dev, monkeypatch):
     tracer leaves ``launches_per_replay``, ``replays`` and ``CACHE.captures``
     as a capture without spans gives them."""
     from larvio_tpu_torch.core.tree import tree_map
-    from larvio_tpu_torch.pipeline import capture_pipeline_step, init_pipeline_state, jit_pipeline_step
+    from larvio_tpu_torch.pipeline import init_pipeline_state, jit_pipeline_step, pipeline_step
 
     cfg = _small_cfg()
     frames = _card_frames(cfg, dev)
@@ -355,7 +355,7 @@ def test_jit_step_spans_on_card(dev, monkeypatch):
     assert step.replays == 2
 
     monkeypatch.setattr(TRACER, "span", lambda name, card=False, **attrs: contextlib.nullcontext())
-    quiet = capture_pipeline_step(cfg, ps, one)
+    quiet = graph.CapturedStep(lambda p, f: pipeline_step(cfg, p, f), ps, one)  # outside the cache
     monkeypatch.undo()
     assert quiet.launches_per_replay == step.launches_per_replay and graph.CACHE.captures == n0 + 1
 

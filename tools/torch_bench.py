@@ -27,7 +27,7 @@ workload, ``_joseph`` appended to the metric's name.
 Single path: ``run_image_sequence`` over the 400 frames. ``--fleet B``: B
 instances through the batched step, every lane on the same frames, the
 gate on lane 0; fps counts every lane's frames. On the card the step is
-captured once (``capture_pipeline_step``) and the captured and the eager
+captured once (``cached_pipeline_step``) and the captured and the eager
 runs take turns (captured, eager, eager, captured, captured, eager: the
 host drifts within a call); ``value`` is the captured path's best fps (the
 default on the card), ``detail.eager_fps`` the eager path's, and the two
@@ -66,7 +66,7 @@ from larvio_tpu_torch.data.render import render_sequence  # noqa: E402
 from larvio_tpu_torch.data.sim import SimConfig, Simulator  # noqa: E402
 from larvio_tpu_torch.models.propagation import ImuBatch  # noqa: E402
 from larvio_tpu_torch.parallel.fleet import init_fleet_pipeline_state  # noqa: E402
-from larvio_tpu_torch.pipeline import (FrameInput, capture_pipeline_step, init_pipeline_state,  # noqa: E402
+from larvio_tpu_torch.pipeline import (FrameInput, cached_pipeline_step, init_pipeline_state,  # noqa: E402
                                        run_image_sequence)
 
 N_FRAMES = 400  # 20 s at 20 Hz
@@ -147,11 +147,11 @@ def run_bench(fleet: int = 0, device="cuda", joseph: bool = False, n_frames: int
         return time.perf_counter() - t0, outs
 
     _, ref = run(False)  # warm-up
-    graph = capture_pipeline_step(cfg, ps0, tree_map(lambda a: a[0], frames)) if dev.type == "cuda" else None
+    graph = cached_pipeline_step(cfg, ps0, tree_map(lambda a: a[0], frames)) if dev.type == "cuda" else None
     best = {"captured": np.inf, "eager": np.inf}
     order = ("captured", "eager", "eager", "captured", "captured", "eager") if graph else ("eager",) * 3
     for mode in order:
-        wall, outs = run(graph if mode == "captured" else False)
+        wall, outs = run(None if mode == "captured" else False)
         best[mode] = min(best[mode], wall)
         if not all(torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
                    if a.dtype != torch.bool else torch.equal(a, b)

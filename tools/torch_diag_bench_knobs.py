@@ -30,9 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from larvio_tpu_torch.config import FilterConfig, FrontendConfig, NoiseConfig, VioConfig  # noqa: E402
 from larvio_tpu_torch.core.device import card_numerics, resolve_device  # noqa: E402
-from larvio_tpu_torch.core.tree import tree_map  # noqa: E402
 from larvio_tpu_torch.data.evaluate import ate_rmse  # noqa: E402
-from larvio_tpu_torch.pipeline import capture_pipeline_step, init_pipeline_state, run_image_sequence  # noqa: E402
+from larvio_tpu_torch.pipeline import init_pipeline_state, run_image_sequence  # noqa: E402
 from tools.torch_bench import N_FRAMES, bench_workload, card_line  # noqa: E402
 from tools.torch_diag_nees import knob  # noqa: E402
 
@@ -48,13 +47,12 @@ def run(kw: dict, device) -> dict:
     data, frames = bench_workload(cfg, dev, n_frames)
     T = frames.t.shape[0]
     ps0 = init_pipeline_state(cfg, dev)
-    graph = capture_pipeline_step(cfg, ps0, tree_map(lambda a: a[0], frames)) if dev.type == "cuda" else False
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     best, outs = np.inf, None
     for rep in range(3):  # a warm-up, then the best of two
         sync()
         t0 = time.perf_counter()
-        _, outs = run_image_sequence(cfg, ps0, frames, graph=graph)
+        _, outs = run_image_sequence(cfg, ps0, frames)  # the first run captures on the card
         sync()
         if rep:
             best = min(best, time.perf_counter() - t0)

@@ -28,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from larvio_tpu_torch.config import FilterConfig, VioConfig  # noqa: E402
 from larvio_tpu_torch.core.device import card_numerics, resolve_device  # noqa: E402
 from larvio_tpu_torch.core.tree import tree_map  # noqa: E402
-from larvio_tpu_torch.pipeline import capture_pipeline_step, init_pipeline_state, pipeline_step  # noqa: E402
+from larvio_tpu_torch.pipeline import init_pipeline_state, select_pipeline_step  # noqa: E402
 from tools.torch_bench import bench_workload, card_line  # noqa: E402
 from tools.torch_diag_nees import knob  # noqa: E402
 
@@ -46,7 +46,8 @@ def run(kw: dict, device) -> dict:
     _, frames = bench_workload(cfg, dev, n_frames)
     T = frames.t.shape[0]
     ps = init_pipeline_state(cfg, dev)
-    graph = capture_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames)) if dev.type == "cuda" else None
+    step = select_pipeline_step(cfg, ps, tree_map(lambda a: a[0], frames))
+    step.load(ps)
 
     obs_hist = np.zeros(C + 1, np.int64)  # n_obs histogram of live rows
     per_thresh = {th: 0 for th in (8, 10, 12, 14, 16, 18, 19, 20)}
@@ -55,11 +56,8 @@ def run(kw: dict, device) -> dict:
     prev_ids = prev_age = None
     for k in range(T):
         frame = tree_map(lambda a: a[k], frames)
-        if graph is None:
-            ps, _ = pipeline_step(cfg, ps, frame)
-        else:
-            graph.replay(frame)
-            ps = graph.state()
+        step.replay(frame)
+        ps = step.state()
         ids_now, age_now = ps.tracker.ids.cpu().numpy(), ps.tracker.age.cpu().numpy()
         if prev_ids is not None:  # track deaths need every frame's ids
             died = (prev_ids >= 0) & (ids_now != prev_ids)

@@ -1,7 +1,7 @@
 """Where a second CUDA-graph capture of one step in one process loses its
 speed: the main path's step captured several times in one process, each
-capture an explicit ``CapturedStep`` (``pipeline.capture_pipeline_step``,
-bypassing ``core.graph.CACHE``), replayed over the whole sequence in turns:
+capture an explicit ``CapturedStep`` (outside ``core.graph.CACHE``, which
+holds one capture per signature), replayed over the whole sequence in turns:
 
   G1  the process's first capture of the step
   G2  captured while G1 is alive
@@ -52,6 +52,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from larvio_tpu_torch import pipeline  # noqa: E402
 from larvio_tpu_torch.config import VioConfig  # noqa: E402
 from larvio_tpu_torch.core.device import card_numerics  # noqa: E402
+from larvio_tpu_torch.core.graph import CapturedStep  # noqa: E402
 from larvio_tpu_torch.core.tree import leaves, tree_map  # noqa: E402
 from larvio_tpu_torch.data.render import render_sequence  # noqa: E402
 from larvio_tpu_torch.data.sim import SimConfig, Simulator  # noqa: E402
@@ -65,8 +66,13 @@ def _bits(tree):
     return [t.contiguous().reshape(-1).view(torch.uint8) if t.dtype != torch.bool else t for t in leaves(tree)]
 
 
-def _replay(graph, cfg, ps0, frames):
-    """``run_image_sequence`` replaying ``graph`` from ``ps0``: (ms/frame,
+def _capture(cfg, ps0, frames) -> CapturedStep:
+    """A new capture of ``pipeline_step``, owned by the caller."""
+    return CapturedStep(lambda p, f: pipeline.pipeline_step(cfg, p, f), ps0, tree_map(lambda a: a[0], frames))
+
+
+def _replay(graph, ps0, frames):
+    """``graph.scan`` over ``frames`` from ``ps0``: (ms/frame,
     (t0, t1) its span on the host clock, the host ms per graph launch (the
     ``CUDAGraph.replay`` call alone: ``cudaGraphLaunch``), (final state,
     outputs))."""
@@ -81,7 +87,7 @@ def _replay(graph, cfg, ps0, frames):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = pipeline.run_image_sequence(cfg, ps0, frames, graph=graph)
+        res = graph.scan(ps0, frames)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     finally:
@@ -141,17 +147,16 @@ def _eager_window(graph, cfg, ps0, frames, n: int) -> None:
 
 
 def turns(cfg, ps0, frames, eager: int = 0):
-    """The five turns (see the module docstring), each capture made by
-    ``capture_pipeline_step``; ``eager``: eager steps before each capture. Returns ([(turn, ms/frame,
+    """The five turns (see the module docstring), each capture a new
+    ``CapturedStep``; ``eager``: eager steps before each capture. Returns ([(turn, ms/frame,
     (t0, t1) on the host clock, host ms per graph launch, ``launch_split``
     right after)], {name: graph}: G2 and G3, still alive).
     Raises if a turn's outputs or final state differ from the first turn's."""
-    frame0 = tree_map(lambda a: a[0], frames)
     rows, ref, g = [], None, {}
 
     def run(name, what):
         nonlocal ref
-        ms, span, launch_ms, res = _replay(g[name], cfg, ps0, frames)
+        ms, span, launch_ms, res = _replay(g[name], ps0, frames)
         bits = _bits(res)
         ref = bits if ref is None else ref
         if len(bits) != len(ref) or not all(torch.equal(a, b) for a, b in zip(bits, ref)):
@@ -161,7 +166,7 @@ def turns(cfg, ps0, frames, eager: int = 0):
     def new(name, last):
         if eager and last is not None:
             _eager_window(g[last], cfg, ps0, frames, eager)
-        g[name] = pipeline.capture_pipeline_step(cfg, ps0, frame0)
+        g[name] = _capture(cfg, ps0, frames)
         torch.cuda.synchronize()
 
     new("G1", None)
@@ -294,9 +299,9 @@ def main(argv=None) -> int:
             if args.profile:
                 graphs, rows = {}, []
                 for name in ("G1", "G2"):
-                    graphs[name] = pipeline.capture_pipeline_step(cfg, ps0, tree_map(lambda a: a[0], frames))
+                    graphs[name] = _capture(cfg, ps0, frames)
                 for name, gr in graphs.items():
-                    ms, span, launch_ms, _ = _replay(gr, cfg, ps0, frames)
+                    ms, span, launch_ms, _ = _replay(gr, ps0, frames)
                     rows.append((f"{name} (both captured first)", ms, span, launch_ms, launch_split(gr, frames)))
             else:
                 rows, _ = turns(cfg, ps0, frames, eager=args.eager)

@@ -30,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from larvio_tpu_torch import pipeline  # noqa: E402
 from larvio_tpu_torch.config import VioConfig  # noqa: E402
 from larvio_tpu_torch.core.device import card_numerics  # noqa: E402
+from larvio_tpu_torch.core.graph import CACHE  # noqa: E402
 from larvio_tpu_torch.core.tree import leaves, tree_map  # noqa: E402
 from larvio_tpu_torch.data.render import render_sequence  # noqa: E402
 from larvio_tpu_torch.data.sim import SimConfig, Simulator  # noqa: E402
@@ -78,10 +79,11 @@ def main(argv=None) -> int:
     ref = None
     for on in (True, False, False, True):
         _regions(on)
-        graph = pipeline.capture_pipeline_step(cfg, ps0, tree_map(lambda a: a[0], frames))
+        CACHE.clear()  # a fresh capture: the regions are part of the captured step
+        graph = pipeline.cached_pipeline_step(cfg, ps0, tree_map(lambda a: a[0], frames))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, outs = pipeline.run_image_sequence(cfg, ps0, frames, graph=graph)
+        _, outs = pipeline.run_image_sequence(cfg, ps0, frames)
         torch.cuda.synchronize()
         ms[(on, "captured")].append(1e3 * (time.perf_counter() - t0) / T)
         bits = [o.reshape(-1).view(torch.uint8) if o.dtype != torch.bool else o for o in leaves(outs)]
