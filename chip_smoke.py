@@ -15,7 +15,10 @@ Phases, each raising on failure (the script then exits non-zero):
    kernel against the plain chain ``grid_topk(nms(shi_tomasi_response(.)))``
    bit for bit (scores and positions of every lane) for one image and
    ``B_FLEET`` and ``B_WIDE`` lanes of two rendered frames, lane b with its
-   own image noise, one launch per call;
+   own image noise, one launch per call; the pyramid kernels against
+   ``ops/image.py::build_pyramid`` and ``ops/lk.py::make_grad_pyramid`` bit
+   for bit (every level and gradient of every lane) at the same widths, one
+   ``pyr_down`` launch per level and one ``scharr`` launch per call;
 2b. batched kernels: K3 (LK over 8 lanes, each lane its own frame pair)
    against the batched plain version and against K1 per lane, and the
    batched describe launch against the plain version per lane and against
@@ -28,7 +31,8 @@ Phases, each raising on failure (the script then exits non-zero):
    ms/frame; checks initialization,
    resets, finiteness, track counts, ATE, that SLAM features entered the
    state (``n_slam`` >= 3 at some frame) and that every frame launched K1,
-   the detection and the describe kernel once (eager: the wrappers' counts;
+   the detection, the describe and the gradient-pyramid kernel once and the
+   pyramid kernel once per level (eager: the wrappers' counts;
    captured: the graph's replays times what its capture counted, no wrapper
    running);
 3k. (run before phase 3) ``jax.jit``'s compile-once cache
@@ -129,7 +133,8 @@ Phases, each raising on failure (the script then exits non-zero):
    every lane's health, lane 0's SLAM engagement and its ATE against the
    single path's, that the NaN lane holds no SLAM slot on its reset frames,
    the fleet metrics and that every frame launched K3, the batched
-   detection and the batched describe kernel once for all lanes, ``lane_mm``
+   detection, the batched describe and the batched gradient-pyramid kernel
+   once and the batched pyramid kernel once per level, for all lanes, ``lane_mm``
    and ``lane_trsm`` once per call of ``core/linalg.py::mm_lanes`` and
    ``solve_tri_lanes`` (``LANE_LAUNCHES_PER_STEP``), and no one-lane kernel;
 4d. the fleet at 256 lanes: phase 4's workload for ``B_WIDE`` = 256
@@ -233,7 +238,7 @@ from larvio_tpu_torch.data.euroc import EurocSequence
 from larvio_tpu_torch.data.evaluate import ate_rmse
 from larvio_tpu_torch.data.render import Renderer, render_frames
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
-from larvio_tpu_torch.ops import cuda_lib
+from larvio_tpu_torch.ops import cuda_lib, pyramid_cuda
 from larvio_tpu_torch.ops.cuda_lib import kernel_launches
 from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
 from larvio_tpu_torch.core import linalg
@@ -398,41 +403,45 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, kernel: str, reps: int = 100, min_events: int = 100) -> float:
-    """Device time per launch of the ``__global__`` named ``kernel`` that fn()
-    launches once per call: the mean duration of its device events in
+def _device_ms(fn, kernel, reps: int = 100, min_events: int = 100) -> float:
+    """Device time per call of fn(), which launches the ``__global__`` named
+    ``kernel`` once per call, or each of ``kernel``'s names as many times as
+    it maps to: per name the mean duration of its device events in
     ``torch.profiler`` windows of ``reps`` calls after warm-up, repeated
-    until at least ``min_events`` launches were seen (the profiler can drop
-    events). Host time between launches is not in it."""
+    until at least ``min_events`` launches of each were seen (the profiler
+    can drop events), times its launches per call, summed. Host time
+    between launches is not in it."""
     from torch.profiler import ProfilerActivity, profile
 
+    per_call = {kernel: 1} if isinstance(kernel, str) else kernel
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    durs = []
+    durs = {k: [] for k in per_call}
     for _ in range(20):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        if len(evs) > reps:
-            raise RuntimeError(f"profiler saw {len(evs)} launches of {kernel} in {reps} calls")
-        durs += [e.time_range.elapsed_us() for e in evs]
-        if len(durs) >= min_events:
-            return sum(durs) / 1e3 / len(durs)
-    raise RuntimeError(f"profiler saw only {len(durs)} launches of {kernel}")
+        for k, n in per_call.items():
+            evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and k in e.name]
+            if len(evs) > n * reps:
+                raise RuntimeError(f"profiler saw {len(evs)} launches of {k} in {reps} calls ({n} a call)")
+            durs[k] += [e.time_range.elapsed_us() for e in evs]
+        if all(len(d) >= min_events for d in durs.values()):
+            return sum(per_call[k] * sum(d) / len(d) for k, d in durs.items()) / 1e3
+    raise RuntimeError(f"profiler saw only {({k: len(d) for k, d in durs.items()})} launches")
 
 
 @dataclass
 class _Timing:
     """A kernel's JSON row and what times it: ``call`` launches the kernel
-    named ``kernel`` once per call (``call_ms`` over ``reps`` calls, then
-    ``ms``); ``windows`` maps further keys (``plain_ms``, ...) to (fn, reps)."""
+    named ``kernel`` once per call, or each name of ``kernel`` as many times
+    as it maps to (``call_ms`` over ``reps`` calls, then ``ms``);
+    ``windows`` maps further keys (``plain_ms``, ...) to (fn, reps)."""
 
     row: dict
-    kernel: str
+    kernel: str | dict
     call: Callable
     reps: int
     windows: dict
@@ -485,7 +494,7 @@ def _slab_positions(rng, H, W, F):
     return p
 
 
-DETECT_WIDTHS = (1, B_FLEET, B_WIDE)  # one image, phase 4's and phase 4d's fleets
+GATE_WIDTHS = (1, B_FLEET, B_WIDE)  # one image, phase 4's and phase 4d's fleets
 
 
 def _detect_args(cfg):
@@ -518,7 +527,7 @@ def _detect_gate(dev, rend, frames, label):
     rows, cols, k, border, r = args
     gen = torch.Generator(device=dev).manual_seed(11)
     timings, lines = [], []
-    for B in DETECT_WIDTHS:
+    for B in GATE_WIDTHS:
         x = frames[0]
         if B > 1:
             x = (frames[torch.arange(B, device=dev) % frames.shape[0]]
@@ -552,10 +561,74 @@ def _detect_gate(dev, rend, frames, label):
     return timings
 
 
+def _pyramid_work(shape, levels: int):
+    """(bytes, f32 operations) of ``fe.pyramid`` on an (H, W) or (B, H, W)
+    image: the pyramid reads levels 0 .. levels - 1 and writes 1 .. levels
+    once, the gradient pyramid reads every level and writes two images of
+    each once; ``pyr_down``'s row pass 9 operations a pixel of the kept rows
+    at the source's width, its column pass 9 an output pixel, the Scharr
+    passes 16 a pixel."""
+    *lead, H, W = shape
+    B = lead[0] if lead else 1
+    dims = [(-(-H // 2 ** k), -(-W // 2 ** k)) for k in range(levels + 1)]
+    px = [h * w for h, w in dims]
+    n_ops = sum(9 * h1 * (w0 + w1) for (_, w0), (h1, w1) in zip(dims, dims[1:])) + 16 * sum(px)
+    return 4 * B * (sum(px[:-1]) + sum(px[1:]) + 3 * sum(px)), B * n_ops
+
+
+def _pyramid_gate(dev, frames, levels: int, label):
+    """The pyramid kernels against the plain chain on the card, at the
+    shape of ``frames`` and ``levels`` levels, for one image and ``B_FLEET``
+    and ``B_WIDE`` lanes (the lanes ``_detect_gate`` makes): every level of
+    ``build_pyramid`` and both gradients of every level of ``grad_pyramid``
+    (of that pyramid) bit for bit ``ops/image.py::build_pyramid`` and
+    ``ops/lk.py::make_grad_pyramid``, with ``levels`` ``pyr_down`` launches
+    and one ``scharr``. Returns its timing rows, the plain chain's time taken
+    here."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    kernels = {"pyr_down_kernel": levels, "scharr_kernel": 1}
+    timings, lines = [], []
+    for B in GATE_WIDTHS:
+        x = frames[0]
+        if B > 1:
+            x = (frames[torch.arange(B, device=dev) % frames.shape[0]]
+                 + 2.0 * torch.randn((B, *frames.shape[-2:]), generator=gen, device=dev)).contiguous()
+        _reset_counts()
+        pyr = pyramid_cuda.build_pyramid(x, levels)
+        grads = pyramid_cuda.grad_pyramid(pyr)
+        torch.cuda.synchronize()
+        sfx = "" if B == 1 else "_batched"
+        want = {f"pyr_down{sfx}": levels, f"scharr{sfx}": 1}
+        assert {n: v for n, v in kernel_launches().items() if v} == want, f"pyramid{label}: {kernel_launches()}"
+        ref = build_pyramid(x, levels)
+        assert _bits_equal(pyr, ref) and _bits_equal(grads, make_grad_pyramid(ref)), \
+            f"pyramid{label}: {B} lane(s) differ from the plain chain"
+        del grads, ref
+
+        def kern(x=x, pyr=pyr):
+            return pyramid_cuda.build_pyramid(x, levels), pyramid_cuda.grad_pyramid(pyr)
+
+        def plain(x=x, pyr=pyr):
+            return build_pyramid(x, levels), make_grad_pyramid(list(pyr))
+
+        bound, by = _bound(*_pyramid_work(tuple(x.shape), levels))
+        lines.append(f"B = {B} bound {bound:.6f} ms ({by})")
+        row = {"name": "pyramid" if B == 1 else f"pyramid_b{B}", "route": "cuda",
+               "source": "larvio_tpu_torch/csrc/pyramid.cu",
+               "replaces": "larvio_tpu/ops/image.py (XLA operations, no TPU kernel)", "max_abs_err": 0.0,
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "plain_ms": _time_ms(plain, 20 if B < B_WIDE else 5)}
+        timings.append(_Timing(row, kernels, kern, 100 if B < B_WIDE else 20, {}))
+    H, W = frames.shape[-2:]
+    print(f"pyramid{label}: {W}x{H}, {levels} levels: every level and gradient the plain chain's bits at every "
+          f"lane, {levels} pyr_down and 1 scharr launch per call; " + "; ".join(lines), flush=True)
+    return timings
+
+
 def phase_kernels(dev, sim, rend, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2, label=""):
     """K1 and the one-lane describe against their plain versions on frames of
     ``rend`` with an F-slot table (at most 20 ``per_cell`` live corners), and
-    the detection kernel (``_detect_gate``)."""
+    the detection and the pyramid kernels (``_detect_gate``, ``_pyramid_gate``)."""
     img0, img1 = render_frames(rend, sim, [6.0, 6.05])
     H, W = img0.shape
     pos, valid, n = _lk_table(img0, dev, F, per_cell, min_n)
@@ -624,7 +697,8 @@ def phase_kernels(dev, sim, rend, F=F_MAIN, per_cell=16, min_n=F_MAIN // 2, labe
                  "bound_ms": d_bound, "bound_by": d_by, "library_ms": None},
                 "orb_describe_kernel", lambda: describe(img, pos2, dvalid), 200,
                 {"plain_ms": (lambda: _describe_plain(img, pos2, dvalid), 200)}),
-    ] + _detect_gate(dev, rend, torch.stack([img0, img1]), label)
+    ] + _detect_gate(dev, rend, torch.stack([img0, img1]), label) \
+        + _pyramid_gate(dev, torch.stack([img0, img1]), rend.cfg.frontend.pyramid_levels, label)
 
 
 def phase_kernels_batched(dev, sim, rend):
@@ -976,23 +1050,27 @@ def _reset_counts():
     describe.launches = describe.launches_batched = 0
     lane_mm.launches = lane_solve_triangular.launches = 0
     detect_corners.launches = detect_corners.launches_batched = 0
+    pyramid_cuda.build_pyramid.launches = pyramid_cuda.build_pyramid.launches_batched = 0
+    pyramid_cuda.grad_pyramid.launches = pyramid_cuda.grad_pyramid.launches_batched = 0
 
 
-# the front-end kernels, one launch each per frame: a single path's, a fleet's
-FRONT_END_LAUNCHES = {False: ("lk_track", "detect_corners", "orb_describe"),
-                      True: ("lk_track_batched", "detect_corners_batched", "orb_describe_batched")}
+def _front_end_launches(cfg, batched: bool) -> dict:
+    """The front-end kernels' launches per frame, a single path's or a
+    fleet's: ``pyr_down`` once per pyramid level, the others once."""
+    sfx = "_batched" if batched else ""
+    return {f"lk_track{sfx}": 1, f"detect_corners{sfx}": 1, f"orb_describe{sfx}": 1,
+            f"pyr_down{sfx}": cfg.frontend.pyramid_levels, f"scharr{sfx}": 1}
 
 
-def _launch_gate(launches: dict, T: int, label: str, batched: bool = False, cfg=None) -> None:
-    """One launch per frame of the path's three front-end kernels
-    (``FRONT_END_LAUNCHES``), none of the other three; a fleet path (``batched``, configuration ``cfg``) launches
+def _launch_gate(launches: dict, T: int, label: str, cfg, batched: bool = False) -> None:
+    """The path's front-end kernels' launches per frame under configuration
+    ``cfg`` (``_front_end_launches``), none of the other path's; a fleet path (``batched``) launches
     ``lane_mm`` and ``lane_trsm`` once per call of ``mm_lanes`` and
     ``solve_tri_lanes`` (``LANE_LAUNCHES_PER_STEP`` per batched frame), a
     single path neither."""
-    names = FRONT_END_LAUNCHES[batched]
-    lanes = LANE_LAUNCHES_PER_STEP[cfg] if batched else {}
+    per_frame = _front_end_launches(cfg, batched) | (LANE_LAUNCHES_PER_STEP[cfg] if batched else {})
     for name, n in launches.items():
-        want = T if name in names else T * lanes.get(name, 0)
+        want = T * per_frame.get(name, 0)
         assert n == want, f"{label}: {name} {n} kernel launches in {T} frames ({want} expected)"
 
 
@@ -1060,7 +1138,7 @@ def _eager_vs_captured(cfg, ps, frames, label: str, batched: bool = False,
         else:
             res, wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames))
             captured = launches
-        _launch_gate(launches, T, f"{label} ({mode})", batched, cfg)
+        _launch_gate(launches, T, f"{label} ({mode})", cfg, batched)
         ref = res if ref is None else ref
         assert _bits_equal(res, ref), f"{label}: a {mode} run differs from the first {order[0]} run"
         ms[mode].append(1e3 * wall / T)
@@ -1113,7 +1191,7 @@ def phase_main_path(dev, cfg, data, imgs, card, label="main path", compare=True,
     else:
         graph = _capture(cfg, ps, frames)
         (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames))
-        _launch_gate(launches, T, label)
+        _launch_gate(launches, T, label, cfg)
         how = f"captured {1e3 * wall / T:.3f} ms/frame"
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     ate, mean_tracks, n_init = _health(o, data["gt_p"], label)
@@ -1192,13 +1270,13 @@ def phase_jit(dev, cfg, data, frames, card) -> None:
     T = frames.t.shape[0]
     n0 = CACHE.captures
     a, launches, captures, _ = _replays_of(lambda: run_image_sequence(cfg, ps0, frames))
-    _launch_gate(launches, T, "run_image_sequence (cached)")
+    _launch_gate(launches, T, "run_image_sequence (cached)", cfg)
     b, launches, again, graphs = _replays_of(lambda: run_image_sequence(cfg, ps0, frames))
     assert again == 0 and graphs == 1, f"a second run_image_sequence made {again} captures"
     assert _bits_equal(a, b), "the second run_image_sequence differs from the first"
     (st, outs, at_img), launches, per_call, graphs = _replays_of(
         lambda: _per_frame(lambda p, f: jit_pipeline_step(cfg, p, f), ps0, frames))
-    _launch_gate(launches, T, "jit_pipeline_step per frame")
+    _launch_gate(launches, T, "jit_pipeline_step per frame", cfg)
     assert per_call == 0 and graphs == 1, f"jit_pipeline_step made {per_call} captures"
     assert _bits_equal((st, outs), a), "jit_pipeline_step per frame differs from run_image_sequence"
 
@@ -1286,7 +1364,7 @@ def phase_flexible(dev, cfg, card):
     finally:
         flexible_mod.inject_init_result, pipeline_mod.select_pipeline_step = real, real_select
     wall = time.perf_counter() - t0
-    _launch_gate(launches, T, "flexible")
+    _launch_gate(launches, T, "flexible", cfg)
     assert captures <= 1 and graphs == 1, f"flexible: {captures} captures, {graphs} graphs replayed"
     n_head = len(head_s)
     # the same head frames through the eager step, for comparison
@@ -1389,7 +1467,7 @@ def phase_dataset(dev, cfg, card, tmp: str):
     launches = _cli_run(["run", "-", root, "--eval", "--budget", "--metrics", metrics, "--out", traj])
     seq = EurocSequence(root)
     T = len(seq.image_stamps)
-    _launch_gate(launches, T, "cli run")
+    _launch_gate(launches, T, "cli run", cfg)
     rows = np.loadtxt(metrics, delimiter=",", skiprows=1, ndmin=2)
     assert rows.shape == (T, 7), f"cli run: metrics CSV {rows.shape}, ({T}, 7) expected"
     init = rows[:, 1].astype(bool)
@@ -1409,7 +1487,7 @@ def phase_dataset(dev, cfg, card, tmp: str):
     # --chunk 8: the same frames staged 8 per upload once initialized
     traj8 = os.path.join(tmp, "traj8.txt")
     _launch_gate(_cli_run(["run", "-", root, "--budget", "--chunk", "8", "--out", traj8]), T,
-                 "cli run --chunk 8")
+                 "cli run --chunk 8", cfg)
     with open(traj, "rb") as f1, open(traj8, "rb") as f8:
         assert f1.read() == f8.read(), "cli run --chunk 8: the TUM file differs from --chunk 1's"
     print(f"cli run --chunk 8: TUM file byte-identical to --chunk 1's ({T - len(t)} frames before "
@@ -1455,6 +1533,7 @@ def phase_dataset(dev, cfg, card, tmp: str):
 
 STAGE_SHARE_GATE = 0.90  # of an eager window's device time inside the twelve stages
 DETECT_CHAIN_KERNELS = ("max_pool", "replication_pad", "RadixSort")  # the plain chain's padding, NMS and sort
+PYRAMID_KERNELS = ("pyr_down_kernel", "scharr_kernel")  # fe.pyramid's only launches
 PLOT_PX_GATE = 200  # pixels of the estimate's colour in a figure
 
 
@@ -1466,8 +1545,10 @@ def _stage_gates(res: dict, label: str) -> None:
     """The eager steps of a trace name all twelve stages, hold at least
     ``STAGE_SHARE_GATE`` of their device time, every LK / detection /
     describe launch sits under ``fe.lk`` / ``fe.detect`` / ``fe.orb`` (one of
-    each per step), and none of the plain detection chain's passes
-    (``DETECT_CHAIN_KERNELS``) runs under ``fe.detect``."""
+    each per step), none of the plain detection chain's passes
+    (``DETECT_CHAIN_KERNELS``) runs under ``fe.detect``, and the pyramid
+    kernels (``PYRAMID_KERNELS``) run under ``fe.pyramid`` alone, with
+    nothing else there (their count per frame: ``_launch_gate``)."""
     sec = res["eager"]
     assert sec is not None, f"{label}: no eager step with device operations in the trace"
     missing = [k for k in STAGES if not sec["stages"][k]["ops"]]
@@ -1480,6 +1561,11 @@ def _stage_gates(res: dict, label: str) -> None:
                                            f"{sec['frames']} under {st} expected"
     chain = [n for n, st, *_ in res["rows"]["eager"] if st == "fe.detect" and any(f in n for f in DETECT_CHAIN_KERNELS)]
     assert not chain, f"{label}: the plain detection chain's kernels under fe.detect: {sorted(set(chain))[:3]}"
+    placed = {frag: dict(trace_analyze.kernel_stages(res, frag)) for frag in PYRAMID_KERNELS}
+    assert all(placed.values()) and all(set(c) == {"fe.pyramid"} for c in placed.values()), \
+        f"{label}: pyramid kernels by stage {placed}"
+    stray = [n for n, st, *_ in res["rows"]["eager"] if st == "fe.pyramid" and not any(f in n for f in PYRAMID_KERNELS)]
+    assert not stray, f"{label}: other device operations under fe.pyramid: {sorted(set(stray))[:3]}"
 
 
 def _replays_line(res: dict, stages: bool = True) -> str:
@@ -1562,7 +1648,7 @@ def phase_diagnostics(dev, cfg, card, tmp: str, root: str, traj: str, frames, gr
     # -- --plot and --live (one run), each figure decoded
     plot, live, traj_plot = (os.path.join(tmp, n) for n in ("plot.png", "live.png", "traj_plot.txt"))
     _launch_gate(_cli_run(["run", "-", root, "--plot", plot, "--live", live, "--live-every", "40",
-                           "--out", traj_plot]), T, "cli run --plot --live")
+                           "--out", traj_plot]), T, "cli run --plot --live", cfg)
     with open(traj, "rb") as f1, open(traj_plot, "rb") as f2:
         assert f1.read() == f2.read(), "cli run --plot --live: the TUM file differs from phase 3d's"
     for path, rows in ((plot, 3), (live, 2)):
@@ -1584,7 +1670,7 @@ def phase_diagnostics(dev, cfg, card, tmp: str, root: str, traj: str, frames, gr
     t0 = time.perf_counter()
     assert cli.main(["--debug-nans", "run", "-", root, "--out", traj_dbg]) == 0
     dbg_s = time.perf_counter() - t0
-    _launch_gate(kernel_launches(), T, "cli --debug-nans run")
+    _launch_gate(kernel_launches(), T, "cli --debug-nans run", cfg)
     with open(traj, "rb") as f1, open(traj_dbg, "rb") as f2:
         assert f1.read() == f2.read(), "--debug-nans: the TUM file differs from phase 3d's"
     # a copy of the tree (images linked) with one NaN accelerometer sample
@@ -1689,7 +1775,7 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
     else:
         graph = _capture(cfg, ps, frames)
         (_, outs), wall, launches = _replayed(graph, lambda: run_fleet_image_sequence(cfg, ps, frames))
-        _launch_gate(launches, T, label, batched=True, cfg=cfg)
+        _launch_gate(launches, T, label, cfg, batched=True)
         how = f"captured {1e3 * wall / T:.3f} ms per batched frame"
     state = graph.state()  # after the captured run's last frame
 
@@ -1728,7 +1814,8 @@ def phase_fleet(dev, cfg, data, imgs, single_ate, card, B=B_FLEET, label="fleet 
           flush=True)
     per = LANE_LAUNCHES_PER_STEP[cfg]
     print(f"{label} throughput: {B * T / wall:.3f} instance-frames/s aggregate (captured); {how}; one "
-          f"K3, one batched detection and one batched describe launch per frame, {per['lane_mm']} lane_mm "
+          f"K3, one batched detection, one batched describe, three batched pyr_down and one batched scharr "
+          f"launch per frame, {per['lane_mm']} lane_mm "
           f"and {per['lane_trsm']} lane_trsm, no one-lane launch; on {card}", flush=True)
     return FleetRun(cfg, ps, launches, frames, graph, outs, state)
 
@@ -1847,7 +1934,7 @@ def _image_run(dev, cfg, frames, label: str):
     ps = init_pipeline_state(cfg, dev)
     graph = _capture(cfg, ps, frames)
     (_, outs), wall, launches = _replayed(graph, lambda: run_image_sequence(cfg, ps, frames))
-    _launch_gate(launches, T, label)
+    _launch_gate(launches, T, label, cfg)
     o = {k: getattr(outs, k).cpu().numpy() for k in _OUT_KEYS}
     for k in ("p", "q", "v", "p_std"):
         assert np.isfinite(o[k]).all(), f"{label}: non-finite {k}"

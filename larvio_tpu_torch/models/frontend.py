@@ -1,5 +1,6 @@
 """IMU-aided feature-tracking front-end (port of
-``larvio_tpu/models/frontend.py``): pyramid, gyro-predicted pyramidal LK
+``larvio_tpu/models/frontend.py``): pyramid and gradient pyramid (the
+pyramid kernels on the card), gyro-predicted pyramidal LK
 (kernel K1 on the card), two-point RANSAC, Shi-Tomasi grid replenishment
 (the fused detection kernel on the card), the ORB descriptor gate (the
 fused describe kernel on the card), then ``FrameFeatures``.
@@ -9,7 +10,8 @@ free on death and refill from per-cell detection candidates the same frame.
 Every tensor may carry a leading instance axis (a fleet's lanes): image
 (B, H, W), tables (B, F, ...), per-frame scalars (B,). On the card a fleet
 launches K3, the batched detection and the batched describe kernel once per
-frame for all lanes.
+frame for all lanes, and the pyramid kernels once per level and the
+gradient kernel once for all levels and lanes.
 """
 
 from __future__ import annotations
@@ -29,10 +31,10 @@ from larvio_tpu_torch.models.propagation import ImuBatch
 from larvio_tpu_torch.models.state import extrinsic_rotation
 from larvio_tpu_torch.ops import prng
 from larvio_tpu_torch.ops.detect_cuda import detect_corners
-from larvio_tpu_torch.ops.image import build_pyramid, in_bounds
-from larvio_tpu_torch.ops.lk import make_grad_pyramid
+from larvio_tpu_torch.ops.image import in_bounds
 from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
 from larvio_tpu_torch.ops.orb import N_WORDS, describe, hamming
+from larvio_tpu_torch.ops.pyramid_cuda import build_pyramid, grad_pyramid
 from larvio_tpu_torch.ops.ransac import two_point_ransac
 
 
@@ -116,7 +118,7 @@ def track_frame(cfg: VioConfig, ts: TrackerState, image: torch.Tensor, imu: ImuB
 
     with stage("fe.pyramid"):
         pyr = tuple(build_pyramid(image, fcfg.pyramid_levels))
-        grad_pyr = make_grad_pyramid(list(ts.prev_pyr))
+        grad_pyr = grad_pyramid(ts.prev_pyr)
     if check is not None:
         check("fe.pyramid", **{f"level {i}": x for i, x in enumerate(pyr)},
               **{f"gradient {i}{a}": g[j] for i, g in enumerate(grad_pyr) for j, a in enumerate("xy")})

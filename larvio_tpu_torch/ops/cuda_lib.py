@@ -110,6 +110,13 @@ def library() -> ctypes.CDLL:
             vp, vp, vp,  # scores, xy, stream
         ]
         lib.larvio_detect_corners.restype = i32
+        lib.larvio_pyr_down.argtypes = [vp, i32, i32, i32, vp, vp]  # src, lanes, H, W, dst, stream
+        lib.larvio_pyr_down.restype = i32
+        lib.larvio_scharr_pyramid.argtypes = [
+            vp, vp, vp, vp, vp, i32,  # pointer arrays: images, gx, gy; heights, widths, levels
+            i32, vp,  # lanes, stream
+        ]
+        lib.larvio_scharr_pyramid.restype = i32
         _lib = lib
     return _lib
 
@@ -120,12 +127,15 @@ def kernel_launches() -> dict:
     from larvio_tpu_torch.ops.lane_mm_cuda import lane_mm, lane_solve_triangular
     from larvio_tpu_torch.ops.lk_cuda import lk_track_cuda
     from larvio_tpu_torch.ops.orb import describe
+    from larvio_tpu_torch.ops.pyramid_cuda import build_pyramid, grad_pyramid
 
     return {"lk_track": lk_track_cuda.launches, "lk_track_batched": lk_track_cuda.launches_batched,
             "orb_describe": describe.launches, "orb_describe_batched": describe.launches_batched,
             "lane_mm": lane_mm.launches, "lane_trsm": lane_solve_triangular.launches,
             "detect_corners": detect_corners.launches,
-            "detect_corners_batched": detect_corners.launches_batched}
+            "detect_corners_batched": detect_corners.launches_batched,
+            "pyr_down": build_pyramid.launches, "pyr_down_batched": build_pyramid.launches_batched,
+            "scharr": grad_pyramid.launches, "scharr_batched": grad_pyramid.launches_batched}
 
 
 def check(code: int, name: str) -> None:

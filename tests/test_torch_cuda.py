@@ -24,7 +24,13 @@ and positions) at both benchmark shapes (752x480 with k 10, 640x480 with k
 images (constant, a lattice of equal maxima across cell edges, corners in
 the halo of the image border, noise), with other grids (padding rows and
 columns), k, borders and NMS radii, inside a captured graph's replay, and
-lane b equals itself at 8 and at 256 lanes. The sharded fleet's dry run runs
+lane b equals itself at 8 and at 256 lanes. The pyramid kernels
+(``ops/pyramid_cuda.py``) equal the plain chain (``ops/image.py::build_pyramid``,
+``ops/lk.py::make_grad_pyramid``) on the card bit for bit, every level and
+gradient image, at both benchmark shapes for one image and 8 and 256 lanes
+and on the adversarial images (with NaN and infinite pixels added), each
+lane equal to its own one-image call, three ``pyr_down`` launches and one
+``scharr`` launch a call. The sharded fleet's dry run runs
 with two ``gloo`` ranks sharing the card. A sequence rendered twice on the
 card is equal bit for bit (the blobs' fixed order) and within
 ``tests/test_torch_render.py``'s tolerance of the CPU's frames.
@@ -40,7 +46,7 @@ from larvio_tpu_torch.core.graph import CACHE
 from larvio_tpu_torch.data.sim import SimConfig, Simulator
 from larvio_tpu_torch.data.render import render_sequence
 from larvio_tpu_torch.models.propagation import ImuBatch
-from larvio_tpu_torch.ops import orb
+from larvio_tpu_torch.ops import orb, pyramid_cuda
 from larvio_tpu_torch.ops.detect import grid_topk, nms, shi_tomasi_response
 from larvio_tpu_torch.ops.detect_cuda import detect_corners
 from larvio_tpu_torch.ops.image import build_pyramid
@@ -368,6 +374,67 @@ def test_detect_kernel_in_a_captured_graph(dev, detect_lanes):
     assert detect_corners.launches_batched == n0 + 3
 
 
+def _pyramid_counts():
+    return {"pyr_down": pyramid_cuda.build_pyramid.launches,
+            "pyr_down_batched": pyramid_cuda.build_pyramid.launches_batched,
+            "scharr": pyramid_cuda.grad_pyramid.launches,
+            "scharr_batched": pyramid_cuda.grad_pyramid.launches_batched}
+
+
+def _assert_pyramids_equal(got, ref, got_grad, ref_grad, what):
+    assert len(got) == len(ref) == len(got_grad) == len(ref_grad)
+    for lvl in range(len(ref)):
+        for g, r, name in ((got[lvl], ref[lvl], "image"), (got_grad[lvl][0], ref_grad[lvl][0], "gx"),
+                           (got_grad[lvl][1], ref_grad[lvl][1], "gy")):
+            assert g.shape == r.shape and g.is_contiguous(), f"{what}: level {lvl} {name} {tuple(g.shape)}"
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32)), f"{what}: level {lvl} {name} differs"
+
+
+def _check_pyramid_kernels(img, what):
+    """The kernels on ``img`` against the plain chain on the card, bit for
+    bit; the launches counted; each lane against its own one-image call."""
+    batched = img.dim() == 3
+    n0 = _pyramid_counts()
+    pyr = pyramid_cuda.build_pyramid(img, 3)
+    grad = pyramid_cuda.grad_pyramid(tuple(pyr))
+    torch.cuda.synchronize()
+    n1 = _pyramid_counts()
+    want = ({"pyr_down_batched": 3, "scharr_batched": 1} if batched else {"pyr_down": 3, "scharr": 1})
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == want, what
+    assert pyr[0] is img
+    ref = build_pyramid(img, 3)
+    _assert_pyramids_equal(pyr, ref, grad, make_grad_pyramid(ref), what)
+    for b in range(img.shape[0] if batched else 0):
+        one = pyramid_cuda.build_pyramid(img[b], 3)
+        _assert_pyramids_equal(one, [p[b] for p in pyr], pyramid_cuda.grad_pyramid(one),
+                               [(g[0][b], g[1][b]) for g in grad], f"{what}, lane {b} alone")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 256])
+@pytest.mark.parametrize("shape", list(DETECT_SHAPES))
+def test_pyramid_kernels_match_plain(dev, detect_lanes, shape, lanes):
+    """Three ``pyr_down`` launches and one ``scharr`` launch a call (one
+    image: ``launches``; a lane axis: ``launches_batched``), the plain
+    chain's bits on every level, gradient and lane."""
+    img = detect_lanes[shape][0] if lanes == 1 else detect_lanes[shape][:lanes]
+    _check_pyramid_kernels(img, f"{shape}, {lanes} lane(s)")
+
+
+@pytest.mark.parametrize("shape", list(DETECT_SHAPES))
+def test_pyramid_kernels_adversarial_images(dev, shape):
+    """Constant, lattice, border corners, noise, and the noise with NaN and
+    infinite pixels at the edges and inside: the plain chain's bits."""
+    H, W, _ = DETECT_SHAPES[shape]
+    imgs = _adversarial(H, W)
+    bad = imgs[3].copy()
+    for y, x, v in ((0, 0, np.nan), (H - 1, W - 1, np.inf), (H // 2, W // 2, -np.inf), (7, W - 3, np.nan),
+                    (H - 2, 5, np.inf)):
+        bad[y, x] = v
+    imgs = torch.as_tensor(np.concatenate([imgs, bad[None]]), device=dev)
+    _check_pyramid_kernels(imgs, f"{shape}, adversarial")
+
+
 def test_wrappers_reject_bad_inputs(dev):
     img = torch.zeros((64, 64), device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
@@ -382,6 +449,16 @@ def test_wrappers_reject_bad_inputs(dev):
         detect_corners(img.float(), 4, 5, 40, 18, 7)
     with pytest.raises(RuntimeError):  # a cell and its halo wider than 512 columns
         detect_corners(torch.zeros((64, 600), device=dev), 1, 1, 10, 18, 7)
+    with pytest.raises(ValueError):  # float64
+        pyramid_cuda.build_pyramid(img, 3)
+    with pytest.raises(ValueError):  # two leading axes
+        pyramid_cuda.build_pyramid(torch.zeros((2, 2, 64, 64), device=dev), 3)
+    with pytest.raises(ValueError):  # not contiguous
+        pyramid_cuda.grad_pyramid([torch.zeros((64, 64), device=dev).t()])
+    with pytest.raises(ValueError):  # levels with different lane axes
+        pyramid_cuda.grad_pyramid([torch.zeros((2, 64, 64), device=dev), torch.zeros((3, 32, 32), device=dev)])
+    with pytest.raises(RuntimeError):  # more than 8 levels
+        pyramid_cuda.grad_pyramid([torch.zeros((8, 8), device=dev)] * 9)
     p = [torch.zeros((64, 64), device=dev)]
     with pytest.raises(ValueError):
         lk_track_cuda(p, p, p, p, torch.zeros((4, 2), device=dev), torch.zeros((4, 2), device=dev),
@@ -390,9 +467,11 @@ def test_wrappers_reject_bad_inputs(dev):
 
 def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
     """Two lanes (the second with seeded image noise) through the fleet step,
-    captured and replayed per frame: one K3 and one batched describe launch
-    per frame (replays times what the capture counted), no one-lane launch,
-    and the eager step's ``lane_mm`` and ``lane_trsm`` launches per frame."""
+    captured and replayed per frame: one K3, one batched detection, one
+    batched describe and one batched ``scharr`` launch and three batched
+    ``pyr_down`` launches per frame (replays times what the capture
+    counted), no one-lane launch, and the eager step's ``lane_mm`` and
+    ``lane_trsm`` launches per frame."""
     data, imgs = seq
     B, T = 2, imgs.shape[0]
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -416,6 +495,7 @@ def test_fleet_path_on_card_launches_batched_kernels(dev, seq):
     assert per_step["lane_mm"] > 0 and per_step["lane_trsm"] > 0
     assert launches == {"lk_track": 0, "lk_track_batched": T, "orb_describe": 0, "orb_describe_batched": T,
                         "detect_corners": 0, "detect_corners_batched": T,
+                        "pyr_down": 0, "pyr_down_batched": 3 * T, "scharr": 0, "scharr_batched": T,
                         **{k: T * v for k, v in per_step.items()}}
     assert outs.p.shape == (T, B, 3) and torch.isfinite(outs.p).all().item()
     assert (outs.initialized.sum(0) >= 40).all().item() and int(outs.did_reset.sum()) == 0
@@ -426,6 +506,7 @@ def test_main_path_on_card_launches_both_kernels(dev, seq):
     g = {k: torch.as_tensor(data[k], device=dev) for k in ("imu_t", "imu_w", "imu_a", "imu_valid", "t_img")}
     ps = init_pipeline_state(CFG, dev)
     lk0, orb0, det0 = lk_track_cuda.launches, orb.describe.launches, detect_corners.launches
+    pyr0 = _pyramid_counts()
     outs = []
     for k in range(imgs.shape[0]):
         fr = FrameInput(image=imgs[k], t=g["t_img"][k],
@@ -436,6 +517,9 @@ def test_main_path_on_card_launches_both_kernels(dev, seq):
     T = imgs.shape[0]
     assert lk_track_cuda.launches - lk0 == T and orb.describe.launches - orb0 == T
     assert detect_corners.launches - det0 == T
+    pyr1 = _pyramid_counts()
+    assert {k: pyr1[k] - pyr0[k] for k in pyr1} == {"pyr_down": 3 * T, "pyr_down_batched": 0, "scharr": T,
+                                                     "scharr_batched": 0}
     p = torch.stack([o.p for o in outs]).cpu().numpy()
     inited = torch.stack([o.initialized for o in outs]).cpu().numpy()
     assert np.isfinite(p).all() and inited.sum() >= 40

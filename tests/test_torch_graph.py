@@ -340,10 +340,10 @@ def card_frames(dev):
 @pytest.mark.parametrize("lanes", [0, 3])
 def test_captured_equals_eager_on_card(dev, card_frames, lanes, form):
     """40 frames: the replayed step equals the eager step bit for bit, and
-    the launches are the replays times what the capture counted (one K1 and
-    one describe per frame, or one K3 and one batched describe and the
-    eager step's ``lane_mm`` and ``lane_trsm`` launches, none for one
-    instance); in both
+    the launches are the replays times what the capture counted (one K1,
+    one detection, one describe, three ``pyr_down`` and one ``scharr`` per
+    frame, or their batched launches and the eager step's ``lane_mm`` and
+    ``lane_trsm`` launches, none for one instance); in both
     covariance forms (the Joseph form's P a constant (D, D))."""
     cfg = FORMS[form]
     data, frames = card_frames
@@ -364,7 +364,8 @@ def test_captured_equals_eager_on_card(dev, card_frames, lanes, form):
     names = (("lk_track_batched", "orb_describe_batched", "detect_corners_batched") if lanes
              else ("lk_track", "orb_describe", "detect_corners"))
     per = {k: v for k, v in graph.launches_per_replay.items() if v}
-    want = dict.fromkeys(names, 1) | {k: v for k, v in per_step.items() if v}
+    want = (dict.fromkeys(names, 1) | {k: v for k, v in per_step.items() if v}
+            | ({"pyr_down_batched": 3, "scharr_batched": 1} if lanes else {"pyr_down": 3, "scharr": 1}))
     assert per == want and graph.replays == T and (per_step["lane_mm"] > 0) == bool(lanes)
     _assert_bits(got, eager)
     assert int(eager[1].initialized.sum()) >= 5 * max(lanes, 1)

@@ -147,8 +147,9 @@ def keep(values: dict, key: str, outs) -> None:
 
 class KernelTaps:
     """Inside ``with``: the wrappers of the ``ctypes`` kernels, as the step
-    calls them (``models/frontend.py``: ``lk_track_cuda``, ``detect_corners``,
-    ``describe``; ``core/linalg.py``: ``lane_mm``, ``lane_solve_triangular``),
+    calls them (``models/frontend.py``: ``build_pyramid``, ``grad_pyramid``,
+    ``lk_track_cuda``, ``detect_corners``, ``describe``; ``core/linalg.py``:
+    ``lane_mm``, ``lane_solve_triangular``),
     replaced by taps that call them and record their outputs (``calls``:
     {"kernel", "site", "out"}; ``values`` "k{i}.{j}")."""
 
@@ -157,7 +158,8 @@ class KernelTaps:
         from larvio_tpu_torch.models import frontend
 
         self.calls, self.values = [], values
-        self._slots = [(frontend, "lk_track_cuda"), (frontend, "detect_corners"), (frontend, "describe"),
+        self._slots = [(frontend, "build_pyramid"), (frontend, "grad_pyramid"), (frontend, "lk_track_cuda"),
+                       (frontend, "detect_corners"), (frontend, "describe"),
                        (linalg, "lane_mm"), (linalg, "lane_solve_triangular")]
         self._saved = []
 
